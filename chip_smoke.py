@@ -3,19 +3,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's waveguide leg through its public entry points on the card
-and fails (non-zero exit, no result line) on any error:
+Drives the port through its public entry points on the card and fails
+(non-zero exit, no result line) on any error:
 
 1. device: needs CUDA; prints the card's name and power limit;
-2. build: compiles every kernel of the path from ``wayverb_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version on the same CUDA tensors;
-4. T30 oracle: ``canonical`` on a 2.0×2.5×3.0 m box against Sabine, against
-   the port's plain CPU run of the same case, then ``postprocess``;
-5. a concert-hall shoebox of 12.8 M nodes for 1024 steps, with the kernel
-   launch count, step time, node-update rate, kernel time and peak memory,
-   and a profiler breakdown of where a step's time goes;
-6. one JSON line of per-kernel results, then the last line,
-   ``{"ok": true, "device": {...}}``.
+2. build: compiles every kernel of the port from ``wayverb_tpu_torch/csrc``,
+   one nvcc per source, all started together;
+3. B1 (the fused step) against its plain PyTorch version on the same CUDA
+   tensors;
+4. T30 oracle through the fused path: a 2.0×2.5×3.0 m box against Sabine,
+   against the port's plain CPU run of the same case, then ``postprocess``;
+5. a concert-hall shoebox of 12.8 M nodes for 1024 fused steps
+   (``run_waveguide_box``), with the launch count, step time, node-update
+   rate, kernel time and peak memory, and a profiler breakdown of a step;
+6. B2 (the mega chunk, K = 128) against its plain version at three shapes,
+   the hall one with the hall's source and receiver taps;
+7. the mega path (``canonical``) against the fused path on the hall, with
+   B2's time per sub-step and the launch counts of both kernels;
+8. T30 through the mega path;
+9. the hybrid engine end to end: ``Engine.run`` + ``render`` and
+   ``render_all`` on a hybrid hall, with the seconds of each phase; then B2
+   against its plain version on the engine's own mesh, filter coefficients,
+   source and receiver taps;
+10. the hybrid engine on the card against the same run on the CPU, with the
+    same random draws;
+11. one JSON line of per-kernel results, then the last line,
+    ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -28,10 +41,18 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FS = 3333.33                # mesh rate of a 500 Hz waveguide cutoff
+# the engine's mesh rate at a 500 Hz cutoff, usable portion 0.6
+# (compute_sampling_frequency), so the hall of phases 5-7 is the mesh that
+# Engine.run builds in phase 9
+FS = 500.0 / (0.25 * 0.6)
 ABSORPTION = 0.1
 SEED = 20261016
 KERNEL_ATOL = 1e-5          # test_box_fused.py bound on the Pallas kernel
+MEGA_REL = 1e-5             # B2 vs plain, per unit of peak
+MEGA_VS_FUSED_REL = 1e-4    # mega vs fused path over 1024 steps, of peak
+HYBRID_REL = 1e-3           # hybrid IR card vs CPU, of peak
+CHUNK = 128
+KERNELS = ("box_fused_step", "box_mega_chunk")
 
 
 def _fail(msg: str):
@@ -63,15 +84,20 @@ def phase_device(torch):
 
 
 def phase_build(card):
+    from concurrent.futures import ThreadPoolExecutor
     from wayverb_tpu_torch import _build
     t0 = time.perf_counter()
-    lib, log = _build.build("box_fused_step", force=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        results = list(pool.map(lambda n: _build.build(n, force=True),
+                                KERNELS))
     dt = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[2 build] box_fused_step.cu → {os.path.relpath(lib, ROOT)} in "
-          f"{dt:.2f} s (nvcc, sm_90a); ptxas: {' | '.join(ptxas)} "
-          f"[{card}]")
+    for name, (lib, log) in zip(KERNELS, results):
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[2 build] {name}.cu → {os.path.relpath(lib, ROOT)} "
+              f"(nvcc, sm_90a); ptxas: {' | '.join(ptxas)}")
+    print(f"[2 build] {len(KERNELS)} kernels built in parallel in "
+          f"{dt:.2f} s [{card}]")
 
 
 def _random_step_inputs(torch, spec, x_offset, gen, halos=True):
@@ -128,18 +154,53 @@ def phase_kernel_vs_plain(torch, hall_spec, card):
         torch.cuda.synchronize()
         err = _max_err(got, want)
         worst = max(worst, err)
-        print(f"[3 kernel] {tuple(cur.shape)} mode {mode} ({what}): "
+        print(f"[3 B1] {tuple(cur.shape)} mode {mode} ({what}): "
               f"max |kernel - plain| = {err:.3e} (bound {KERNEL_ATOL:g})")
         if not err <= KERNEL_ATOL:
-            _fail(f"kernel disagrees with its plain version: {err}")
+            _fail(f"B1 disagrees with its plain version: {err}")
     return worst
+
+
+def _t30_box():
+    from wayverb_tpu_torch.core.geometry import Box
+    box = Box((0, 0, 0), (2.0, 2.5, 3.0))
+    d = np.asarray(box.max_corner)
+    sabine = 0.161 * np.prod(d) / (
+        2 * (d[0] * d[1] + d[1] * d[2] + d[0] * d[2]) * ABSORPTION)
+    return box, sabine, tuple(d * 0.35), tuple(d * 0.65)
+
+
+def _fused_canonical(mesh, src, rcv, sim_time, env=None):
+    """``canonical``'s problem run through the fused path explicitly (on the
+    card ``canonical`` itself routes to the mega path)."""
+    from wayverb_tpu_torch.core.environment import Environment
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    source, receiver, n, fs = wgrun.canonical_problem(
+        mesh, src, rcv, sim_time, env or Environment())
+    out = wgrun.run_waveguide_box(mesh.structure, mesh.box_spec, source,
+                                  receiver, n)
+    intensity, pressure = out["outputs"]
+    return wgrun.WaveguideOutput(pressure=pressure, intensity=intensity,
+                                 sample_rate=fs, stable=out["stable"])
+
+
+def _t30_of(out, sabine, tag, steps_s, card):
+    from wayverb_tpu_torch.signal.filters import decay_time
+    steps = out.pressure.shape[0]
+    if not bool(out.stable):
+        _fail(f"{tag}: T30 run unstable on the card")
+    t30 = float(decay_time(out.pressure, out.sample_rate, -5, -35))
+    rel = abs(t30 - sabine) / sabine
+    print(f"[{tag}] {steps} steps on the card in {steps_s:.2f} s "
+          f"({1e3 * steps_s / steps:.4f} ms/step): T30 {t30:.4f} s vs Sabine "
+          f"{sabine:.4f} s ({100 * rel:.2f}% off, bound 5%) [{card}]")
+    if not rel < 0.05:
+        _fail(f"{tag}: T30 {t30} is {100 * rel:.2f}% from Sabine {sabine}")
 
 
 def phase_t30(torch, card):
     from wayverb_tpu_torch.core.attenuator import Null
     from wayverb_tpu_torch.core.environment import Environment
-    from wayverb_tpu_torch.core.geometry import Box
-    from wayverb_tpu_torch.signal.filters import decay_time
     from wayverb_tpu_torch.waveguide import run as wgrun
     from wayverb_tpu_torch.waveguide.descriptor import (
         compute_cutoff_frequency, grid_spacing)
@@ -147,29 +208,17 @@ def phase_t30(torch, card):
                                                          postprocess)
     env = Environment()
     dx = grid_spacing(env.speed_of_sound, 1.0 / FS)
-    box = Box((0, 0, 0), (2.0, 2.5, 3.0))
-    d = np.asarray(box.max_corner)
-    sabine = 0.161 * np.prod(d) / (
-        2 * (d[0] * d[1] + d[1] * d[2] + d[0] * d[2]) * ABSORPTION)
-    src, rcv = tuple(d * 0.35), tuple(d * 0.65)
+    box, sabine, src, rcv = _t30_box()
     absorption = np.full((1, 8), ABSORPTION)
 
     mesh = wgrun.shoebox_mesh(box, absorption, dx, FS, device="cuda")
+    print(f"[4 t30] {mesh.descriptor.dimensions} grid, fused path (first "
+          "run on the card)")
     t0 = time.perf_counter()
-    out = wgrun.canonical(mesh, src, rcv, 2.0, env)
+    out = _fused_canonical(mesh, src, rcv, 2.0, env)
     torch.cuda.synchronize()
-    t_gpu = time.perf_counter() - t0
+    _t30_of(out, sabine, "4 t30", time.perf_counter() - t0, card)
     steps = out.pressure.shape[0]
-    if not bool(out.stable):
-        _fail("T30 run unstable on the card")
-    t30 = float(decay_time(out.pressure, out.sample_rate, -5, -35))
-    rel = abs(t30 - sabine) / sabine
-    print(f"[4 t30] {mesh.descriptor.dimensions} grid, {steps} steps on the "
-          f"card in {t_gpu:.2f} s ({1e3 * t_gpu / steps:.4f} ms/step, first "
-          f"run on the card): T30 {t30:.4f} s vs Sabine {sabine:.4f} s "
-          f"({100 * rel:.2f}% off, bound 5%) [{card}]")
-    if not rel < 0.05:
-        _fail(f"T30 {t30} is {100 * rel:.2f}% from Sabine {sabine}")
 
     mesh_cpu = wgrun.shoebox_mesh(box, absorption, dx, FS, device="cpu")
     t0 = time.perf_counter()
@@ -194,15 +243,20 @@ def phase_t30(torch, card):
           f"samples (expected {want_len}), finite {finite}")
     if audio.shape != (want_len,) or not finite:
         _fail("postprocess output has the wrong length or is not finite")
+    return mesh, out, sabine, src, rcv
+
+
+def _hall_box(dx):
+    from wayverb_tpu_torch.core.geometry import Box
+    side = (224, 224, 256)     # bench.py's production-scale shoebox
+    return Box((0, 0, 0), tuple(dx * (s - 4) for s in side))
 
 
 def _hall_mesh(torch):
-    from wayverb_tpu_torch.core.geometry import Box
     from wayverb_tpu_torch.waveguide import run as wgrun
     from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
-    side = (224, 224, 256)     # bench.py's production-scale shoebox
     dx = grid_spacing(340.0, 1.0 / FS)
-    box = Box((0, 0, 0), tuple(dx * (s - 4) for s in side))
+    box = _hall_box(dx)
     t0 = time.perf_counter()
     mesh = wgrun.shoebox_mesh(box, np.full((1, 8), ABSORPTION), dx, FS,
                               device="cuda")
@@ -228,26 +282,30 @@ def _cuda_time_us(torch, fn, reps):
     return 1e3 * start.elapsed_time(stop) / reps
 
 
+def _hall_sim_time(mesh, steps):
+    fs = mesh.descriptor.sample_rate(340.0)
+    sim_time = (steps - 0.5) / fs
+    if math.ceil(fs * sim_time) != steps:
+        _fail(f"hall simulation time does not give {steps} steps")
+    return sim_time
+
+
 def phase_hall(torch, box, dx, mesh, setup_s, card):
-    from wayverb_tpu_torch.waveguide import run as wgrun
     from wayverb_tpu_torch.waveguide.box_fused import fused_step
     steps = 1024
     desc = mesh.descriptor
     nodes = desc.num_nodes
-    fs = desc.sample_rate(340.0)
-    sim_time = (steps - 0.5) / fs
-    if math.ceil(fs * sim_time) != steps:
-        _fail("hall simulation time does not give 1024 steps")
+    sim_time = _hall_sim_time(mesh, steps)
     src, rcv = _hall_positions(box, dx)
     print(f"[5 hall] {desc.dimensions} = {nodes} nodes, mesh setup "
-          f"{setup_s:.2f} s on the host")
+          f"{setup_s:.2f} s on the host; fused path (run_waveguide_box)")
 
-    wgrun.canonical(mesh, src, rcv, 16 / fs)        # warm-up, 16 steps
+    _fused_canonical(mesh, src, rcv, 16 / desc.sample_rate(340.0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_step.launches = 0
     t0 = time.perf_counter()
-    out = wgrun.canonical(mesh, src, rcv, sim_time)
+    out = _fused_canonical(mesh, src, rcv, sim_time)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_step.launches
@@ -261,14 +319,14 @@ def phase_hall(torch, box, dx, mesh, setup_s, card):
           f"{float(out.pressure.abs().max()):.4f}")
     if not (n == steps and stable and finite and launches == steps):
         _fail("hall run failed its checks")
-    print(f"[5 hall] wall {1e3 * wall / steps:.4f} ms/step, "
+    print(f"[5 hall] fused wall {1e3 * wall / steps:.4f} ms/step, "
           f"{nodes * steps / wall:.4e} node-updates/s, peak memory "
           f"{peak_mem / 2**20:.1f} MiB [{card}]")
-    return launches, wall / steps
+    return out, launches, wall / steps
 
 
 def phase_kernel_time(torch, spec, card):
-    """Kernel alone vs its plain version at the hall shape (CUDA events)."""
+    """B1 alone vs its plain version at the hall shape (CUDA events)."""
     from wayverb_tpu_torch.waveguide.box_fused import (_fused_step_plain,
                                                        fused_step)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -283,26 +341,25 @@ def phase_kernel_time(torch, spec, card):
     p_us = _cuda_time_us(torch, lambda: _fused_step_plain(
         geom, cur, prev, planes, inj, inj_val), 20)
     nodes = cur.numel()
-    print(f"[5 hall] fused step alone at {tuple(cur.shape)}: kernel "
+    print(f"[5 hall] B1 alone at {tuple(cur.shape)}: kernel "
           f"{k_us:.2f} us/step ({12 * nodes / k_us / 1e3:.1f} GB/s at "
           f"12 B/node), plain version {p_us:.2f} us/step [{card}]")
     return k_us, p_us
 
 
 def phase_profile(torch, mesh, box, dx, step_s, card):
-    """Where a step's time goes: a profiled 32-step window of the hall.
+    """Where a fused step's time goes: a profiled 32-step window.
 
     ``step_s``: the unprofiled wall time per step of the 1024-step run; the
     profiler's own overhead inflates the profiled wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from wayverb_tpu_torch.waveguide import run as wgrun
     steps = 32
     fs = mesh.descriptor.sample_rate(340.0)
     src, rcv = _hall_positions(box, dx)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        wgrun.canonical(mesh, src, rcv, (steps - 0.5) / fs)
+        _fused_canonical(mesh, src, rcv, (steps - 0.5) / fs)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = []
@@ -330,25 +387,391 @@ def phase_profile(torch, mesh, box, dx, step_s, card):
               f"/step  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# B2, the mega chunk
+
+def _random_chunk_inputs(torch, spec, order, gen):
+    """Random fields, state and planes, zero in the planes' padding."""
+    from wayverb_tpu_torch.waveguide.box_fused import stacked_plane_shape
+    Umax, Vmax = stacked_plane_shape(spec)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
+    mask = torch.zeros((6, Umax, Vmax), device="cuda")
+    for p in range(6):
+        U, V = spec.plane_shape(p)
+        mask[p, :U, :V] = 1.0
+    st = rnd(order, 6, Umax, Vmax) * mask
+    pln = rnd(3, 6, Umax, Vmax) * mask
+    return rnd(*spec.dims), rnd(*spec.dims), st.contiguous(), \
+        pln.contiguous()
+
+
+def _chunk_case(torch, spec, fb, fa, src, taps, gen, scale=1.0):
+    """B2 and its plain version on the same inputs: (max |Δ|, peak, bad
+    kernel, bad plain, kernel outputs)."""
+    from wayverb_tpu_torch.waveguide.box_mega import (_mega_chunk_plain,
+                                                      mega_chunk)
+    order = fb.shape[1] - 1
+    cur, prev, st, pln = (t * scale for t in _random_chunk_inputs(
+        torch, spec, order, gen))
+    sig = torch.randn(CHUNK, generator=gen, device="cuda")
+    args = (spec, sig, fb, fa)
+    state = (cur, prev, st, pln)
+    want = _mega_chunk_plain(*args, *state, src, taps)
+    got = mega_chunk(*args, *(t.clone() for t in state), src, taps)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got[:5], want[:5]))
+    peak = max(float(w.abs().max()) for w in want[:5])
+    return err, peak, float(got[5]), float(want[5]), got
+
+
+def _report_chunk(tag, what, err, peak, bad_k, bad_p):
+    """Print one B2-vs-plain case and fail past the bound; returns err."""
+    rel = err / max(peak, 1e-30)
+    print(f"[{tag}] {what}: max |kernel - plain| = {err:.3e} over taps, "
+          f"fields, state and planes, peak {peak:.3e}, {rel:.3e} of peak "
+          f"(bound {MEGA_REL:g}); bad count kernel {bad_k:g}, plain "
+          f"{bad_p:g}")
+    if not (rel <= MEGA_REL and bad_k == bad_p):
+        _fail(f"B2 disagrees with its plain version: {what}")
+    return err
+
+
+def _hall_chunk_problem(torch, mesh, box, dx):
+    """The hall run's source (x, y, z, mode) and receiver tap nodes."""
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    src_pos, rcv_pos = _hall_positions(box, dx)
+    source, receiver, _, _ = wgrun.canonical_problem(mesh, src_pos, rcv_pos,
+                                                     CHUNK / FS)
+    src = tuple(int(v) for v in
+                source.kernel_injection(mesh.box_spec.dims, 0)[0])
+    return src, receiver.tap_nodes().reshape(-1).to(torch.int64).contiguous()
+
+
+def phase_mega_vs_plain(torch, hall_mesh, box, dx, card):
+    """B2 against _mega_chunk_plain, K = 128, at three shapes; returns the
+    worst max |Δ| and the hall case for timing."""
+    from wayverb_tpu_torch.core.environment import Environment
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import (BoxSpec,
+                                                       face_coefficients)
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst = 0.0
+
+    def report(what, err, peak, bad_k, bad_p):
+        nonlocal worst
+        worst = max(worst, _report_chunk("6 B2", what, err, peak, bad_k,
+                                         bad_p))
+
+    # 1. a small unaligned box, the source on each inner plane in turn
+    small = BoxSpec(dims=(21, 17, 26), ilo=(2, 3, 2), ihi=(18, 13, 23),
+                    face_surface=(0,) * 6)
+    t30_mesh = wgrun.shoebox_mesh(*_t30_box()[:1], np.full((1, 8),
+                                                           ABSORPTION),
+                                  grid_spacing(340.0, 1.0 / FS), FS,
+                                  device="cuda")
+    fb, fa = face_coefficients(t30_mesh.structure, t30_mesh.box_spec)
+    mid = [(small.ilo[a] + small.ihi[a]) // 2 for a in range(3)]
+    for p in range(6):
+        a, side = divmod(p, 2)
+        loc = list(mid)
+        loc[a] = small.ilo[a] if side == 0 else small.ihi[a]
+        X, Y, Z = small.dims
+        flat = (loc[0] * Y + loc[1]) * Z + loc[2]
+        taps = torch.tensor([flat, flat + 1, flat - Z, 5, X * Y * Z - 1],
+                            device="cuda")
+        err, peak, bk, bp, _ = _chunk_case(
+            torch, small, fb, fa, tuple(loc) + (1 + p % 2,), taps, gen)
+        report(f"{small.dims} source on inner plane {p} "
+               f"({'hard' if p % 2 == 0 else 'soft'})", err, peak, bk, bp)
+
+    # 2. the T30 box with a soft source and its receiver's taps
+    spec = t30_mesh.box_spec
+    box, _, src_pos, rcv_pos = _t30_box()
+    source, receiver, _, _ = wgrun.canonical_problem(
+        t30_mesh, src_pos, rcv_pos, 0.1, Environment())
+    src = source.kernel_injection(spec.dims, 0)[0][:3] + (2,)
+    err, peak, bk, bp, _ = _chunk_case(torch, spec, fb, fa, src,
+                                       receiver.tap_nodes(), gen)
+    report(f"T30 box {spec.dims}, soft source", err, peak, bk, bp)
+
+    # 3. the hall, from random field, state and planes, with the hall
+    # run's hard source and its receiver's taps
+    spec = hall_mesh.box_spec
+    fb, fa = face_coefficients(hall_mesh.structure, spec)
+    src, taps = _hall_chunk_problem(torch, hall_mesh, box, dx)
+    err, peak, bk, bp, _ = _chunk_case(torch, spec, fb, fa, src, taps, gen)
+    report(f"hall {spec.dims}, random state, hall source and taps", err,
+           peak, bk, bp)
+    return worst, (spec, fb, fa, src, taps)
+
+
+def phase_mega_time(torch, case, card):
+    """B2 alone at the hall shape, and its plain version (CUDA events)."""
+    from wayverb_tpu_torch.waveguide.box_mega import (_mega_chunk_plain,
+                                                      mega_chunk)
+    spec, fb, fa, src, taps = case
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    state = _random_chunk_inputs(torch, spec, fb.shape[1] - 1, gen)
+    sig = torch.randn(CHUNK, generator=gen, device="cuda") * 1e-3
+    k_us = _cuda_time_us(torch, lambda: mega_chunk(
+        spec, sig, fb, fa, *state, src, taps), 5)
+    p_us = _cuda_time_us(torch, lambda: _mega_chunk_plain(
+        spec, sig, fb, fa, *state, src, taps), 1)
+    print(f"[7 mega] B2 alone at {spec.dims}: kernel {k_us / CHUNK:.2f} "
+          f"us/sub-step ({k_us / 1e3:.3f} ms per K = {CHUNK} chunk), plain "
+          f"version {p_us / CHUNK:.2f} us/sub-step [{card}]")
+    return k_us, p_us
+
+
+def phase_mega_hall(torch, box, dx, mesh, fused_out, fused_step_s, card):
+    """canonical (the mega path on the card) against the fused path."""
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import fused_step
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    steps = 1024
+    nodes = mesh.descriptor.num_nodes
+    sim_time = _hall_sim_time(mesh, steps)
+    src, rcv = _hall_positions(box, dx)
+    wgrun.canonical(mesh, src, rcv, (CHUNK - 0.5) / FS)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_step.launches = 0
+    mega_chunk.launches = 0
+    t0 = time.perf_counter()
+    out = wgrun.canonical(mesh, src, rcv, sim_time)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_mem = torch.cuda.max_memory_allocated()
+    m_launch, f_launch = mega_chunk.launches, fused_step.launches
+    peak = float(fused_out.pressure.abs().max())
+    err_p = float((out.pressure - fused_out.pressure).abs().max())
+    err_i = float((out.intensity - fused_out.intensity).abs().max())
+    ipeak = float(fused_out.intensity.abs().max())
+    rel = max(err_p / peak, err_i / max(ipeak, 1e-30))
+    print(f"[7 mega] hall {steps} steps through canonical: stable "
+          f"{bool(out.stable)}, mega_chunk launches {m_launch} (expected "
+          f"{-(-steps // CHUNK)}), fused_step launches {f_launch} (expected "
+          "0)")
+    print(f"[7 mega] mega vs fused: max |Δp| {err_p:.3e} on peak {peak:.4f},"
+          f" max |Δintensity| {err_i:.3e} on peak {ipeak:.3e}: {rel:.3e} of "
+          f"peak (bound {MEGA_VS_FUSED_REL:g})")
+    print(f"[7 mega] mega wall {1e3 * wall / steps:.4f} ms/step, "
+          f"{nodes * steps / wall:.4e} node-updates/s, peak memory "
+          f"{peak_mem / 2**20:.1f} MiB; fused wall {1e3 * fused_step_s:.4f} "
+          f"ms/step, {nodes / fused_step_s:.4e} node-updates/s [{card}]")
+    if not (bool(out.stable) and m_launch == -(-steps // CHUNK)
+            and f_launch == 0 and rel <= MEGA_VS_FUSED_REL):
+        _fail("mega hall run failed its checks")
+    return rel
+
+
+def phase_t30_mega(torch, mesh, fused_out, sabine, src, rcv, card):
+    from wayverb_tpu_torch.core.environment import Environment
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    mega_chunk.launches = 0
+    t0 = time.perf_counter()
+    out = wgrun.canonical(mesh, src, rcv, 2.0, Environment())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if mega_chunk.launches == 0:
+        _fail("T30 through canonical did not take the mega path")
+    _t30_of(out, sabine, "8 t30 mega", dt, card)
+    peak = float(fused_out.pressure.abs().max())
+    err = float((out.pressure - fused_out.pressure).abs().max())
+    print(f"[8 t30 mega] {mega_chunk.launches} chunks; mega vs fused on the "
+          f"card: max |Δp| {err:.3e}, {err / peak:.3e} of peak")
+
+
+# ---------------------------------------------------------------------------
+# the hybrid engine
+
+def _engine(torch, box, cutoff, device, absorption=ABSORPTION,
+            scattering=0.1):
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.geometry import box_scene
+    from wayverb_tpu_torch.core.surfaces import Surface
+    surfaces = Surface(absorption=torch.full((1, 8), absorption),
+                       scattering=torch.full((1, 8), scattering))
+    return eng.Engine(box_scene(box), surfaces,
+                      eng.WaveguideParameters(cutoff=cutoff,
+                                              usable_portion=0.6),
+                      scene_box=box, device=device)
+
+
+def phase_hybrid_hall(torch, hall_spec, card):
+    """Engine.run + render on the hybrid hall; seconds of each phase.  Then
+    B2 against its plain version on the engine's mesh, filter coefficients,
+    source and receiver taps.  Returns the launch counts, the engine mesh's
+    dims and B2's max |Δ| there."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Microphone, Null
+    from wayverb_tpu_torch.waveguide.box_fused import (face_coefficients,
+                                                       fused_step)
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    dx = grid_spacing(340.0, 1.0 / FS)
+    box = _hall_box(dx)
+    src, rcv = _hall_positions(box, dx)
+    t0 = time.perf_counter()
+    e = _engine(torch, box, 500.0, "cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    params = eng.RaytracerParameters()
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    mega_chunk.launches = 0
+    fused_step.launches = 0
+    mark("start")
+    results = e.run(src, rcv, gen, params, waveguide_time=0.3,
+                    state_callback=mark)
+    mark("end")
+    launches = {"box_mega_chunk": mega_chunk.launches,
+                "box_fused_step": fused_step.launches}
+    t_render = time.perf_counter()
+    ir = eng.render(results, Null(), 44100.0, gen)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t_render
+    both = eng.render_all(results, [Null(), Microphone(shape=0.5)], gen,
+                          output_sample_rate=44100.0)
+    torch.cuda.synchronize()
+    secs = {marks[i][0]: marks[i + 1][1] - marks[i][1]
+            for i in range(len(marks) - 1)}
+    trace_s = secs["running_raytracer"]
+    depth = eng.optimum_depth(e.surfaces)
+    print(f"[9 hybrid] hall {box.max_corner} m, mesh "
+          f"{e.mesh.descriptor.dimensions}, engine setup {setup:.2f} s; "
+          f"{params.rays} rays x {depth} bounces")
+    print(f"[9 hybrid] seconds: trace {trace_s:.3f}, image sources "
+          f"{secs['finding_image_sources']:.3f}, waveguide "
+          f"{secs['running_waveguide']:.3f} "
+          f"({results.waveguide_bands[0].pressure.shape[0]} steps), finish "
+          f"{secs['finishing']:.3f}, render {t_render:.3f}; trace "
+          f"{params.rays * depth / trace_s:.4e} ray-bounces/s; launches "
+          f"{launches} [{card}]")
+    ir_np = ir.cpu().numpy()
+    finite = bool(np.all(np.isfinite(ir_np))) and \
+        bool(torch.isfinite(both).all())
+    d = float(np.linalg.norm(np.subtract(src, rcv)))
+    arrival = d / 340.0
+    peak_t = float(np.abs(ir_np).argmax()) / 44100.0
+    half = int(0.5 * 44100)
+    early = float(np.square(ir_np[:half]).sum())
+    late = float(np.square(ir_np[-half:]).sum())
+    print(f"[9 hybrid] IR {ir_np.shape[0]} samples at 44.1 kHz, finite "
+          f"{finite}; peak at {1e3 * peak_t:.2f} ms, direct arrival "
+          f"{1e3 * arrival:.2f} ms (bound 20 ms); energy first 0.5 s "
+          f"{early:.4e}, last 0.5 s {late:.4e}; render_all "
+          f"{tuple(both.shape)}, max {float(both.abs().max()):.4f}")
+    if not (finite and abs(peak_t - arrival) <= 0.02 and late < early
+            and launches["box_mega_chunk"] > 0
+            and tuple(both.shape) == (2, ir_np.shape[0])):
+        _fail("hybrid hall failed its checks")
+
+    spec = e.mesh.box_spec
+    if spec != hall_spec:
+        _fail(f"the engine's hall mesh {spec} is not the mesh phases 5-7 "
+              f"checked, {hall_spec}")
+    fb, fa = face_coefficients(e.mesh.structure, spec)
+    src, taps = _hall_chunk_problem(torch, e.mesh, box, dx)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    err, peak, bk, bp, _ = _chunk_case(torch, spec, fb, fa, src, taps, gen)
+    _report_chunk("9 B2", f"engine hall {spec.dims}, engine filters, source "
+                  f"{src} and {taps.numel()} receiver taps, random state",
+                  err, peak, bk, bp)
+    return launches, spec.dims, err
+
+
+def phase_hybrid_card_vs_cpu(torch, card):
+    """The test_combined.py box on the card and on the CPU, same draws."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Null
+    from wayverb_tpu_torch.core.geometry import Box
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    box = Box((0.0, 0.0, 0.0), (5.56, 3.97, 2.81))
+    src, rcv = (2.09, 2.12, 2.12), (2.09, 3.08, 0.96)
+    params = eng.RaytracerParameters(rays=1 << 13, max_time=1.5)
+    irs, secs = [], []
+    for device in ("cuda", "cpu"):
+        mega_chunk.launches = 0
+        t0 = time.perf_counter()
+        e = _engine(torch, box, 400.0, device)
+        # CPU generators: both runs draw the same numbers
+        results = e.run(src, rcv, torch.Generator().manual_seed(SEED), params,
+                        waveguide_time=0.25)
+        ir = eng.render(results, Null(), 16000.0,
+                        torch.Generator().manual_seed(SEED + 1))
+        irs.append(ir.cpu())
+        secs.append(time.perf_counter() - t0)
+        if (mega_chunk.launches > 0) != (device == "cuda"):
+            _fail(f"hybrid on {device}: unexpected waveguide route")
+    card_ir, cpu_ir = irs
+    peak = float(cpu_ir.abs().max())
+    err = float((card_ir - cpu_ir).abs().max()) \
+        if card_ir.shape == cpu_ir.shape else float("inf")
+    print(f"[10 hybrid] test_combined box, {params.rays} rays: card "
+          f"{secs[0]:.2f} s (mega path), CPU {secs[1]:.2f} s (fused path); "
+          f"IR {tuple(card_ir.shape)} vs {tuple(cpu_ir.shape)}, max |Δ| "
+          f"{err:.3e} = {err / peak:.3e} of peak (bound {HYBRID_REL:g}) "
+          f"[{card}]")
+    if not err <= HYBRID_REL * peak:
+        _fail("hybrid IR on the card differs from the CPU run")
+    return err / peak
+
+
 def main():
     import torch
     card = phase_device(torch)
     phase_build(card)
     box, dx, mesh, setup_s = _hall_mesh(torch)
-    worst = phase_kernel_vs_plain(torch, mesh.box_spec, card)
-    phase_t30(torch, card)
-    launches, step_s = phase_hall(torch, box, dx, mesh, setup_s, card)
-    k_us, p_us = phase_kernel_time(torch, mesh.box_spec, card)
+    b1_err = phase_kernel_vs_plain(torch, mesh.box_spec, card)
+    t30_mesh, t30_fused, sabine, t30_src, t30_rcv = phase_t30(torch, card)
+    fused_out, b1_launches, step_s = phase_hall(torch, box, dx, mesh,
+                                                setup_s, card)
+    b1_us, b1_plain_us = phase_kernel_time(torch, mesh.box_spec, card)
     phase_profile(torch, mesh, box, dx, step_s, card)
+    b2_err, hall_case = phase_mega_vs_plain(torch, mesh, box, dx, card)
+    b2_us, b2_plain_us = phase_mega_time(torch, hall_case, card)
+    phase_mega_hall(torch, box, dx, mesh, fused_out, step_s, card)
+    hall_spec, hall_dims = mesh.box_spec, mesh.box_spec.dims
+    del mesh, fused_out
+    torch.cuda.empty_cache()
+    phase_t30_mega(torch, t30_mesh, t30_fused, sabine, t30_src, t30_rcv, card)
+    launches, engine_dims, b2_engine_err = phase_hybrid_hall(torch, hall_spec,
+                                                             card)
+    phase_hybrid_card_vs_cpu(torch, card)
+    if b1_launches == 0 or launches["box_mega_chunk"] == 0:
+        _fail("a kernel of the path was not launched")
     print(json.dumps({"kernels": [{
         "name": "box_fused_step",
         "route": "cuda",
         "source": "wayverb_tpu_torch/csrc/box_fused_step.cu",
         "replaces": "wayverb_tpu/waveguide/box_fused.py:400",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": k_us / 1e3,
-        "plain_ms": p_us / 1e3,
+        "shape": list(hall_dims),
+        "launches": b1_launches,
+        "max_abs_err": b1_err,
+        "ms": b1_us / 1e3,
+        "plain_ms": b1_plain_us / 1e3,
+        "ms_is_per": "step",
+    }, {
+        "name": f"box_mega_chunk (K={CHUNK})",
+        "route": "cuda",
+        "source": "wayverb_tpu_torch/csrc/box_mega_chunk.cu",
+        "replaces": "wayverb_tpu/waveguide/box_mega.py:534",
+        "shape": list(engine_dims),
+        "launches": launches["box_mega_chunk"],
+        "max_abs_err": max(b2_err, b2_engine_err),
+        "ms": b2_us / CHUNK / 1e3,
+        "plain_ms": b2_plain_us / CHUNK / 1e3,
+        "ms_is_per": "sub-step (a launch runs K of them)",
+        "launch_ms": b2_us / 1e3,
+        "plain_launch_ms": b2_plain_us / 1e3,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,276 @@
+"""The port's mega chunk path against the JAX reference, on the CPU.
+
+The port's plane step and its plain chunk (``_mega_chunk_plain``, the plain
+version of the CUDA kernel) take the same inputs as the JAX functions.  The
+whole-run cases hold ``run_waveguide_box_mega`` against JAX's mega path run
+with ``interpret=True`` (chunk 4), at the bound ``tests/test_box_mega.py``
+uses, atol 2e-5 on receiver outputs.  The six inner-plane sources are held
+against JAX's fused path, which that suite holds equal to its mega path at
+the same bound: one interpreted compile per source placement would cost
+about 10 s each.  The CUDA kernel is held against the plain version on a
+GPU, in ``tests/test_torch_kernels.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wayverb_tpu.core.geometry import Box as JBox, box_scene as jbox_scene
+from wayverb_tpu.waveguide import box_mega as jbm
+from wayverb_tpu.waveguide import run as j_run
+from wayverb_tpu.waveguide import receivers as j_rcv
+from wayverb_tpu.waveguide import sources as j_src
+from wayverb_tpu.waveguide.descriptor import grid_spacing
+from wayverb_tpu_torch import convert
+from wayverb_tpu_torch.waveguide import box_fused as tbf
+from wayverb_tpu_torch.waveguide import box_mega as tbm
+from wayverb_tpu_torch.waveguide import run as t_run
+from wayverb_tpu_torch.waveguide import receivers as t_rcv
+from wayverb_tpu_torch.waveguide import sources as t_src
+
+torch.set_num_threads(2)
+
+FS = 3333.33
+DX = grid_spacing(340.0, 1.0 / FS)
+ATOL = 2e-5             # receiver-output bound of tests/test_box_mega.py
+PLANE_ATOL = 1e-5       # plane-step bound of tests/test_box_mega.py
+SRC, RCV = (0.7, 0.8, 0.5), (0.7, 0.8, 1.3)
+
+
+@pytest.fixture(scope="module")
+def meshes():
+    """test_box_mega.py's small_mesh (aligned (8, 8, 128)) and the port's
+    Mesh carried across from it."""
+    box = JBox((0, 0, 0), (1.4, 1.6, 1.8))
+    jm = j_run.compute_mesh(jbox_scene(box), np.full((1, 8), 0.12), DX, FS,
+                            scene_box=box, align=(8, 8, 128))
+    d, s = jm.descriptor, jm.box_spec
+    tm = convert.mesh_from_numpy({
+        "min_corner": np.asarray(d.min_corner),
+        "dimensions": np.asarray(d.dimensions), "spacing": d.spacing,
+        "inside": np.asarray(jm.inside),
+        "coef_b": np.asarray(jm.structure.coef_b),
+        "coef_a": np.asarray(jm.structure.coef_a),
+        "room_volume": jm.room_volume,
+        "box_dims": np.asarray(s.dims), "box_ilo": np.asarray(s.ilo),
+        "box_ihi": np.asarray(s.ihi),
+        "box_face_surface": np.asarray(s.face_surface)}, device="cpu")
+    return jm, tm
+
+
+def _jax_face_coefs(mesh):
+    idx = np.asarray(mesh.box_spec.face_surface)
+    return (jnp.asarray(mesh.structure.coef_b)[idx],
+            jnp.asarray(mesh.structure.coef_a)[idx])
+
+
+def test_plane_step_natural_matches(meshes, rng):
+    """The port's plane step against JAX's ``plane_step_natural`` and
+    against the port's stacked update, on random plane states; atol 1e-5."""
+    jm, tm = meshes
+    spec = tm.box_spec
+    order = tm.structure.filter_order
+    mk = lambda s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    pl6, in6, pr6 = ([mk(spec.plane_shape(p)) for p in range(6)]
+                     for _ in range(3))
+    st6 = [mk((order,) + spec.plane_shape(p)) for p in range(6)]
+    t6 = lambda xs: tuple(map(torch.from_numpy, xs))  # noqa: E731
+    fb, fa = tbf.face_coefficients(tm.structure, spec)
+    got_p, got_st = tbm.plane_step_natural(spec, t6(pl6), t6(in6), t6(pr6),
+                                           t6(st6), fb, fa)
+    j6 = lambda xs: tuple(map(jnp.asarray, xs))  # noqa: E731
+    want_p, want_st = jbm.plane_step_natural(jm.box_spec, j6(pl6), j6(in6),
+                                             j6(pr6), j6(st6),
+                                             *_jax_face_coefs(jm),
+                                             kernel=False)
+    stk_p, stk_st = tbf.plane_boundary_step_stacked(
+        tbf.stack_planes(t6(pl6), spec), tbf.stack_planes(t6(in6), spec),
+        tbf.stack_planes(t6(pr6), spec),
+        tbf.stack_planes(tuple(torch.from_numpy(s).permute(1, 2, 0)
+                               for s in st6), spec),
+        spec, fb, fa)
+    for p in range(6):
+        U, V = spec.plane_shape(p)
+        for want in (np.asarray(want_p[p]), stk_p[p, :U, :V].numpy()):
+            np.testing.assert_allclose(got_p[p].numpy(), want, rtol=0,
+                                       atol=PLANE_ATOL)
+        for want in (np.asarray(want_st[p]),
+                     stk_st[p, :U, :V].permute(2, 0, 1).numpy()):
+            np.testing.assert_allclose(got_st[p].numpy(), want, rtol=0,
+                                       atol=PLANE_ATOL)
+
+
+def _problem(jm, tm, steps, src_loc, rcv_loc, source_kind, receiver_kind):
+    """The same source and receiver for both packages."""
+    desc = jm.descriptor
+    node = desc.flat_index(src_loc)
+    if source_kind == "hard":
+        amp = t_src.rectilinear_calibration_factor(desc.spacing, 400.0)
+    else:
+        amp = 1.5
+    jcls, tcls = ((j_src.HardSource, t_src.HardSource) if source_kind == "hard"
+                  else (j_src.SoftSource, t_src.SoftSource))
+    jsource = jcls(node_idx=jnp.asarray(node, dtype=jnp.int32),
+                   signal=j_src.impulse_signal(steps, amp))
+    tsource = tcls(node_idx=node,
+                   signal=t_src.impulse_signal(steps, amp, "cpu"))
+    rnode = desc.flat_index(rcv_loc)
+    if receiver_kind == "node":
+        return (jsource, j_rcv.NodeReceiver(jnp.asarray(rnode, jnp.int32)),
+                tsource, t_rcv.NodeReceiver(torch.tensor(rnode)))
+    fs = desc.sample_rate(340.0)
+    pos = desc.position(rcv_loc)
+    return (jsource, j_rcv.make_directional_receiver(desc, fs, 1.225, pos),
+            tsource, t_rcv.make_directional_receiver(tm.descriptor, fs, 1.225,
+                                                     pos, "cpu"))
+
+
+def _assert_outputs_close(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(np.shape(w))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("steps,source_kind,receiver_kind", [
+    (16, "hard", "directional"),    # test_whole_run_matches_fused
+    (11, "soft", "node"),           # padded tail: 11 is not a chunk multiple
+])
+def test_run_waveguide_box_mega_matches_jax(meshes, steps, source_kind,
+                                            receiver_kind):
+    jm, tm = meshes
+    src_loc = jm.require_inside(SRC)
+    rcv_loc = jm.require_inside(RCV)
+    js, jr, ts, tr = _problem(jm, tm, steps, src_loc, rcv_loc, source_kind,
+                              receiver_kind)
+    want = jbm.run_waveguide_box_mega(jm.structure, jm.box_spec, js, jr,
+                                      steps, chunk=4, interpret=True)
+    got = tbm.run_waveguide_box_mega(tm.structure, tm.box_spec, ts, tr,
+                                     steps, chunk=4)
+    _assert_outputs_close(got["outputs"], want["outputs"])
+    assert bool(got["stable"]) and bool(want["stable"])
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("side", [0, 1])
+def test_source_on_inner_plane(meshes, axis, side):
+    """A soft source on each inner boundary plane, mirrored into the carried
+    planes (``_patch_ins``), against JAX's fused path; atol 2e-5."""
+    jm, tm = meshes
+    spec = tm.box_spec
+    steps = 10
+    loc = [(spec.ilo[a] + spec.ihi[a]) // 2 for a in range(3)]
+    loc[axis] = spec.ilo[axis] if side == 0 else spec.ihi[axis]
+    rcv = [(spec.ilo[a] + spec.ihi[a]) // 2 for a in range(3)]
+    rcv[2] += 2
+    js, jr, ts, tr = _problem(jm, tm, steps, tuple(loc), tuple(rcv), "soft",
+                              "node")
+    assert tbm._inner_plane_source(spec, ts.kernel_injection(
+        spec.dims, 0)[0])[0][0] == 2 * axis + side
+    # jitted, so the six placements share one compile (the node index is
+    # traced)
+    want = j_run._run_waveguide_box_jit(jm.structure, jm.box_spec, js, jr,
+                                        steps)
+    got = tbm.run_waveguide_box_mega(tm.structure, spec, ts, tr, steps,
+                                     chunk=4)
+    _assert_outputs_close(got["outputs"], want["outputs"])
+
+
+def test_chunks_chain(meshes):
+    """Two chunks of 4 equal one chunk of 8, state and taps alike (the
+    plain chunk returns (cur, prev) in the reference's order)."""
+    _, tm = meshes
+    spec = tm.box_spec
+    order = tm.structure.filter_order
+    Umax, Vmax = tbf.stacked_plane_shape(spec)
+    gen = torch.Generator().manual_seed(3)
+    sig = torch.randn(8, generator=gen)
+    fb, fa = tbf.face_coefficients(tm.structure, spec)
+    src = (spec.ilo[0] + 2, spec.ilo[1] + 3, spec.ilo[2] + 1, 2)
+    taps = torch.tensor([0, 5, spec.dims[2] * spec.dims[1] * 3 + 77])
+    init = (torch.zeros(spec.dims), torch.zeros(spec.dims),
+            torch.zeros((order, 6, Umax, Vmax)),
+            torch.zeros((3, 6, Umax, Vmax)))
+    whole = tbm.mega_chunk(spec, sig, fb, fa, *init, src, taps)
+    half = tbm.mega_chunk(spec, sig[:4], fb, fa, *init, src, taps)
+    half2 = tbm.mega_chunk(spec, sig[4:], fb, fa, *half[:4], src, taps)
+    for a, b in zip(whole[:4], half2[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(whole[4], torch.cat([half[4], half2[4]]))
+    assert float(whole[5]) == 0.0
+
+
+def test_replay_matches_direct_tap(meshes, rng):
+    """``replay_taps`` over a (T, k) block equals the receiver tapping the
+    whole field step by step; rtol 1e-6."""
+    _, tm = meshes
+    desc = tm.descriptor
+    rcv_loc = tm.require_inside(RCV)
+    receiver = t_rcv.make_directional_receiver(
+        desc, desc.sample_rate(340.0), 1.225, desc.position(rcv_loc), "cpu")
+    nodes = receiver.tap_nodes()
+    fields = torch.from_numpy(
+        rng.normal(size=(5, desc.num_nodes)).astype(np.float32))
+    intensity, pressure = tbm.replay_taps(receiver, fields[:, nodes])
+    state = receiver.init_state(torch.float32, "cpu")
+    for t in range(5):
+        state, (i_t, p_t) = receiver.tap(fields[t], state)
+        np.testing.assert_allclose(intensity[t].numpy(), i_t.numpy(),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(pressure[t].numpy(), p_t.numpy(),
+                                   rtol=1e-6)
+
+
+def test_cpu_never_takes_the_mega_path(meshes, monkeypatch):
+    """``mega_supported`` is False off CUDA, and ``execute`` on CPU tensors
+    takes the fused path: the mega runner and the plain chunk are replaced
+    by functions that raise, so reaching either fails the test."""
+    jm, tm = meshes
+    js, jr, ts, tr = _problem(jm, tm, 8, jm.require_inside(SRC),
+                              jm.require_inside(RCV), "hard", "node")
+    assert not tbm.mega_supported(tm.box_spec, ts, tr, "cpu")
+    assert not tbm.mega_supported(None, ts, tr, "cpu")
+
+    def mega_reached(*args, **kwargs):
+        raise AssertionError("execute took the mega path on the CPU")
+
+    monkeypatch.setattr(t_run, "run_waveguide_box_mega", mega_reached)
+    monkeypatch.setattr(tbm, "_mega_chunk_plain", mega_reached)
+    launches = tbf.fused_step.launches, tbm.mega_chunk.launches
+    out = t_run.execute(tm, ts, tr, 8)
+    want = t_run.run_waveguide_box(tm.structure, tm.box_spec, ts, tr, 8)
+    assert torch.equal(out["outputs"], want["outputs"])
+    assert (tbf.fused_step.launches, tbm.mega_chunk.launches) == launches
+    with pytest.raises(ValueError, match="device"):
+        tbm.mega_chunk(tm.box_spec, torch.zeros(4, device="meta"), None,
+                       None, torch.zeros(tm.box_spec.dims, device="meta"),
+                       None, None, None, (0, 0, 0, 0), None)
+
+
+@pytest.mark.parametrize("kernel_inject", [True, False])
+def test_execute_matches_jax(meshes, monkeypatch, kernel_inject):
+    """``execute`` on CPU tensors with the source injected inside the fused
+    step (``kernel_inject=True``) or into the field before each step
+    (``False``), against JAX's ``execute`` with the same argument; atol
+    2e-5.  The argument reaches the fused runner unchanged."""
+    jm, tm = meshes
+    steps = 16
+    js, jr, ts, tr = _problem(jm, tm, steps, jm.require_inside(SRC),
+                              jm.require_inside(RCV), "hard", "directional")
+    seen = []
+    fused = t_run.run_waveguide_box
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs["kernel_inject"])
+        return fused(*args, **kwargs)
+
+    monkeypatch.setattr(t_run, "run_waveguide_box", spy)
+    got = t_run.execute(tm, ts, tr, steps, kernel_inject=kernel_inject)
+    want = j_run.execute(jm, js, jr, steps, kernel_inject=kernel_inject)
+    assert seen == [kernel_inject]
+    _assert_outputs_close(got["outputs"], want["outputs"])
+    assert bool(got["stable"]) and bool(want["stable"])

@@ -201,7 +201,8 @@ def test_execute_raises_on_non_box_mesh(port_mesh):
 
 def test_port_never_imports_jax():
     """No module of the port names jax or the reference package, and
-    importing its entry points leaves both out of ``sys.modules``."""
+    importing every module of the port leaves both out of
+    ``sys.modules``."""
     pkg = REPO / "wayverb_tpu_torch"
     for path in pkg.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -213,11 +214,13 @@ def test_port_never_imports_jax():
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "wayverb_tpu"), \
                     f"{path.name} imports {name}"
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        .removesuffix(".__init__") for p in pkg.rglob("*.py"))
+    assert "wayverb_tpu_torch.combined.engine" in modules
     code = ("import sys\n"
-            "import wayverb_tpu_torch.waveguide.run\n"
-            "import wayverb_tpu_torch.waveguide.postprocess\n"
-            "import wayverb_tpu_torch.convert\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            + "".join(f"import {m}\n" for m in modules)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'wayverb_tpu')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

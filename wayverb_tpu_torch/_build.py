@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for Hopper (``sm_90a``) into ``<repo>/build/lib<name>.so``, a directory git
-ignores.  A library newer than its source is reused.  Building needs the
+ignores.  A library newer than its source and the shared headers
+(``csrc/*.cuh``) is reused.  ``--fmad=false``: every product and sum rounds
+on its own, as in the kernels' plain torch versions.  Building needs the
 CUDA toolkit, so it happens only when a kernel is launched on a CUDA tensor,
 never at import.
 """
@@ -20,7 +22,8 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -44,8 +47,9 @@ def build(name: str, force: bool = False) -> tuple[Path, str]:
     """
     src = CSRC_DIR / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if (not force and lib.exists()
-            and lib.stat().st_mtime >= src.stat().st_mtime):
+    newest = max(p.stat().st_mtime
+                 for p in (src, *CSRC_DIR.glob("*.cuh")))
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return lib, ""
     BUILD_DIR.mkdir(exist_ok=True)
     # compile to a private name, then rename: a concurrent build never

@@ -1,7 +1,8 @@
 """Receiver capsule models: omni/null and polar-pattern microphone.
 
 Port of ``Null`` and ``Microphone`` from ``wayverb_tpu.core.attenuator``.
-``Hrtf`` waits for the slice that ports its table.
+``Hrtf`` keeps the reference's fields, but its table waits for a later slice
+(ROADMAP A.6): constructing one raises ``NotImplementedError``.
 
 Parity: reference ``core/attenuator/microphone.cpp:18-25`` (gain =
 (1-s) + s·cosθ), ``core/attenuator/null.h``.
@@ -10,6 +11,7 @@ Parity: reference ``core/attenuator/microphone.cpp:18-25`` (gain =
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -40,3 +42,20 @@ class Microphone:
         cos = torch.sum(unit * pointing, dim=-1)
         gain = (1.0 - self.shape) + self.shape * cos
         return torch.where(length > 0, gain, torch.zeros_like(gain))
+
+
+_HRTF = "the Hrtf capsule is not ported yet: ROADMAP queue A, item 6"
+
+
+@dataclasses.dataclass(frozen=True)
+class Hrtf:
+    """Head-related capsule (per-direction 8-band gains, two ears): not
+    ported yet."""
+
+    orientation: Orientation = Orientation()
+    channel: int = 0
+    radius: float = 0.1
+    table: Any = None
+
+    def __post_init__(self):
+        raise NotImplementedError(_HRTF)

@@ -1,14 +1,18 @@
 """Scene geometry for the waveguide leg: boxes and triangle soups.
 
-Port of ``wayverb_tpu.core.geometry`` (``TriangleSoup``, ``Box``,
-``box_scene``, ``scene_aabb``).  The ray-intersection functions move with
-the ray leg.
+Port of ``wayverb_tpu.core.geometry``: ``TriangleSoup``, ``Box``,
+``box_scene``, ``scene_aabb``, the triangle normals and areas, mirroring,
+the broadcast ray–scene queries (an (R, T) Möller–Trumbore, no per-ray
+loops), the segment–sphere test and the tetrahedron volume sum.  The
+point-in-mesh parity vote (``points_inside``) waits for the arbitrary
+geometry slice.
 
 ``Box`` mirrors the reference's float32 arithmetic on purpose: its centre is
 a float32 value, and the mesh anchor is that centre, so both packages build
 identical grids.
 
-Parity: reference ``core/geo/*`` (``geo::get_scene_data(box)``).
+Parity: reference ``core/geo/*`` and ``core/src/cl/geometry.cpp`` (ray/tri
+intersection, mirror), ``geo::get_scene_data(box)``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import dataclasses
 from typing import Any
 
 import torch
+
+EPSILON = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +44,133 @@ class TriangleSoup:
     def corners(self) -> torch.Tensor:
         """(T, 3, 3): the three vertex positions of each triangle."""
         return self.vertices[self.triangles.long()]
+
+    def to(self, device) -> "TriangleSoup":
+        return TriangleSoup(self.vertices.to(device),
+                            self.triangles.to(device),
+                            self.surfaces.to(device))
+
+
+def _unit(v):
+    """v / max(|v|, 1e-20) along the last axis."""
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                           min=1e-20)
+
+
+def triangle_normals(soup: TriangleSoup, normalize: bool = True):
+    """(T, 3) per-triangle normals (right-handed winding)."""
+    c = soup.corners()
+    n = torch.linalg.cross(c[:, 1] - c[:, 0], c[:, 2] - c[:, 0])
+    return _unit(n) if normalize else n
+
+
+def triangle_areas(soup: TriangleSoup):
+    c = soup.corners()
+    return 0.5 * torch.linalg.vector_norm(
+        torch.linalg.cross(c[:, 1] - c[:, 0], c[:, 2] - c[:, 0]), dim=-1)
+
+
+def mirror_point(point, tri_corners):
+    """Reflect ``point`` (..., 3) in the plane of a triangle (..., 3, 3)."""
+    v0 = tri_corners[..., 0, :]
+    n = _unit(torch.linalg.cross(tri_corners[..., 1, :] - v0,
+                                 tri_corners[..., 2, :] - v0))
+    d = torch.sum(n * (point - v0), dim=-1, keepdim=True)
+    return point - 2.0 * d * n
+
+
+def _cross(a, b):
+    """Cross product of broadcastable (..., 3) tensors."""
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def ray_triangle_intersection(origin, direction, corners):
+    """Möller–Trumbore, fully broadcast.
+
+    origin/direction: (..., 3); corners: (..., 3, 3) broadcastable against
+    them.  Returns ``(t, u, v, hit)`` where ``hit`` is a bool mask of valid
+    front/back hits with ``t > EPSILON``.
+    """
+    v0 = corners[..., 0, :]
+    e1 = corners[..., 1, :] - v0
+    e2 = corners[..., 2, :] - v0
+    pvec = _cross(direction, e2)
+    det = torch.sum(e1 * pvec, dim=-1)
+    ok = torch.abs(det) > EPSILON
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det,
+                                                torch.ones_like(det)),
+                          torch.zeros_like(det))
+    tvec = origin - v0
+    u = torch.sum(tvec * pvec, dim=-1) * inv_det
+    qvec = _cross(tvec, e1)
+    v = torch.sum(direction * qvec, dim=-1) * inv_det
+    t = torch.sum(e2 * qvec, dim=-1) * inv_det
+    # small barycentric slack: rays crossing exactly on a shared edge must
+    # hit at least one of the adjacent triangles, or they leak out of
+    # watertight scenes and die
+    slack = 1e-4
+    hit = ok & (u >= -slack) & (v >= -slack) & (u + v <= 1.0 + slack) \
+        & (t > EPSILON)
+    return t, u, v, hit
+
+
+def scene_intersection(origin, direction, soup: TriangleSoup,
+                       exclude_triangle=None):
+    """Closest hit of rays (R, 3) against the whole scene.
+
+    Returns ``(t, tri_index, hit)`` each of shape (R,).  ``exclude_triangle``
+    (R,) int skips self-intersection with the launching triangle.
+    """
+    corners = soup.corners()                                  # (T, 3, 3)
+    t, _, _, hit = ray_triangle_intersection(
+        origin[:, None, :], direction[:, None, :], corners[None])
+    if exclude_triangle is not None:
+        tri_ids = torch.arange(soup.num_triangles,
+                               device=origin.device)[None, :]
+        hit = hit & (tri_ids != exclude_triangle[:, None])
+    t_masked = torch.where(hit, t, torch.full_like(t, float("inf")))
+    # argmin takes the first of equal minima, as jnp.argmin does
+    idx = torch.argmin(t_masked, dim=-1)
+    t_best = torch.gather(t_masked, 1, idx[:, None])[:, 0]
+    return t_best, idx, torch.any(hit, dim=-1)
+
+
+def line_of_sight(start, end, soup: TriangleSoup, exclude_triangle=None):
+    """(R,) bool: is the segment start→end unobstructed?
+
+    ``exclude_triangle`` skips the triangle the segment starts on.
+    """
+    seg = end - start
+    dist = torch.linalg.vector_norm(seg, dim=-1)
+    direction = seg / torch.clamp(dist[:, None], min=1e-20)
+    t, _, any_hit = scene_intersection(start, direction, soup,
+                                       exclude_triangle=exclude_triangle)
+    return (~any_hit) | (t >= dist * (1.0 - 1e-4))
+
+
+def line_segment_sphere_intersection(p0, p1, centre, radius):
+    """bool (...,): does segment p0→p1 pass within ``radius`` of ``centre``?"""
+    d = p1 - p0
+    f = p0 - centre
+    a = torch.sum(d * d, dim=-1)
+    b = 2.0 * torch.sum(f * d, dim=-1)
+    c = torch.sum(f * f, dim=-1) - radius * radius
+    disc = b * b - 4.0 * a * c
+    ok = disc >= 0.0
+    sq = torch.sqrt(torch.where(ok, disc, torch.zeros_like(disc)))
+    denom = torch.where(a > 0, 2.0 * a, torch.ones_like(a))
+    t1 = (-b - sq) / denom
+    t2 = (-b + sq) / denom
+    in_range = ((t1 >= 0.0) & (t1 <= 1.0)) | ((t2 >= 0.0) & (t2 <= 1.0))
+    return ok & in_range & (a > 0)
+
+
+def tetrahedron_volume_sum(soup: TriangleSoup):
+    """Signed-volume room estimate (zhang2001; reference reverb_time.h:107)."""
+    c = soup.corners()
+    six_v = torch.sum(c[:, 0] * torch.linalg.cross(c[:, 1], c[:, 2]), dim=-1)
+    return torch.abs(torch.sum(six_v)) / 6.0
 
 
 @dataclasses.dataclass(frozen=True)

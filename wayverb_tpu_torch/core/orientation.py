@@ -1,8 +1,8 @@
 """Orientations and azimuth/elevation look-up-table binning.
 
-Port of ``Orientation`` and ``angle_lut_indices`` from
-``wayverb_tpu.core.orientation``.  The random unit vectors go with the ray
-leg (their ``jax.random`` stream cannot be reproduced in torch anyway).
+Port of ``wayverb_tpu.core.orientation``.  ``random_unit_vectors`` draws
+from a ``torch.Generator``: the reference's ``jax.random`` stream cannot be
+reproduced in torch, so parity tests feed the reference's draws in instead.
 
 Parity: reference ``core/orientation.h``, ``core/az_el.h``,
 ``core/vector_look_up_table.h``.
@@ -12,9 +12,32 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
+
+
+def sphere_point(z, theta):
+    """Unit vector from height z ∈ [-1,1] and angle θ ∈ [-π,π] (y is the
+    polar axis: (t cos θ, z, t sin θ) with t = √(1-z²))."""
+    t = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return torch.stack([t * torch.cos(theta), z, t * torch.sin(theta)],
+                       dim=-1)
+
+
+def random_unit_vectors(n: int, generator: Optional[torch.Generator],
+                        device=None):
+    """(n, 3) uniformly distributed unit vectors.
+
+    The draws are made on the generator's device and moved to ``device``
+    (default: the generator's), so generators of one seed give the same
+    vectors on every device.  ``generator=None`` draws from torch's default
+    generator of ``device``."""
+    gdev = generator.device if generator is not None else device
+    z = torch.rand(n, generator=generator, device=gdev) * 2.0 - 1.0
+    theta = (torch.rand(n, generator=generator, device=gdev) * 2.0 - 1.0) \
+        * math.pi
+    return sphere_point(z, theta).to(device if device is not None else gdev)
 
 
 def azimuth(v):

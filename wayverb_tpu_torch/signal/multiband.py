@@ -1,9 +1,10 @@
 """Band edges, crossover envelopes and zero-phase FFT filtering.
 
-Port of the part of ``wayverb_tpu.signal.multiband`` that the waveguide leg
-needs: band centres/edges (numpy, setup path), the antoni2010 lowpass /
-highpass / bandpass magnitudes and ``apply_zero_phase_magnitude`` on
-``torch.fft``.  The HRTF mixdown and per-band energy wait for the ray leg.
+Port of ``wayverb_tpu.signal.multiband``: band centres/edges (numpy, setup
+path), the antoni2010 lowpass / highpass / bandpass magnitudes,
+``apply_zero_phase_magnitude`` on ``torch.fft``, and the 8-band filter and
+mixdown the geometric solvers' IRs go through (all bands in one FFT
+batch).  ``per_band_energy`` waits for the slice that needs it.
 
 Parity: reference ``frequency_domain/envelope.h`` + ``src/envelope.cpp``
 (antoni2010 eq. 19/20 band-edge envelopes, logarithmic band edges),
@@ -39,6 +40,16 @@ def band_centres(bands: int = DEFAULT_BANDS, lo=AUDIBLE_RANGE[0],
     """(bands,) geometric band centres in Hz (numpy, setup path)."""
     return np.asarray([band_edge_frequency(2 * i + 1, 2 * bands, lo, hi)
                        for i in range(bands)])
+
+
+def max_width_factor(lo, hi, step):
+    base = (hi / lo) ** step
+    return (base - 1.0) / (base + 1.0)
+
+
+def width_factor(lo, hi, bands, overlap):
+    """Relative crossover half-width shared by all edges (antoni2010)."""
+    return max_width_factor(lo, hi, 1.0 / bands) * overlap
 
 
 def _band_edge_impl(p, width, l: int):
@@ -106,3 +117,38 @@ def apply_zero_phase_magnitude(signal, mag_fn):
     mags = mag_fn(_fft_freqs(bins, torch.float32, signal.device))
     filtered = torch.fft.irfft(spectrum * mags, n=bins, dim=-1)
     return filtered[..., :n]
+
+
+def multiband_params(sample_rate, bands: int = DEFAULT_BANDS, overlap=1.0):
+    """Normalized band edges (cycles/sample) + width factor for the audible
+    range."""
+    edges = band_edges(bands) / sample_rate
+    wf = width_factor(AUDIBLE_RANGE[0], AUDIBLE_RANGE[1], bands, overlap)
+    return edges, wf
+
+
+def multiband_filter(signals, sample_rate, bands: int = DEFAULT_BANDS,
+                     l: int = 0):
+    """Bandpass each band of (..., bands, n) with its own antoni2010 window.
+
+    All bands share one FFT batch; returns filtered (..., bands, n).
+    """
+    edges, wf = multiband_params(sample_rate, bands)
+    n = signals.shape[-1]
+    bins = best_fft_length(n)
+    freqs = _fft_freqs(bins, torch.float32, signals.device)     # (F,)
+    e = torch.as_tensor(edges, dtype=torch.float32, device=signals.device)
+    mags = compute_bandpass_magnitude(freqs[None, :], e[:-1, None],
+                                      e[1:, None], wf, l)       # (bands, F)
+    spectrum = torch.fft.rfft(signals, n=bins, dim=-1)
+    filtered = torch.fft.irfft(spectrum * mags, n=bins, dim=-1)
+    return filtered[..., :n]
+
+
+def multiband_filter_and_mixdown(signals, sample_rate,
+                                 bands: int = DEFAULT_BANDS):
+    """8-band signal (..., bands, n) → bandpass each band → sum → (..., n).
+
+    Parity: ``core/mixdown.h:11-24``.
+    """
+    return torch.sum(multiband_filter(signals, sample_rate, bands), dim=-2)

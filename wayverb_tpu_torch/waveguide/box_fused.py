@@ -509,6 +509,14 @@ def initial_box_boundary(spec: BoxSpec, order: int, dtype, state_dtype,
             torch.zeros((6, Umax, Vmax, order), dtype=sdtype, device=device))
 
 
+def face_coefficients(structure, spec: BoxSpec):
+    """(face_b, face_a): the (6, order+1) filter coefficients of the six
+    walls, in PLANES order."""
+    idx = torch.tensor(spec.face_surface, dtype=torch.long,
+                       device=structure.coef_b.device)
+    return structure.coef_b[idx], structure.coef_a[idx]
+
+
 def make_box_body(structure, spec: BoxSpec, source, receiver,
                   kernel_inject: bool = True):
     """One step of the fused box solver: (carry, t) → (carry, outputs).
@@ -522,10 +530,7 @@ def make_box_body(structure, spec: BoxSpec, source, receiver,
     """
     dims = spec.dims
     num_nodes = dims[0] * dims[1] * dims[2]
-    face_idx = torch.tensor(spec.face_surface, dtype=torch.long,
-                            device=structure.coef_b.device)
-    face_b = structure.coef_b[face_idx]
-    face_a = structure.coef_a[face_idx]
+    face_b, face_a = face_coefficients(structure, spec)
     geom = spec.geom_array()
     use_kernel_inject = kernel_inject and hasattr(source, "kernel_injection")
 

@@ -33,6 +33,11 @@ class NodeReceiver:
     def _tap_idx(self) -> torch.Tensor:
         return self.node_idx.reshape(1)
 
+    def tap_nodes(self) -> torch.Tensor:
+        """Flat indices this receiver reads, in ``tap`` read order (the mega
+        chunk extracts exactly these per step)."""
+        return self._tap_idx
+
     def tap(self, field_flat, state):
         # a 1-D index gathers a copy; a 0-d index would return a view into
         # the field buffer, which the time loop overwrites two steps later
@@ -59,6 +64,9 @@ class DirectionalReceiver:
     def _tap_idx(self) -> torch.Tensor:
         return torch.cat([self.node_idx.reshape(1),
                           self.neighbor_idx.reshape(-1)])
+
+    def tap_nodes(self) -> torch.Tensor:
+        return self._tap_idx
 
     def tap(self, field_flat, velocity):
         """Returns (new_velocity, (intensity (3,), pressure ()))."""

@@ -5,9 +5,11 @@ Port of the shoebox path of ``wayverb_tpu.waveguide.run``.  The reference's
 value stays on the device until the run finishes (the stability flag is a
 device tensor read once, after the loop).
 
-``execute`` always takes the fused streaming step here.  The reference's
-multi-step mega kernel, the general (non-shoebox) mesh path and gradient
-checkpointing are later slices of the port (ROADMAP queue A).
+``execute`` routes as the reference does: a shoebox on a CUDA device that
+``box_mega.mega_supported`` accepts takes the multi-step mega chunk path;
+CPU tensors, and ``kernel_inject=False``, take the fused streaming step.
+The general (non-shoebox) mesh path and gradient checkpointing are later
+slices of the port (ROADMAP queue A).
 
 Canonical driver parity: ``waveguide/canonical.h:30-124`` (hard source with
 calibrated impulse at the source node, directional receiver at the receiver
@@ -29,6 +31,9 @@ from wayverb_tpu_torch.waveguide import boundary as bdry
 from wayverb_tpu_torch.waveguide.box_fused import (BoxSpec, initial_box_carry,
                                                    make_box_body,
                                                    spec_from_inside)
+from wayverb_tpu_torch.waveguide.box_mega import (_stack_outputs,
+                                                  mega_supported,
+                                                  run_waveguide_box_mega)
 from wayverb_tpu_torch.waveguide.descriptor import (MeshDescriptor,
                                                     compute_adjusted_boundary,
                                                     default_alignment,
@@ -125,14 +130,6 @@ class WaveguideOutput:
     stable: Any            # () bool tensor: no NaN/Inf during the run
 
 
-def _stack_outputs(per_step):
-    first = per_step[0]
-    if isinstance(first, tuple):
-        return tuple(torch.stack([o[k] for o in per_step])
-                     for k in range(len(first)))
-    return torch.stack(per_step)
-
-
 def run_waveguide_box(structure: MeshStructure, spec: BoxSpec, source,
                       receiver, num_steps: int, dtype=torch.float32,
                       state_dtype=None, kernel_inject: bool = True) -> dict:
@@ -162,20 +159,33 @@ def run_waveguide_box(structure: MeshStructure, spec: BoxSpec, source,
 
 
 def execute(mesh: Mesh, source, receiver, num_steps: int,
-            dtype=torch.float32) -> dict:
-    """Run the mesh: shoeboxes take the fused streaming step; other meshes
-    raise NotImplementedError (their path is not ported yet)."""
+            dtype=torch.float32, kernel_inject: bool = True) -> dict:
+    """Run the mesh with the fastest applicable boundary path.
+
+    A float32 shoebox on a CUDA device whose chunk state fits the card
+    routes to the mega chunk path (box_mega.py); other shoeboxes, CPU
+    tensors among them, take the fused streaming step.  ``kernel_inject=
+    False`` is the reference's escape hatch to the fused path with the
+    source injected into the field before each step.  Non-box meshes raise
+    NotImplementedError (their path is not ported yet).
+    """
     if mesh.box_spec is None:
         raise NotImplementedError(_GENERAL_MESH)
+    if kernel_inject and dtype == torch.float32 and mega_supported(
+            mesh.box_spec, source, receiver, mesh.device,
+            filter_order=mesh.structure.filter_order):
+        return run_waveguide_box_mega(mesh.structure, mesh.box_spec, source,
+                                      receiver, num_steps)
     return run_waveguide_box(mesh.structure, mesh.box_spec, source, receiver,
-                             num_steps, dtype)
+                             num_steps, dtype, kernel_inject=kernel_inject)
 
 
-def canonical(mesh: Mesh, source_position, receiver_position,
-              simulation_time: float, environment: Environment = Environment(),
-              dtype=torch.float32) -> WaveguideOutput:
-    """Calibrated impulse → directional receiver output, one band, on the
-    mesh's device."""
+def canonical_problem(mesh: Mesh, source_position, receiver_position,
+                      simulation_time: float,
+                      environment: Environment = Environment()):
+    """The canonical run's (source, receiver, num_steps, sample_rate): a
+    hard source with the calibrated impulse at the source node and a
+    directional receiver at the receiver node, on the mesh's device."""
     desc = mesh.descriptor
     fs = desc.sample_rate(environment.speed_of_sound)
     num_steps = int(math.ceil(fs * simulation_time))
@@ -194,7 +204,17 @@ def canonical(mesh: Mesh, source_position, receiver_position,
     receiver = make_directional_receiver(
         desc, fs, environment.ambient_density, desc.position(rcv_loc),
         mesh.device)
+    return source, receiver, num_steps, fs
 
+
+def canonical(mesh: Mesh, source_position, receiver_position,
+              simulation_time: float, environment: Environment = Environment(),
+              dtype=torch.float32) -> WaveguideOutput:
+    """Calibrated impulse → directional receiver output, one band, on the
+    mesh's device (through ``execute``)."""
+    source, receiver, num_steps, fs = canonical_problem(
+        mesh, source_position, receiver_position, simulation_time,
+        environment)
     result = execute(mesh, source, receiver, num_steps, dtype)
     intensity, pressure = result["outputs"]
     return WaveguideOutput(pressure=pressure, intensity=intensity,
