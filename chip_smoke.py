@@ -27,8 +27,35 @@ Drives the port through its public entry points on the card and fails
    source and receiver taps;
 10. the hybrid engine on the card against the same run on the CPU, with the
     same random draws;
-11. one JSON line of per-kernel results, then the last line,
+11. B5 (the fused step's adjoint) against its plain version at the seven
+    shapes of phase 3, and its time at the hall shape;
+12. B6 (the grad-mode chunk: B2's outputs plus the residual block) and B7
+    (the chunk's adjoint, K = 128) against their plain versions at three
+    shapes, the hall from random state among them, the error per output and
+    per plane, and their times per sub-step;
+13. the gradient path at full width: the hall, 640 steps, value and gradient
+    of Σ taps² with respect to the filter coefficients and the source
+    signal through ``mega_canonical_loss_fn``, with the seconds of the
+    forward and of the backward, the peak memory and the launch counts;
+    then the same run again (warm allocator) and with only the signal
+    requiring grad, for their seconds;
+14. the two gradient routes on the card: the mega route (B6, B7) against
+    ``run_waveguide_box(kernel_inject=False)`` (B1, B5) on the hall, 16
+    steps, with the source beside a wall so the boundary filters matter;
+15. gradients on the card against the plain versions on the CPU;
+16. three gradient steps on a scale of the filter numerators toward a target
+    response lower the loss each time;
+17. one JSON line of per-kernel results, then the last line,
     ``{"ok": true, "device": {...}}``.
+
+A kernel's ``bound_ms`` is the least time the card could take for the same
+function: the larger of its inputs and outputs moved once at 3.35 TB/s and
+its float32 operations at 67 TFLOP/s (NVIDIA's figures for the H100 SXM).
+For a chunk kernel that is the chunk's state in and out, as if the fields
+stayed on chip between sub-steps.  Phase 12 also prints, outside the JSON
+line and not as a bound, the same reckoning with the fields streamed through
+device memory every sub-step, which is what a field larger than the 50 MB L2
+forces.
 """
 
 import json
@@ -51,8 +78,14 @@ KERNEL_ATOL = 1e-5          # test_box_fused.py bound on the Pallas kernel
 MEGA_REL = 1e-5             # B2 vs plain, per unit of peak
 MEGA_VS_FUSED_REL = 1e-4    # mega vs fused path over 1024 steps, of peak
 HYBRID_REL = 1e-3           # hybrid IR card vs CPU, of peak
+BWD_REL = 1e-5             # B5, B6 residuals, B7 vs plain, of the largest
+GRAD_REL = 1e-4            # gradients between routes and card vs CPU
 CHUNK = 128
-KERNELS = ("box_fused_step", "box_mega_chunk")
+GRAD_STEPS = 640           # the hall's backward workload: 5 chunks
+KERNELS = ("box_fused_step", "box_mega_chunk", "box_fused_step_bwd",
+           "box_mega_chunk_bwd")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOP_PER_S = 67e12
 
 
 def _fail(msg: str):
@@ -725,6 +758,539 @@ def phase_hybrid_card_vs_cpu(torch, card):
     return err / peak
 
 
+# ---------------------------------------------------------------------------
+# the gradient path: B5, B6, B7
+
+def _bound(n_bytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bounds(spec, order, k):
+    """Bounds per step (B1, B5) or per sub-step of a K = CHUNK chunk (B2,
+    B6, B7) at ``spec``, from the shapes alone.  Stencil: 6 adds, a multiply
+    and a subtract per node; the adjoint's node update: 6 adds, a multiply,
+    an add and a negation."""
+    from wayverb_tpu_torch.waveguide.box_fused import stacked_plane_shape
+    X, Y, Z = spec.dims
+    n = X * Y * Z
+    Umax, Vmax = stacked_plane_shape(spec)
+    plane = 6 * Umax * Vmax
+    natural = 2 * (Y * Z + X * Z + X * Y)
+    f = 4                                               # bytes per float32
+    out = {}
+    # B1: cur, prev, six planes in; next, six inner planes out
+    out["b1"] = _bound(f * (3 * n + 2 * natural), 8 * n)
+    # B5: g, six inner cotangents in; gcur, gprev, six planes, two halos out
+    out["b5"] = _bound(f * (3 * n + 2 * natural + 2 * Y * Z), 8 * n)
+    # a chunk: cur, prev, state, planes in and out, signal in, taps out
+    chunk_io = f * (4 * n + 2 * (order + 3) * plane + CHUNK * (1 + k))
+    out["b2"] = _bound(chunk_io / CHUNK, 8 * n + 40 * plane)
+    out["b6"] = _bound(chunk_io / CHUNK + f * 4 * plane, 8 * n + 40 * plane)
+    # B7: gnext, gcur, gst in and out, gtaps in, gsig and both streams out
+    bwd_io = f * (4 * n + 2 * order * plane + CHUNK * (1 + k))
+    out["b7"] = _bound(bwd_io / CHUNK + f * (1 + order) * plane,
+                       9 * n + 60 * plane)
+    # with the fields streamed through device memory every sub-step
+    state = f * (2 * order + 5) * plane     # PL, INS, PRVP, st in; PL, INS, st out
+    out["b2_stream"] = 1e3 * (f * 3 * n + state) / HBM_BYTES_PER_S
+    out["b6_stream"] = 1e3 * (f * 3 * n + state + f * 4 * plane) \
+        / HBM_BYTES_PER_S
+    out["b7_stream"] = 1e3 * (f * 4 * n + f * (2 * order + 4 + 1 + order)
+                              * plane) / HBM_BYTES_PER_S
+    return out
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def phase_b5_vs_plain(torch, hall_spec, card):
+    """fused_step_bwd (CUDA kernel B5) against _fused_step_bwd_plain on the
+    same tensors, at the shapes B1 is checked at."""
+    from wayverb_tpu_torch.waveguide.box_fused import (
+        BoxSpec, _fused_step_bwd_plain, _plane_shapes, fused_step_bwd)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    s16 = BoxSpec(dims=(16, 16, 128), ilo=(2, 2, 2), ihi=(13, 13, 125),
+                  face_surface=(0,) * 6)
+    s16x = BoxSpec(dims=(20, 16, 128), ilo=(6, 2, 2), ihi=(17, 13, 125),
+                   face_surface=(0,) * 6)
+    s37 = BoxSpec(dims=(37, 29, 53), ilo=(2, 3, 2), ihi=(33, 25, 50),
+                  face_surface=(0,) * 6)
+    hx, hy, hz = hall_spec.dims
+    cases = [
+        (s16, 0, (8, 9, 64), 0, "no injection"),
+        (s16, 0, (8, 9, 64), 1, "hard source deep inside"),
+        (s16, 0, (2, 9, 64), 2, "soft source on the inner x plane"),
+        (s16, 0, (9, 4, 125), 1, "source at a thread-block edge"),
+        (s16x, 4, (10, 7, 40), 1, "x offset 4: the low x plane is elsewhere"),
+        (s37, 0, (18, 14, 26), 1, "unaligned 37x29x53"),
+        (hall_spec, 0, (hx // 2, hy // 2, hz // 2), 1, "hall shape"),
+    ]
+    worst = 0.0
+    for spec, xo, src, mode, what in cases:
+        X, Y, Z = spec.dims
+        X -= xo
+        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
+        g = rnd(X, Y, Z)
+        ginner = tuple(rnd(*s) for s in _plane_shapes(X, Y, Z))
+        args = (spec.geom_array(x_offset=xo), g, ginner, src + (mode,))
+        got = fused_step_bwd(*args)
+        want = _fused_step_bwd_plain(*args)
+        torch.cuda.synchronize()
+        flat = lambda r: (r[0], r[1], *r[2], *r[3])  # noqa: E731
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(flat(got), flat(want)))
+        peak = float(g.abs().max())
+        worst = max(worst, err)
+        print(f"[11 B5] {(X, Y, Z)} mode {mode} ({what}): max |kernel - "
+              f"plain| = {err:.3e} over gcur, gprev, 6 planes, 2 halos "
+              f"(bound {BWD_REL:g} x {peak:.3f})")
+        if not err <= BWD_REL * peak:
+            _fail(f"B5 disagrees with its plain version: {what}")
+    return worst
+
+
+def phase_b5_time(torch, spec, card):
+    from wayverb_tpu_torch.waveguide.box_fused import (
+        _fused_step_bwd_plain, _plane_shapes, fused_step_bwd)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    g = torch.randn(*spec.dims, generator=gen, device="cuda")
+    ginner = tuple(torch.randn(*s, generator=gen, device="cuda")
+                   for s in _plane_shapes(*spec.dims))
+    inj = tuple(d // 2 for d in spec.dims) + (1,)
+    geom = spec.geom_array()
+    k_us = _cuda_time_us(torch, lambda: fused_step_bwd(geom, g, ginner, inj),
+                         100)
+    p_us = _cuda_time_us(torch, lambda: _fused_step_bwd_plain(
+        geom, g, ginner, inj), 20)
+    print(f"[11 B5] alone at {spec.dims}: kernel {k_us:.2f} us/step "
+          f"({12 * g.numel() / k_us / 1e3:.1f} GB/s at 12 B/node), plain "
+          f"version {p_us:.2f} us/step [{card}]")
+    return k_us, p_us
+
+
+def _grad_chunk_case(torch, tag, what, spec, fb, fa, src, taps, gen):
+    """B6 and B7 against their plain versions on one chunk of K = CHUNK from
+    random state and random cotangents; returns the largest absolute error
+    of B6's residuals and of B7's six outputs.  The gates are relative: each
+    output within BWD_REL of its own largest value."""
+    from wayverb_tpu_torch.waveguide.box_fused import stacked_plane_shape
+    from wayverb_tpu_torch.waveguide.box_mega import (
+        _mega_chunk_bwd_plain, _mega_chunk_plain, mega_chunk, mega_chunk_bwd)
+    order = fb.shape[1] - 1
+    state = _random_chunk_inputs(torch, spec, order, gen)
+    sig = torch.randn(CHUNK, generator=gen, device="cuda")
+    args = (spec, sig, fb, fa)
+    want = _mega_chunk_plain(*args, *state, src, taps, grad=True)
+    b2 = mega_chunk(*args, *(t.clone() for t in state), src, taps)
+    got = mega_chunk(*args, *(t.clone() for t in state), src, taps,
+                     grad=True)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got[:6], b2))
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(got[:5],
+                                                             want[:5]))
+    res_err = _rel_err(got[6], want[6])
+    res_abs = float((got[6] - want[6]).abs().max())
+    print(f"[{tag}] B6 {what}: forward outputs equal B2's: {same}; max "
+          f"|forward - plain| = {fwd_err:.3e}; residuals "
+          f"{tuple(got[6].shape)}: {res_err:.3e} of the largest (bound "
+          f"{BWD_REL:g})")
+    if not (same and res_err <= BWD_REL):
+        _fail(f"B6 disagrees: {what}")
+    del want, b2, got
+
+    Umax, Vmax = stacked_plane_shape(spec)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
+    mask = torch.zeros((6, Umax, Vmax), device="cuda")
+    for p in range(6):
+        U, V = spec.plane_shape(p)
+        mask[p, :U, :V] = 1.0
+    cot = (rnd(CHUNK, taps.numel()), rnd(*spec.dims), rnd(*spec.dims),
+           (rnd(order, 6, Umax, Vmax) * mask).contiguous())
+    want = _mega_chunk_bwd_plain(spec, fb, fa, *cot, src, taps)
+    got = mega_chunk_bwd(spec, fb, fa, *(t.clone() for t in cot), src, taps)
+    torch.cuda.synchronize()
+    names = ("gnext", "gcur", "gst", "gsig", "gp_stream", "gstin_stream")
+    errs = {n: _rel_err(a, b) for n, a, b in zip(names, got, want)}
+    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    per_plane = []
+    for a, b, axis in ((got[4], want[4], 1), (got[5], want[5], 2)):
+        scale = max(float(b.abs().max()), 1e-30)
+        per_plane.append([float((a.select(axis, q) - b.select(axis, q))
+                                .abs().max()) / scale for q in range(6)])
+    print(f"[{tag}] B7 {what}: of the largest value, "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + f" (bound {BWD_REL:g}); per plane gp_stream "
+          + " ".join(f"{e:.1e}" for e in per_plane[0]) + ", gstin_stream "
+          + " ".join(f"{e:.1e}" for e in per_plane[1]))
+    worst = max(max(errs.values()), max(map(max, per_plane)))
+    if not worst <= BWD_REL:
+        _fail(f"B7 disagrees with its plain version: {what}")
+    return res_abs, bwd_abs
+
+
+def phase_grad_chunks_vs_plain(torch, hall_mesh, box, dx, card):
+    from wayverb_tpu_torch.core.environment import Environment
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import (BoxSpec,
+                                                       face_coefficients)
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    t30_mesh = wgrun.shoebox_mesh(_t30_box()[0], np.full((1, 8), ABSORPTION),
+                                  grid_spacing(340.0, 1.0 / FS), FS,
+                                  device="cuda")
+    fb, fa = face_coefficients(t30_mesh.structure, t30_mesh.box_spec)
+    worst6 = worst7 = 0.0
+
+    def case(what, *args):
+        nonlocal worst6, worst7
+        e6, e7 = _grad_chunk_case(torch, "12 grad", what, *args, gen)
+        worst6, worst7 = max(worst6, e6), max(worst7, e7)
+
+    # the unaligned box: a hard source on the inner z plane with a tap at
+    # the source node, then a soft source on the inner x plane
+    small = BoxSpec(dims=(21, 17, 26), ilo=(2, 3, 2), ihi=(18, 13, 23),
+                    face_surface=(0,) * 6)
+    X, Y, Z = small.dims
+    for loc, mode in (((10, 8, small.ilo[2]), 1), ((small.ihi[0], 8, 12), 2)):
+        flat = (loc[0] * Y + loc[1]) * Z + loc[2]
+        taps = torch.tensor([flat, flat + 1, flat - Z, 5, X * Y * Z - 1],
+                            device="cuda")
+        case(f"{small.dims} source {loc} mode {mode}", small, fb, fa,
+             loc + (mode,), taps)
+    spec = t30_mesh.box_spec
+    _, _, src_pos, rcv_pos = _t30_box()
+    source, receiver, _, _ = wgrun.canonical_problem(
+        t30_mesh, src_pos, rcv_pos, 0.1, Environment())
+    src = source.kernel_injection(spec.dims, 0)[0][:3] + (2,)
+    case(f"T30 box {spec.dims}, soft source", spec, fb, fa, src,
+         receiver.tap_nodes())
+    spec = hall_mesh.box_spec
+    fb, fa = face_coefficients(hall_mesh.structure, spec)
+    src, taps = _hall_chunk_problem(torch, hall_mesh, box, dx)
+    case(f"hall {spec.dims}, random state, hall source and taps", spec, fb,
+         fa, src, taps)
+    return worst6, worst7, (spec, fb, fa, src, taps)
+
+
+def phase_grad_chunk_time(torch, case, card):
+    """B6 and B7 alone at the hall shape, their plain versions, and the
+    coefficient gradients of one chunk (plain autograd, no kernel)."""
+    from wayverb_tpu_torch.waveguide.box_fused import stacked_plane_shape
+    from wayverb_tpu_torch.waveguide.box_mega import (
+        _chunk_theta_grads, _mega_chunk_bwd_plain, _mega_chunk_plain,
+        mega_chunk, mega_chunk_bwd)
+    spec, fb, fa, src, taps = case
+    order = fb.shape[1] - 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    state = _random_chunk_inputs(torch, spec, order, gen)
+    sig = torch.randn(CHUNK, generator=gen, device="cuda") * 1e-3
+    b6_us = _cuda_time_us(torch, lambda: mega_chunk(
+        spec, sig, fb, fa, *state, src, taps, grad=True), 5)
+    b6_plain_us = _cuda_time_us(torch, lambda: _mega_chunk_plain(
+        spec, sig, fb, fa, *state, src, taps, grad=True), 1)
+    Umax, Vmax = stacked_plane_shape(spec)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
+    gtaps = rnd(CHUNK, taps.numel())
+    carry = [rnd(*spec.dims) * 1e-3, rnd(*spec.dims) * 1e-3,
+             torch.zeros(order, 6, Umax, Vmax, device="cuda")]
+
+    def bwd():
+        # the kernel consumes its field and state cotangents: chain them
+        carry[:] = mega_chunk_bwd(spec, fb, fa, gtaps, *carry, src, taps)[:3]
+
+    b7_us = _cuda_time_us(torch, bwd, 5)
+    b7_plain_us = _cuda_time_us(torch, lambda: _mega_chunk_bwd_plain(
+        spec, fb, fa, gtaps, *carry, src, taps), 1)
+    res = mega_chunk(spec, sig, fb, fa, *state, src, taps, grad=True)[6]
+    streams = mega_chunk_bwd(spec, fb, fa, gtaps, *carry, src, taps)[4:]
+    theta_us = _cuda_time_us(torch, lambda: _chunk_theta_grads(
+        spec, fb, fa, res, *streams), 3)
+    print(f"[12 grad] alone at {spec.dims}, K = {CHUNK}: B6 "
+          f"{b6_us / CHUNK:.2f} us/sub-step (plain {b6_plain_us / CHUNK:.2f})"
+          f", B7 {b7_us / CHUNK:.2f} us/sub-step (plain "
+          f"{b7_plain_us / CHUNK:.2f}); per chunk B6 {b6_us / 1e3:.3f} ms, "
+          f"B7 {b7_us / 1e3:.3f} ms, the coefficient gradients "
+          f"(_chunk_theta_grads, plain autograd) {theta_us / 1e3:.3f} ms "
+          f"[{card}]")
+    return b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us
+
+
+def _grad_counts():
+    from wayverb_tpu_torch.waveguide.box_fused import (fused_step,
+                                                       fused_step_bwd)
+    from wayverb_tpu_torch.waveguide.box_mega import (mega_chunk,
+                                                      mega_chunk_bwd)
+    return {"box_fused_step": fused_step.launches,
+            "box_fused_step_bwd": fused_step_bwd.launches,
+            "box_mega_chunk": mega_chunk.launches,
+            "box_mega_chunk_grad": mega_chunk.grad_launches,
+            "box_mega_chunk_bwd": mega_chunk_bwd.launches}
+
+
+def _reset_grad_counts():
+    from wayverb_tpu_torch.waveguide.box_fused import (fused_step,
+                                                       fused_step_bwd)
+    from wayverb_tpu_torch.waveguide.box_mega import (mega_chunk,
+                                                      mega_chunk_bwd)
+    fused_step.launches = fused_step_bwd.launches = 0
+    mega_chunk.launches = mega_chunk.grad_launches = 0
+    mega_chunk_bwd.launches = 0
+
+
+def _leaves(mesh, source):
+    """(structure, source) whose coefficients and signal are fresh leaves
+    that require grad, and the leaves (coef_b, coef_a, signal)."""
+    import dataclasses
+    cb = mesh.structure.coef_b.detach().clone().requires_grad_(True)
+    ca = mesh.structure.coef_a.detach().clone().requires_grad_(True)
+    sig = source.signal.detach().clone().requires_grad_(True)
+    return (dataclasses.replace(mesh.structure, coef_b=cb, coef_a=ca),
+            dataclasses.replace(source, signal=sig), (cb, ca, sig))
+
+
+def _mega_grads(torch, mesh, source, receiver, steps, chunk, timed=False,
+                only_signal=False):
+    """Value and gradients of Σ taps² through mega_canonical_loss_fn;
+    ``only_signal``: the coefficients do not require grad."""
+    from wayverb_tpu_torch.waveguide.box_fused import face_coefficients
+    from wayverb_tpu_torch.waveguide.box_mega import mega_canonical_loss_fn
+    structure, source, leaves = _leaves(mesh, source)
+    if only_signal:
+        structure, leaves = mesh.structure, leaves[2:]
+    f = mega_canonical_loss_fn(structure, mesh.box_spec, source, receiver,
+                               steps, chunk)
+    sync = torch.cuda.synchronize if timed else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    taps, stable = f(*face_coefficients(structure, mesh.box_spec),
+                     source.signal)
+    loss = torch.sum(taps ** 2)
+    sync()
+    t1 = time.perf_counter()
+    loss.backward()
+    sync()
+    t2 = time.perf_counter()
+    return (float(loss.detach()), bool(stable),
+            tuple(t.grad.detach() for t in leaves), t1 - t0, t2 - t1)
+
+
+def _fused_grads(torch, mesh, source, receiver, steps):
+    """The same through run_waveguide_box(kernel_inject=False): B1 forward,
+    B5 backward, exact signal gradients."""
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    structure, source, leaves = _leaves(mesh, source)
+    out = wgrun.run_waveguide_box(structure, mesh.box_spec, source, receiver,
+                                  steps, kernel_inject=False)
+    loss = torch.sum(out["outputs"] ** 2)
+    loss.backward()
+    return float(loss.detach()), tuple(t.grad.detach() for t in leaves)
+
+
+def _tap_receiver(receiver):
+    """A receiver whose outputs are the raw taps of ``receiver``'s nodes, so
+    both routes give Σ taps² the same meaning."""
+    from wayverb_tpu_torch.waveguide.receivers import MultiNodeReceiver
+    return MultiNodeReceiver(node_idx=receiver.tap_nodes().reshape(-1))
+
+
+def phase_grad_hall(torch, box, dx, mesh, card):
+    """The gradient path at full width: the hall, GRAD_STEPS steps."""
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    src, rcv = _hall_positions(box, dx)
+    nodes = mesh.descriptor.num_nodes
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, src, rcv, _hall_sim_time(mesh, GRAD_STEPS))
+    # warm-up: one chunk forward and backward
+    _mega_grads(torch, mesh, source, receiver, CHUNK, CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_grad_counts()
+    loss, stable, grads, t_fwd, t_bwd = _mega_grads(
+        torch, mesh, source, receiver, n, CHUNK, timed=True)
+    counts = _grad_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    # the run above allocated from an emptied cache; again with the blocks
+    # it left, and once with only the signal requiring grad (the backward
+    # then skips the coefficient gradients)
+    _, _, _, t_fwd_warm, t_bwd_warm = _mega_grads(
+        torch, mesh, source, receiver, n, CHUNK, timed=True)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, (gsig_only,), t_fwd_sig, t_bwd_sig = _mega_grads(
+        torch, mesh, source, receiver, n, CHUNK, timed=True,
+        only_signal=True)
+    peak_sig = torch.cuda.max_memory_allocated()
+    sig_rel = _rel_err(gsig_only, grads[2])
+    sig_same = sig_rel <= GRAD_REL
+    chunks = -(-n // CHUNK)
+    names = ("coef_b", "coef_a", "signal")
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    nonzero = all(float(g.abs().max()) > 0 for g in grads)
+    print(f"[13 grad hall] {mesh.descriptor.dimensions}, {n} steps, K = "
+          f"{CHUNK}: loss {loss:.6e}, stable {stable}, gradients finite "
+          f"{finite}, nonzero {nonzero}; "
+          + ", ".join(f"max |d/d{nm}| {float(g.abs().max()):.4e}"
+                      for nm, g in zip(names, grads)))
+    print(f"[13 grad hall] launches {counts} (expected {chunks} grad-mode "
+          f"chunks, {chunks} backward chunks, 0 plain chunks)")
+    print(f"[13 grad hall] forward in grad mode {t_fwd:.4f} s "
+          f"({1e3 * t_fwd / n:.4f} ms/step), backward {t_bwd:.4f} s "
+          f"({1e3 * t_bwd / n:.4f} ms/step), {nodes * n / (t_fwd + t_bwd):.4e}"
+          f" node-updates/s forward+backward, peak memory "
+          f"{peak_mem / 2**20:.1f} MiB [{card}]")
+    print(f"[13 grad hall] again with a warm allocator: forward "
+          f"{t_fwd_warm:.4f} s, backward {t_bwd_warm:.4f} s; only the signal "
+          f"requires grad: forward {t_fwd_sig:.4f} s, backward "
+          f"{t_bwd_sig:.4f} s, peak memory {peak_sig / 2**20:.1f} MiB, "
+          f"d/dsignal vs the full run's {sig_rel:.3e} of the largest "
+          f"(bound {GRAD_REL:g}) [{card}]")
+    if not (n == GRAD_STEPS and stable and finite and nonzero and sig_same
+            and counts["box_mega_chunk_grad"] == chunks
+            and counts["box_mega_chunk_bwd"] == chunks
+            and counts["box_mega_chunk"] == 0):
+        _fail("the hall gradient run failed its checks")
+    return (counts, t_fwd, t_bwd, peak_mem,
+            {"warm_forward_s": t_fwd_warm, "warm_backward_s": t_bwd_warm,
+             "signal_only_forward_s": t_fwd_sig,
+             "signal_only_backward_s": t_bwd_sig,
+             "signal_only_peak_memory_bytes": peak_sig})
+
+
+def _compare_grads(tag, what, got, want):
+    names = ("coef_b", "coef_a", "signal")
+    rels = [_rel_err(a.cpu(), b.cpu()) for a, b in zip(got, want)]
+    print(f"[{tag}] {what}: "
+          + ", ".join(f"d/d{n} {r:.3e}" for n, r in zip(names, rels))
+          + f" of the largest component (bound {GRAD_REL:g})")
+    if not max(rels) <= GRAD_REL:
+        _fail(f"gradients disagree: {what}")
+    return max(rels)
+
+
+def phase_grad_routes(torch, mesh, card):
+    """Mega route (B6, B7) against the fused route with kernel_inject=False
+    (B1, B5) on the hall, 16 steps, K = 8.  The source sits 3 nodes from
+    the low x wall (with the taps around a node 2 further in), so that the
+    wave meets the boundary filters within the 16 steps and the coefficient
+    gradients are not trivially zero."""
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    steps = 16
+    spec, desc = mesh.box_spec, mesh.descriptor
+    mid = [(spec.ilo[a] + spec.ihi[a]) // 2 for a in range(3)]
+    src = tuple(desc.position(np.array([spec.ilo[0] + 3, mid[1], mid[2]])))
+    rcv = tuple(desc.position(np.array([spec.ilo[0] + 5, mid[1], mid[2]])))
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, src, rcv, _hall_sim_time(mesh, steps))
+    receiver = _tap_receiver(receiver)
+    _reset_grad_counts()
+    loss_m, stable, g_mega, _, _ = _mega_grads(torch, mesh, source, receiver,
+                                               n, 8)
+    mega_counts = _grad_counts()
+    _reset_grad_counts()
+    loss_f, g_fused = _fused_grads(torch, mesh, source, receiver, n)
+    torch.cuda.synchronize()
+    fused_counts = _grad_counts()
+    print(f"[14 routes] hall, {n} steps, source 3 nodes from the low x wall: "
+          f"mega route loss {loss_m:.6e} with launches {mega_counts}; fused "
+          f"route loss {loss_f:.6e} with launches {fused_counts}; largest "
+          "gradient components "
+          + ", ".join(f"{float(g.abs().max()):.4e}" for g in g_fused))
+    rel = _compare_grads("14 routes", "mega route vs fused route on the card",
+                         g_mega, g_fused)
+    if not (stable and all(float(g.abs().max()) > 0 for g in g_fused)
+            and mega_counts["box_mega_chunk_grad"] == 2
+            and mega_counts["box_mega_chunk_bwd"] == 2
+            and fused_counts["box_fused_step"] == n
+            and fused_counts["box_fused_step_bwd"] >= n - 1
+            and fused_counts["box_mega_chunk_grad"] == 0):
+        _fail("a gradient route did not launch its kernels, or a gradient "
+              "is all zero")
+    return fused_counts, rel
+
+
+def phase_grad_card_vs_cpu(torch, card):
+    """Gradients on the card (both routes) against the plain versions on
+    the CPU, on the box of the CPU tests (1.4 x 1.6 x 1.8 m)."""
+    from wayverb_tpu_torch.core.geometry import Box
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    fs = 3333.33
+    dx = grid_spacing(340.0, 1.0 / fs)
+    steps = 24
+    box = Box((0.0, 0.0, 0.0), (1.4, 1.6, 1.8))
+    results = {}
+    for device in ("cuda", "cpu"):
+        mesh = wgrun.shoebox_mesh(box, np.full((1, 8), 0.12), dx, fs,
+                                  device=device)
+        source, receiver, n, _ = wgrun.canonical_problem(
+            mesh, (0.7, 0.8, 0.5), (0.7, 0.8, 1.3), (steps - 0.5) / fs)
+        receiver = _tap_receiver(receiver)
+        _reset_grad_counts()
+        t0 = time.perf_counter()
+        _, _, g_mega, _, _ = _mega_grads(torch, mesh, source, receiver, n, 8)
+        counts = _grad_counts()
+        if device == "cuda":
+            results["cuda fused"] = _fused_grads(torch, mesh, source,
+                                                 receiver, n)[1]
+        elif any(counts.values()):
+            _fail("a kernel was counted on CPU tensors")
+        results[device] = g_mega
+        print(f"[15 card vs cpu] {mesh.descriptor.dimensions}, {n} steps on "
+              f"{device}: {time.perf_counter() - t0:.2f} s, launches "
+              f"{counts}")
+    a = _compare_grads("15 card vs cpu", "mega route on the card vs plain "
+                       "versions on the CPU", results["cuda"], results["cpu"])
+    b = _compare_grads("15 card vs cpu", "fused route on the card vs plain "
+                       "versions on the CPU", results["cuda fused"],
+                       results["cpu"])
+    return max(a, b)
+
+
+def phase_descent(torch, card):
+    """Three plain gradient steps on a scale of the filter numerators toward
+    the response of a more absorbent T30 box lower the loss each time."""
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import face_coefficients
+    from wayverb_tpu_torch.waveguide.box_mega import mega_canonical_loss_fn
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    box, _, src, rcv = _t30_box()
+    dx = grid_spacing(340.0, 1.0 / FS)
+    steps = 256
+    meshes = [wgrun.shoebox_mesh(box, np.full((1, 8), a), dx, FS,
+                                 device="cuda") for a in (ABSORPTION, 0.3)]
+    source, receiver, n, _ = wgrun.canonical_problem(
+        meshes[0], src, rcv, (steps - 0.5) / FS)
+
+    def taps_of(mesh, scale):
+        f = mega_canonical_loss_fn(mesh.structure, mesh.box_spec, source,
+                                   receiver, n, CHUNK)
+        fb, fa = face_coefficients(mesh.structure, mesh.box_spec)
+        return f(fb * scale, fa, source.signal)[0]
+
+    with torch.no_grad():
+        target = taps_of(meshes[1], 1.0)
+    scale = torch.ones((), device="cuda", requires_grad=True)
+    losses, lr = [], None
+    for _ in range(4):
+        loss = torch.sum((taps_of(meshes[0], scale) - target) ** 2)
+        g, = torch.autograd.grad(loss, scale)
+        if lr is None:
+            lr = 0.05 / abs(float(g))      # the first step moves by 0.05
+        losses.append(float(loss.detach()))
+        scale = (scale - lr * g).detach().requires_grad_(True)
+    print(f"[16 descent] T30 box, {n} steps, absorption {ABSORPTION} toward "
+          f"0.3: loss {' -> '.join(f'{v:.6e}' for v in losses)}, scale "
+          f"{float(scale.detach()):.4f} [{card}]")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        _fail("gradient descent did not lower the loss at every step")
+
+
 def main():
     import torch
     card = phase_device(torch)
@@ -739,25 +1305,66 @@ def main():
     b2_err, hall_case = phase_mega_vs_plain(torch, mesh, box, dx, card)
     b2_us, b2_plain_us = phase_mega_time(torch, hall_case, card)
     phase_mega_hall(torch, box, dx, mesh, fused_out, step_s, card)
-    hall_spec, hall_dims = mesh.box_spec, mesh.box_spec.dims
-    del mesh, fused_out
+    del fused_out
     torch.cuda.empty_cache()
+
+    b5_err = phase_b5_vs_plain(torch, mesh.box_spec, card)
+    b5_us, b5_plain_us = phase_b5_time(torch, mesh.box_spec, card)
+    b6_err, b7_err, grad_case = phase_grad_chunks_vs_plain(torch, mesh, box,
+                                                           dx, card)
+    b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us = phase_grad_chunk_time(
+        torch, grad_case, card)
+    torch.cuda.empty_cache()
+    grad_counts, grad_fwd_s, grad_bwd_s, grad_peak, grad_more = \
+        phase_grad_hall(torch, box, dx, mesh, card)
+    route_counts, _ = phase_grad_routes(torch, mesh, card)
+    hall_spec, hall_dims = mesh.box_spec, mesh.box_spec.dims
+    bounds = kernel_bounds(hall_spec, hall_case[1].shape[1] - 1,
+                           hall_case[4].numel())
+    # not a bound_ms: the looser reckoning, for the reader of the times above
+    print("[12 grad] per sub-step with the fields streamed through device "
+          "memory every sub-step (not the bound): "
+          + ", ".join(f"{n.upper()} {1e3 * bounds[n + '_stream']:.1f} us "
+                      f"(bound {1e3 * bounds[n][0]:.2f} us)"
+                      for n in ("b2", "b6", "b7")), flush=True)
+    del mesh, hall_case, grad_case
+    torch.cuda.empty_cache()
+
     phase_t30_mega(torch, t30_mesh, t30_fused, sabine, t30_src, t30_rcv, card)
     launches, engine_dims, b2_engine_err = phase_hybrid_hall(torch, hall_spec,
                                                              card)
     phase_hybrid_card_vs_cpu(torch, card)
-    if b1_launches == 0 or launches["box_mega_chunk"] == 0:
-        _fail("a kernel of the path was not launched")
+    phase_grad_card_vs_cpu(torch, card)
+    phase_descent(torch, card)
+    counted = {"box_fused_step": b1_launches,
+               "box_mega_chunk": launches["box_mega_chunk"],
+               "box_fused_step_bwd": route_counts["box_fused_step_bwd"],
+               "box_mega_chunk_grad": grad_counts["box_mega_chunk_grad"],
+               "box_mega_chunk_bwd": grad_counts["box_mega_chunk_bwd"]}
+    if not all(counted.values()):
+        _fail(f"a kernel of a path was not launched: {counted}")
+
+    def per_substep(name, launch_us, plain_launch_us):
+        return {"ms": launch_us / CHUNK / 1e3,
+                "plain_ms": plain_launch_us / CHUNK / 1e3,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": None,
+                "ms_is_per": "sub-step (a launch runs K of them)",
+                "launch_ms": launch_us / 1e3,
+                "plain_launch_ms": plain_launch_us / 1e3}
+
     print(json.dumps({"kernels": [{
         "name": "box_fused_step",
         "route": "cuda",
         "source": "wayverb_tpu_torch/csrc/box_fused_step.cu",
         "replaces": "wayverb_tpu/waveguide/box_fused.py:400",
         "shape": list(hall_dims),
-        "launches": b1_launches,
+        "launches": counted["box_fused_step"],
         "max_abs_err": b1_err,
         "ms": b1_us / 1e3,
         "plain_ms": b1_plain_us / 1e3,
+        "bound_ms": bounds["b1"][0], "bound_by": bounds["b1"][1],
+        "library_ms": None,
         "ms_is_per": "step",
     }, {
         "name": f"box_mega_chunk (K={CHUNK})",
@@ -765,14 +1372,49 @@ def main():
         "source": "wayverb_tpu_torch/csrc/box_mega_chunk.cu",
         "replaces": "wayverb_tpu/waveguide/box_mega.py:534",
         "shape": list(engine_dims),
-        "launches": launches["box_mega_chunk"],
+        "launches": counted["box_mega_chunk"],
         "max_abs_err": max(b2_err, b2_engine_err),
-        "ms": b2_us / CHUNK / 1e3,
-        "plain_ms": b2_plain_us / CHUNK / 1e3,
-        "ms_is_per": "sub-step (a launch runs K of them)",
-        "launch_ms": b2_us / 1e3,
-        "plain_launch_ms": b2_plain_us / 1e3,
-    }]}))
+        **per_substep("b2", b2_us, b2_plain_us),
+    }, {
+        "name": "box_fused_step_bwd",
+        "route": "cuda",
+        "source": "wayverb_tpu_torch/csrc/box_fused_step_bwd.cu",
+        "replaces": "wayverb_tpu/waveguide/box_fused.py:548",
+        "shape": list(hall_dims),
+        "launches": counted["box_fused_step_bwd"],
+        "max_abs_err": b5_err,
+        "ms": b5_us / 1e3,
+        "plain_ms": b5_plain_us / 1e3,
+        "bound_ms": bounds["b5"][0], "bound_by": bounds["b5"][1],
+        "library_ms": None,
+        "ms_is_per": "step",
+    }, {
+        "name": f"box_mega_chunk grad mode (K={CHUNK})",
+        "route": "cuda",
+        "source": "wayverb_tpu_torch/csrc/box_mega_chunk.cu",
+        "replaces": "wayverb_tpu/waveguide/box_mega.py:534",
+        "shape": list(hall_dims),
+        "launches": counted["box_mega_chunk_grad"],
+        "max_abs_err": b6_err,
+        "err_is": "residuals; the forward outputs equal the plain chunk "
+                  "kernel's to the bit",
+        **per_substep("b6", b6_us, b6_plain_us),
+    }, {
+        "name": f"box_mega_chunk_bwd (K={CHUNK})",
+        "route": "cuda",
+        "source": "wayverb_tpu_torch/csrc/box_mega_chunk_bwd.cu",
+        "replaces": "wayverb_tpu/waveguide/box_mega.py:882",
+        "shape": list(hall_dims),
+        "launches": counted["box_mega_chunk_bwd"],
+        "max_abs_err": b7_err,
+        "err_is": f"worst of six outputs; each is gated at {BWD_REL:g} of "
+                  "its own largest value",
+        **per_substep("b7", b7_us, b7_plain_us),
+    }], "gradient_path": {
+        "shape": list(hall_dims), "steps": GRAD_STEPS, "chunk": CHUNK,
+        "forward_s": grad_fwd_s, "backward_s": grad_bwd_s,
+        "theta_grads_ms_per_chunk": theta_us / 1e3,
+        "peak_memory_bytes": grad_peak, **grad_more}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

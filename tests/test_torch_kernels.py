@@ -7,6 +7,8 @@ package, so it runs on a GPU machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,8 @@ from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
 
 ATOL = 1e-5          # the bound tests/test_box_fused.py holds Pallas to
 MEGA_REL = 1e-5      # B2 against its plain version, per unit of peak
+BWD_REL = 1e-5       # B5, B6's residuals and B7 against plain, of the largest
+GRAD_REL = 1e-4      # whole-path gradients, of the largest component
 
 
 @pytest.fixture
@@ -202,3 +206,273 @@ def test_mega_chunk_kernel_matches_plain(cuda_device, mode, on_plane):
     peak = max(float(w.abs().max()) for w in want[:5])
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= MEGA_REL * peak
+
+
+# ---------------------------------------------------------------------------
+# the gradient path: B5, B6, B7
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / \
+        max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,rows,src,mode", [
+    ((16, 16, 128), None, (8, 9, 64), 0),
+    ((16, 16, 128), None, (8, 9, 64), 1),
+    ((37, 29, 53), None, (2, 14, 26), 2),
+    ((37, 29, 53), (30, 7), (33, 14, 26), 1),    # a shard without the low x
+    ((37, 29, 53), (10, 9), (12, 14, 26), 1),    # a shard without any x plane
+])
+def test_fused_step_bwd_kernel_matches_plain(cuda_device, dims, rows, src,
+                                             mode):
+    """B5 on random cotangents against ``_fused_step_bwd_plain``: gcur,
+    gprev, the six plane cotangents and the two halo cotangents, one
+    launch."""
+    inside = np.zeros(dims, dtype=bool)
+    inside[2:-2, 2:-2, 2:-2] = True
+    spec = tbf.spec_from_inside(inside)
+    off, X = rows or (0, dims[0])
+    shape = (X,) + dims[1:]
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                 device=cuda_device)
+    g = rnd(*shape)
+    ginner = tuple(rnd(*s) for s in tbf._plane_shapes(*shape))
+    args = (spec.geom_array(off), g, ginner, src + (mode,))
+    before = tbf.fused_step_bwd.launches
+    got = tbf.fused_step_bwd(*args)
+    assert tbf.fused_step_bwd.launches == before + 1
+    want = tbf._fused_step_bwd_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda r: (r[0], r[1], *r[2], *r[3])  # noqa: E731
+    for a, b in zip(flat(got), flat(want)):
+        assert tuple(a.shape) == tuple(b.shape)
+        assert float((a - b).abs().max()) <= BWD_REL * float(g.abs().max())
+
+
+def _chunk_case(device, mode, on_plane, K=8, order=6):
+    """The unaligned 21 x 17 x 26 box with random fields, state and planes
+    (zero in the planes' padding), a source in the middle or on an inner
+    plane, and taps at the source, beside it and at a boundary node."""
+    spec = tbf.BoxSpec(dims=(21, 17, 26), ilo=(2, 3, 2), ihi=(18, 13, 23),
+                       face_surface=(0,) * 6)
+    Umax, Vmax = tbf.stacked_plane_shape(spec)
+    gen = torch.Generator(device=device).manual_seed(1)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    mask = torch.zeros((6, Umax, Vmax), device=device)
+    for p in range(6):
+        U, V = spec.plane_shape(p)
+        mask[p, :U, :V] = 1.0
+    src = [(spec.ilo[a] + spec.ihi[a]) // 2 for a in range(3)]
+    if on_plane is not None:
+        a, side = divmod(on_plane, 2)
+        src[a] = spec.ilo[a] if side == 0 else spec.ihi[a]
+    _, Y, Z = spec.dims
+    flat = (src[0] * Y + src[1]) * Z + src[2]
+    taps = torch.tensor([flat, flat + 1, (1 * Y + 5) * Z + 7], device=device)
+    fb = torch.tensor([[1.0, 0.1, 0.05, 0.02, 0.0, 0.01, 0.0]] * 6,
+                      device=device) * 2.0
+    fa = torch.tensor([[1.0, -0.2, 0.01, 0.0, 0.03, 0.0, 0.0]] * 6,
+                      device=device)
+    fb = fb + 0.01 * torch.arange(6, device=device)[:, None]
+    return dict(spec=spec, rnd=rnd, mask=mask, src=tuple(src) + (mode,),
+                taps=taps, fb=fb[:, :order + 1].contiguous(),
+                fa=fa[:, :order + 1].contiguous(), K=K, order=order,
+                Umax=Umax, Vmax=Vmax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,on_plane", [(0, None), (1, 4), (2, 1)])
+def test_mega_chunk_grad_mode_kernel_matches_plain(cuda_device, mode,
+                                                   on_plane):
+    """B6: the grad-mode chunk's forward outputs equal the plain chunk
+    kernel's (B2) to the bit, its residual block equals the plain version's,
+    and it counts in ``grad_launches`` only."""
+    c = _chunk_case(cuda_device, mode, on_plane)
+    spec, rnd, mask = c["spec"], c["rnd"], c["mask"]
+    state = (rnd(*spec.dims), rnd(*spec.dims),
+             rnd(c["order"], 6, c["Umax"], c["Vmax"]) * mask,
+             rnd(3, 6, c["Umax"], c["Vmax"]) * mask)
+    args = (spec, rnd(c["K"]), c["fb"], c["fa"])
+    tail = (c["src"], c["taps"])
+    want = tbm._mega_chunk_plain(*args, *state, *tail, grad=True)
+    b2 = tbm.mega_chunk(*args, *(t.clone() for t in state), *tail)
+    before = tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches
+    got = tbm.mega_chunk(*args, *(t.clone() for t in state), *tail,
+                         grad=True)
+    torch.cuda.synchronize()
+    assert (tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches) == \
+        (before[0], before[1] + 1)
+    assert len(got) == 7 and len(b2) == 6
+    for a, b in zip(got[:6], b2):
+        assert torch.equal(a, b)
+    assert tuple(got[6].shape) == (c["K"], 4, 6, c["Umax"], c["Vmax"])
+    assert _rel(got[6], want[6]) <= BWD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,on_plane,K,order", [
+    (0, None, 8, 6), (1, 4, 8, 6), (2, 1, 8, 6), (1, 2, 6, 3), (2, 5, 4, 1)])
+def test_mega_chunk_bwd_kernel_matches_plain(cuda_device, mode, on_plane, K,
+                                             order):
+    """B7 on random cotangents against ``_mega_chunk_bwd_plain``: each of
+    the six outputs within 1e-5 of its largest value, the streams plane by
+    plane; one launch.  K = 8, 6 and 4 leave the results in each of the
+    three rotating field buffers."""
+    c = _chunk_case(cuda_device, mode, on_plane, K, order)
+    spec, rnd, mask = c["spec"], c["rnd"], c["mask"]
+    cot = (rnd(K, 3), rnd(*spec.dims), rnd(*spec.dims),
+           rnd(order, 6, c["Umax"], c["Vmax"]) * mask)
+    want = tbm._mega_chunk_bwd_plain(spec, c["fb"], c["fa"], *cot, c["src"],
+                                     c["taps"])
+    before = tbm.mega_chunk_bwd.launches
+    got = tbm.mega_chunk_bwd(spec, c["fb"], c["fa"],
+                             *(t.clone() for t in cot), c["src"], c["taps"])
+    torch.cuda.synchronize()
+    assert tbm.mega_chunk_bwd.launches == before + 1
+    names = ("gnext", "gcur", "gst", "gsig", "gp_stream", "gstin_stream")
+    for name, a, b in zip(names, got, want):
+        assert tuple(a.shape) == tuple(b.shape), name
+        if mode == 0 and name == "gsig":
+            assert float(a.abs().max()) == 0.0
+        else:
+            assert _rel(a, b) <= BWD_REL, name
+    for name, a, b, axis in (("gp_stream", got[4], want[4], 1),
+                             ("gstin_stream", got[5], want[5], 2)):
+        scale = float(b.abs().max())
+        for q in range(6):
+            err = float((a.select(axis, q) - b.select(axis, q)).abs().max())
+            assert err <= BWD_REL * scale, (name, q)
+
+
+def _grad_problem(device, steps):
+    fs = 3333.33
+    dx = grid_spacing(340.0, 1.0 / fs)
+    mesh = wgrun.shoebox_mesh(Box((0.0, 0.0, 0.0), (1.4, 1.6, 1.8)),
+                              np.full((1, 8), 0.12), dx, fs, device=device)
+    source, receiver, _, _ = wgrun.canonical_problem(
+        mesh, (0.7, 0.8, 0.5), (0.7, 0.8, 1.3), (steps - 0.5) / fs)
+    return mesh, source, receiver
+
+
+def _leaves(mesh, source):
+    cb = mesh.structure.coef_b.clone().requires_grad_(True)
+    ca = mesh.structure.coef_a.clone().requires_grad_(True)
+    sig = source.signal.clone().requires_grad_(True)
+    return (dataclasses.replace(mesh.structure, coef_b=cb, coef_a=ca),
+            dataclasses.replace(source, signal=sig), (cb, ca, sig))
+
+
+@pytest.mark.cuda
+def test_gradients_on_the_card_match_cpu(cuda_device):
+    """Gradients of Σ pressure² with respect to coef_b, coef_a and the
+    signal on the card, through the mega route (3 B6 launches forward, 3 B7
+    backward, no B2) and through the fused route with
+    ``kernel_inject=False`` (one B1 launch per step, one B5 launch per step
+    whose field reaches a tap), against the
+    same gradients from the plain versions on the CPU; within 1e-4 of the
+    largest component."""
+    steps = 20
+    grads = {}
+    for device, route in ((cuda_device, "mega"), (cuda_device, "fused"),
+                          ("cpu", "mega")):
+        mesh, source, receiver = _grad_problem(device, steps)
+        structure, source, leaves = _leaves(mesh, source)
+        before = (tbf.fused_step.launches, tbf.fused_step_bwd.launches,
+                  tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches,
+                  tbm.mega_chunk_bwd.launches)
+        if route == "mega":
+            out = tbm.run_waveguide_box_mega(structure, mesh.box_spec, source,
+                                             receiver, steps, chunk=8)
+        else:
+            out = wgrun.run_waveguide_box(structure, mesh.box_spec, source,
+                                          receiver, steps,
+                                          kernel_inject=False)
+        pressure = out["outputs"][1]
+        assert pressure.requires_grad and bool(out["stable"])
+        torch.sum(pressure ** 2).backward()
+        launched = tuple(now - was for now, was in zip(
+            (tbf.fused_step.launches, tbf.fused_step_bwd.launches,
+             tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches,
+             tbm.mega_chunk_bwd.launches), before))
+        if device == "cpu":
+            assert launched == (0, 0, 0, 0, 0)
+        elif route == "mega":
+            assert launched == (0, 0, 0, 3, 3)
+        else:
+            # the last step's field reaches no tap, so its adjoint never runs
+            assert launched == (steps, steps - 1, 0, 0, 0)
+        grads[(str(device), route)] = tuple(t.grad.cpu() for t in leaves)
+    want = grads[("cpu", "mega")]
+    for key in ((str(cuda_device), "mega"), (str(cuda_device), "fused")):
+        for a, b in zip(grads[key], want):
+            assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
+            assert _rel(a, b) <= GRAD_REL, key
+
+
+@pytest.mark.cuda
+def test_execute_on_the_card_differentiates_or_raises(cuda_device):
+    """A loss built on ``execute`` and ``canonical`` on the card with inputs
+    that require grad has a graph and yields gradients through B6/B7 (the
+    default route) or B1/B5 (``kernel_inject=False``); with nothing
+    requiring grad the forward launches B2 as before and has no graph."""
+    steps = 16
+    mesh, source, receiver = _grad_problem(cuda_device, steps)
+    for inject in (True, False):
+        structure, src, (cb, ca, sig) = _leaves(mesh, source)
+        m = dataclasses.replace(mesh, structure=structure)
+        before = (tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches,
+                  tbm.mega_chunk_bwd.launches, tbf.fused_step_bwd.launches)
+        out = wgrun.execute(m, src, receiver, steps, kernel_inject=inject)
+        pressure = out["outputs"][1]
+        assert pressure.grad_fn is not None
+        torch.sum(pressure ** 2).backward()
+        after = (tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches,
+                 tbm.mega_chunk_bwd.launches, tbf.fused_step_bwd.launches)
+        launched = tuple(b - a for a, b in zip(before, after))
+        assert launched == ((0, 1, 1, 0) if inject
+                            else (0, 0, 0, steps - 1))
+        for leaf in (cb, ca, sig):
+            assert leaf.grad is not None and float(leaf.grad.abs().max()) > 0
+    before = tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches
+    out = wgrun.execute(mesh, source, receiver, steps)
+    assert (tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches) == \
+        (before[0] + 1, before[1])
+    assert out["outputs"][1].grad_fn is None
+    structure, _, _ = _leaves(mesh, source)
+    m = dataclasses.replace(mesh, structure=structure)
+    out = wgrun.canonical(m, (0.7, 0.8, 0.5), (0.7, 0.8, 1.3),
+                          (steps - 0.5) / 3333.33)
+    assert out.pressure.grad_fn is not None
+
+
+@pytest.mark.cuda
+def test_signal_only_run_on_the_card_has_a_graph(cuda_device):
+    """Only the source signal requires grad.  The fused route with the
+    injection inside the step (B1 forward, B5 backward) still returns a
+    result with a graph and the signal gradient is zero; the mega route
+    gives the exact signal gradient of ``kernel_inject=False`` without
+    building the coefficient gradients."""
+    steps = 16
+    mesh, source, receiver = _grad_problem(cuda_device, steps)
+    sig = source.signal.clone().requires_grad_(True)
+    before = tbf.fused_step_bwd.launches
+    out = wgrun.run_waveguide_box(
+        mesh.structure, mesh.box_spec, dataclasses.replace(source, signal=sig),
+        receiver, steps)
+    pressure = out["outputs"][1]
+    assert pressure.grad_fn is not None
+    torch.sum(pressure ** 2).backward()
+    assert tbf.fused_step_bwd.launches == before + steps - 1
+    assert sig.grad is not None and not bool(sig.grad.any())
+
+    grads = []
+    for inject in (True, False):
+        sig = source.signal.clone().requires_grad_(True)
+        out = wgrun.execute(mesh, dataclasses.replace(source, signal=sig),
+                            receiver, steps, kernel_inject=inject)
+        torch.sum(out["outputs"][1] ** 2).backward()
+        grads.append(sig.grad.cpu())
+    assert float(grads[1].abs().max()) > 0
+    assert _rel(grads[0], grads[1]) <= GRAD_REL

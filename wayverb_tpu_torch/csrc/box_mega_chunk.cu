@@ -1,11 +1,12 @@
 // Mega chunk of the shoebox waveguide: K leapfrog sub-steps in one call,
 // CUDA C++ for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_MegaKernel.kernel` with grad=False of
-// wayverb_tpu/waveguide/box_mega.py.  It computes what the port's plain
-// version `_mega_chunk_plain` (wayverb_tpu_torch/waveguide/box_mega.py)
-// computes.  Each sub-step t, on the current field A and the previous
-// field B:
+// Replaces the Pallas TPU kernel `_MegaKernel.kernel` of
+// wayverb_tpu/waveguide/box_mega.py, with grad=False and, when the caller
+// passes a residual block, with grad=True.  It computes what the port's
+// plain version `_mega_chunk_plain` (wayverb_tpu_torch/waveguide/
+// box_mega.py) computes.  Each sub-step t, on the current field A and the
+// previous field B:
 //
 //   plane kernel, one thread per (plane, u, v) of (6, Umax, Vmax):
 //     - one thread injects the source into A (1 set, 2 add) and writes the
@@ -16,7 +17,12 @@
 //     - the six DF2T boundary-plane updates with edge/corner coupling
 //       (reference program.cpp:331-388 + filters.cpp), new <- f(PL, INS,
 //       PRVP, state);
-//     - each plane's sum, for the non-finite count.
+//     - each plane's sum, for the non-finite count;
+//     - in grad mode, the element's four residuals into row t of the
+//       (K, 4, 6, Umax, Vmax) block: PL, INS after the injection patch, PRVP
+//       and the OLD first state slot, exactly the values this update read
+//       (the coefficient gradients are taken from them afterwards).  The
+//       other outputs do not depend on the mode.
 //   stencil kernel, one thread per node: B <- the masked 7-point stencil
 //     of A minus B (in place over B), the splices of the new boundary
 //     planes and the inner-plane extraction into INS (box_stencil.cuh, the
@@ -68,6 +74,7 @@ struct PlaneArgs {
   const float* ins;           // (6, Umax, Vmax) first-inside planes of A
   const float* prvp;          // (6, Umax, Vmax) boundary planes of B
   float* out_p;               // (6, Umax, Vmax) new boundary planes
+  float* res;                 // (4, 6, Umax, Vmax) residual row t, or null
   const float* st_in;         // (order, 6, Umax, Vmax) DF2T state
   float* st_out;
   const float* fb;            // (6, order + 1) per-face filter numerator
@@ -98,6 +105,8 @@ __device__ float plane_update(const PlaneArgs& a, int p, int u, int v) {
   if (u >= U || v >= V) {
     a.out_p[idx] = 0.f;
     for (int j = 0; j < a.order; ++j) a.st_out[j * stack + idx] = 0.f;
+    if (a.res)
+      for (int r = 0; r < 4; ++r) a.res[r * stack + idx] = 0.f;
     return 0.f;
   }
   const int stride = a.Vmax;
@@ -150,6 +159,12 @@ __device__ float plane_update(const PlaneArgs& a, int p, int u, int v) {
   const float act = (u >= a.blo[a1] && u <= a.bhi[a1] && v >= a.blo[a2] &&
                      v <= a.bhi[a2]) ? 1.f : 0.f;
   const float prev = a.prvp[idx];
+  if (a.res) {
+    a.res[idx] = a.pl[idx];
+    a.res[stack + idx] = in;
+    a.res[2 * stack + idx] = prev;
+    a.res[3 * stack + idx] = m0;
+  }
   float x = csw + a.courant_sq * fw;
   x = x + (cw - 1.f) * prev;
   const float new_p = (act * x) / (1.f + cw);
@@ -235,6 +250,7 @@ extern "C" {
 //   sig            (K,) signal values; tap_idx (k,) flat node indices;
 //   taps           (K, k) output; bad (1,) accumulates the non-finite count;
 //   sums           (6,) scratch, zero on entry and on return;
+//   res            (K, 4, 6, Umax, Vmax) residual block (grad mode), or null;
 //   fb, fa         (6, order + 1) per-face filter coefficients;
 //   geom           X, Y, Z, ilo0, ihi0, ilo1, ihi1, ilo2, ihi2, Umax, Vmax,
 //                  order, K;
@@ -245,7 +261,7 @@ extern "C" {
 int wv_box_mega_chunk_f32(float* cur, float* prev, float* st, float* st_spare,
                           float* pln, float* pln_spare, const float* sig,
                           const long long* tap_idx, int k, float* taps,
-                          float* bad, float* sums, const float* fb,
+                          float* bad, float* sums, float* res, const float* fb,
                           const float* fa, const int* geom, long long src,
                           int mode, const int* ins_uv, float courant,
                           float courant_sq, void* stream_ptr) {
@@ -310,6 +326,7 @@ int wv_box_mega_chunk_f32(float* cur, float* prev, float* st, float* st_spare,
     pa.field = A;
     pa.sig = sig + t;
     pa.tap_row = taps + (long long)t * k;
+    pa.res = res ? res + (long long)t * 4 * stack : nullptr;
     pa.pl = PL;
     pa.ins = ins;
     pa.prvp = PRVP;

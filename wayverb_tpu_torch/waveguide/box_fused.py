@@ -1,6 +1,6 @@
 """Fused shoebox waveguide step: plane boundaries + one stencil kernel.
 
-Port of the forward half of ``wayverb_tpu.waveguide.box_fused``.  For a
+Port of ``wayverb_tpu.waveguide.box_fused``.  For a
 shoebox every boundary node lies in one of six grid planes, so the boundary
 work is a dense update of six (U, V) planes (``plane_boundary_step_stacked``,
 plain torch), and the interior stencil, the splice of the six boundary planes
@@ -9,12 +9,18 @@ kernel (``fused_step``): hand-written CUDA for Hopper
 (``csrc/box_fused_step.cu``) on CUDA tensors, its plain torch version
 ``_fused_step_plain`` on CPU tensors.
 
+The step is linear in (cur, prev, planes, halos).  When any of them requires
+grad, ``fused_step`` goes through a ``torch.autograd.Function`` whose
+backward is the hand-written adjoint ``fused_step_bwd``: CUDA
+(``csrc/box_fused_step_bwd.cu``) on CUDA tensors, ``_fused_step_bwd_plain``
+on CPU tensors.  The Function saves no field.
+
 The time loop (``make_box_body``) is a Python loop that keeps everything on
 the device: injection values are views of a device table, the stability
 flag accumulates as a device tensor, and three field buffers rotate (next,
-cur, prev) so that no field is allocated per step.
-
-The VJP (``_fused_bwd``, the backward kernel) waits for the gradients slice.
+cur, prev) so that no field is allocated per step.  When a gradient is
+required the loop allocates ``next`` afresh and injects out of place
+instead: autograd must see every field it differentiates through.
 
 Parity: reference ``src/waveguide/src/program.cpp:331-388`` boundary update
 + ``filters.cpp`` canonical DF2T ghost-point advance; oracle
@@ -434,6 +440,21 @@ def _fused_step_cuda(geom, cur, prev, planes, inj_idx, inj_val, halos, out):
     return nxt, inner
 
 
+def _fused_step_forward(geom, cur, prev, planes, inj_idx, inj_val, halos,
+                        out):
+    """The step without autograd: kernel on CUDA tensors, plain on CPU."""
+    if cur.is_cuda:
+        return _fused_step_cuda(geom, cur, prev, planes, inj_idx, inj_val,
+                                halos, out)
+    if cur.device.type != "cpu":
+        raise ValueError(f"fused_step: no kernel for device {cur.device}")
+    res, inner = _fused_step_plain(geom, cur, prev, planes, inj_idx,
+                                   inj_val, halos)
+    if out is None:
+        return res, inner
+    return out.copy_(res), inner
+
+
 def fused_step(geom, cur, prev, planes, inj_idx=NO_INJECT[0], inj_val=None,
                halos=None, out=None):
     """(next, inner_planes) = stencil + splice + inner-plane extraction.
@@ -453,20 +474,205 @@ def fused_step(geom, cur, prev, planes, inj_idx=NO_INJECT[0], inj_val=None,
 
     CPU tensors run the plain version ``_fused_step_plain``; CUDA tensors
     launch the CUDA kernel (counted in ``fused_step.launches``) or raise.
+
+    Linear in (cur, prev, planes, halos).  When grad mode is on and one of
+    them, or ``inj_val``, requires grad, the step runs under a
+    ``torch.autograd.Function`` whose backward is ``fused_step_bwd``
+    (``out`` must then be None).  The backward gives the injection VALUES a
+    zero gradient and zeroes the cur/prev cotangent at a hard-set node;
+    differentiate through ``make_box_body(kernel_inject=False)`` for
+    gradients with respect to the source signal.
     """
-    if cur.is_cuda:
-        return _fused_step_cuda(geom, cur, prev, planes, inj_idx, inj_val,
-                                halos, out)
-    if cur.device.type != "cpu":
-        raise ValueError(f"fused_step: no kernel for device {cur.device}")
-    res, inner = _fused_step_plain(geom, cur, prev, planes, inj_idx,
-                                   inj_val, halos)
-    if out is None:
-        return res, inner
-    return out.copy_(res), inner
+    diff = (cur, prev, *planes, *(halos or ()))
+    if inj_val is not None:
+        diff += (inj_val,)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in diff):
+        if out is not None:
+            raise ValueError("fused_step: out= cannot take the result when "
+                             "a gradient is required")
+        hlo, hhi = halos if halos is not None else (None, None)
+        res = _FusedStep.apply(
+            tuple(geom), tuple(int(v) for v in inj_idx), inj_val, cur, prev,
+            hlo, hhi, *planes)
+        return res[0], tuple(res[1:])
+    return _fused_step_forward(geom, cur, prev, planes, inj_idx, inj_val,
+                               halos, out)
 
 
 fused_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the adjoint of the fused step
+
+def _fused_step_bwd_plain(geom, g, ginner, inj_idx=NO_INJECT[0]):
+    """The plain torch version of the step's adjoint: a transcription of
+    the reference's ``_fused_bwd``.  Returns (gcur, gprev, gplanes6,
+    (ghlo, ghhi))."""
+    X, Y, Z = g.shape
+    dev = g.device
+    gx = geom[0] + torch.arange(X, device=dev).view(X, 1, 1)
+    gy = geom[1] + torch.arange(Y, device=dev).view(1, Y, 1)
+    gz = geom[2] + torch.arange(Z, device=dev).view(1, 1, Z)
+    zero = torch.zeros((), dtype=g.dtype, device=dev)
+    G = g
+    G = G + torch.where(gx == geom[3], ginner[0][None, :, :], zero)
+    G = G + torch.where(gx == geom[4], ginner[1][None, :, :], zero)
+    G = G + torch.where(gy == geom[5], ginner[2][:, None, :], zero)
+    G = G + torch.where(gy == geom[6], ginner[3][:, None, :], zero)
+    G = G + torch.where(gz == geom[7], ginner[4][:, :, None], zero)
+    G = G + torch.where(gz == geom[8], ginner[5][:, :, None], zero)
+    # unmasked: the inner-plane extraction also covers nodes that lie on
+    # boundary planes, e.g. (ilo_x, blo_y, z), so the cotangents of the
+    # splice values include the inner contributions
+    Gtot = G
+    G = torch.where(_inside_mask(gx, gy, gz, geom), G, zero)
+    gcur = COURANT_SQ * _neighbor_sum(G)
+    gprev = -G
+    ghalos = (COURANT_SQ * G[0:1], COURANT_SQ * G[-1:])
+
+    blo = (geom[3] - 1, geom[5] - 1, geom[7] - 1)
+    bhi = (geom[4] + 1, geom[6] + 1, geom[8] + 1)
+
+    def plane_grad(axis, coord, kill):
+        # a plane whose coordinate lies outside this shard gets a ZERO
+        # cotangent; ``kill``: (slice axis, local coordinate) lines that a
+        # later splice overwrites (precedence y < z < x)
+        c = coord - geom[axis]
+        shape = tuple(n for a, n in enumerate(Gtot.shape) if a != axis)
+        if not 0 <= c < Gtot.shape[axis]:
+            return torch.zeros(shape, dtype=g.dtype, device=dev)
+        sl = Gtot.select(axis, c).clone()
+        for k_axis, k_coord in kill:
+            if 0 <= k_coord < shape[k_axis]:
+                sl.select(k_axis, k_coord).zero_()
+        return sl
+
+    xlo_l, xhi_l = blo[0] - geom[0], bhi[0] - geom[0]
+    y_kill = ((0, xlo_l), (0, xhi_l), (1, blo[2]), (1, bhi[2]))
+    z_kill = ((0, xlo_l), (0, xhi_l))
+    gplanes = (plane_grad(0, blo[0], ()), plane_grad(0, bhi[0], ()),
+               plane_grad(1, blo[1], y_kill), plane_grad(1, bhi[1], y_kill),
+               plane_grad(2, blo[2], z_kill), plane_grad(2, bhi[2], z_kill))
+    # a hard-set injection overwrites cur/prev at the source node, so no
+    # cotangent flows through the pre-injection values there
+    sx, sy, sz, mode = inj_idx
+    lx = sx - geom[0]
+    if mode == 1 and 0 <= lx < X and 0 <= sy < Y and 0 <= sz < Z:
+        gcur[lx, sy, sz] = 0.0
+        gprev[lx, sy, sz] = 0.0
+    return gcur, gprev, gplanes, ghalos
+
+
+@functools.cache
+def _bwd_kernel_lib() -> ctypes.CDLL:
+    from wayverb_tpu_torch._build import load
+    lib = load("box_fused_step_bwd")
+    p = ctypes.c_void_p
+    lib.wv_box_fused_step_bwd_f32.argtypes = [
+        p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
+    lib.wv_box_fused_step_bwd_f32.restype = ctypes.c_int
+    lib.wv_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.wv_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _fused_step_bwd_cuda(geom, g, ginner, inj_idx):
+    """Launch the adjoint kernel (csrc/box_fused_step_bwd.cu) on g's
+    stream."""
+    X, Y, Z = g.shape
+    if g.dtype != torch.float32:
+        raise ValueError(f"fused_step_bwd: g must be float32, got {g.dtype}")
+    if geom[1] != 0 or geom[2] != 0:
+        raise ValueError("fused_step_bwd: y/z offsets must be zero")
+    shapes = _plane_shapes(X, Y, Z)
+    g = g.contiguous()
+    ginner = tuple(t.contiguous() for t in ginner)
+    for p, (t, shp) in enumerate(zip(ginner, shapes)):
+        if tuple(t.shape) != shp or t.device != g.device \
+                or t.dtype != torch.float32:
+            raise ValueError(f"fused_step_bwd: inner-plane cotangent {p} "
+                             f"must be a float32 {shp} tensor on {g.device}")
+    new = lambda *s: torch.empty(s, dtype=g.dtype,  # noqa: E731
+                                 device=g.device)
+    gcur, gprev = new(X, Y, Z), new(X, Y, Z)
+    gplanes = tuple(new(*s) for s in shapes)
+    ghalos = (new(1, Y, Z), new(1, Y, Z))
+    sx, sy, sz, mode = inj_idx
+    lx = sx - geom[0]
+    src = -1
+    if mode == 1 and 0 <= lx < X and 0 <= sy < Y and 0 <= sz < Z:
+        src = (lx * Y + sy) * Z + sz
+    ptrs6 = ctypes.c_void_p * 6
+    lib = _bwd_kernel_lib()
+    err = lib.wv_box_fused_step_bwd_f32(
+        g.data_ptr(), ptrs6(*[t.data_ptr() for t in ginner]),
+        gcur.data_ptr(), gprev.data_ptr(),
+        ptrs6(*[t.data_ptr() for t in gplanes]),
+        ghalos[0].data_ptr(), ghalos[1].data_ptr(),
+        (ctypes.c_int * 10)(X, Y, Z, geom[0], *geom[3:9]),
+        src, mode, torch.cuda.current_stream(g.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("box_fused_step_bwd launch failed: "
+                           + lib.wv_cuda_error_string(err).decode())
+    fused_step_bwd.launches += 1
+    return gcur, gprev, gplanes, ghalos
+
+
+def fused_step_bwd(geom, g, ginner, inj_idx=NO_INJECT[0]):
+    """The adjoint of ``fused_step`` in (cur, prev, planes, halos).
+
+    ``g``: cotangent of ``next`` (X, Y, Z); ``ginner``: the six inner-plane
+    cotangents (the shapes of ``planes``).  With G = g plus the inner-plane
+    cotangents placed at the inner coordinates and M the inside mask:
+    ĝcur = λ² Σ₆ shift(M ⊙ G), ĝprev = −M ⊙ G, the six boundary-plane
+    cotangents are the unmasked G at the plane coordinates, zeroed where a
+    later splice overwrites the plane (precedence y < z < x) and for an x
+    plane that this shard does not own, and the halo cotangents are
+    λ² M ⊙ G at the first and last local row.  ``inj_idx``: a hard-set
+    (mode 1) source node gets zero ĝcur and ĝprev.
+
+    Returns (gcur, gprev, gplanes6, (ghlo, ghhi)).  CPU tensors run
+    ``_fused_step_bwd_plain``; CUDA tensors launch the CUDA kernel (counted
+    in ``fused_step_bwd.launches``) or raise.
+    """
+    if g.is_cuda:
+        return _fused_step_bwd_cuda(geom, g, ginner, inj_idx)
+    if g.device.type != "cpu":
+        raise ValueError(f"fused_step_bwd: no kernel for device {g.device}")
+    return _fused_step_bwd_plain(geom, g, ginner, inj_idx)
+
+
+fused_step_bwd.launches = 0
+
+
+class _FusedStep(torch.autograd.Function):
+    """``fused_step`` with its hand-written adjoint.  Nothing is saved: the
+    step is linear and its adjoint needs only the static geometry."""
+
+    @staticmethod
+    def forward(ctx, geom, inj_idx, inj_val, cur, prev, hlo, hhi, *planes):
+        ctx.geom, ctx.inj_idx, ctx.has_halos = geom, inj_idx, hlo is not None
+        ctx.inj_meta = ((inj_val.shape, inj_val.dtype, inj_val.device)
+                        if ctx.needs_input_grad[2] else None)
+        nxt, inner = _fused_step_forward(
+            geom, cur, prev, planes, inj_idx, inj_val,
+            (hlo, hhi) if hlo is not None else None, None)
+        return (nxt, *inner)
+
+    @staticmethod
+    def backward(ctx, g, *ginner):
+        gcur, gprev, gplanes, ghalos = fused_step_bwd(ctx.geom, g, ginner,
+                                                      ctx.inj_idx)
+        if not ctx.has_halos:
+            ghalos = (None, None)
+        # the injection values get a zero gradient, so a run in which only
+        # the source signal requires grad still has a graph
+        ginj = None
+        if ctx.inj_meta is not None:
+            shape, dtype, device = ctx.inj_meta
+            ginj = torch.zeros(shape, dtype=dtype, device=device)
+        return (None, None, ginj, gcur, gprev, *ghalos, *gplanes)
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +723,23 @@ def face_coefficients(structure, spec: BoxSpec):
     return structure.coef_b[idx], structure.coef_a[idx]
 
 
+def requires_grad(*objs) -> bool:
+    """True when grad mode is on and a tensor among ``objs`` requires grad.
+    An object that is not a tensor is searched through its dataclass fields
+    (sources, receivers and mesh structures are dataclasses of tensors)."""
+    if not torch.is_grad_enabled():
+        return False
+    for obj in objs:
+        if isinstance(obj, torch.Tensor):
+            if obj.requires_grad:
+                return True
+        elif dataclasses.is_dataclass(obj):
+            if requires_grad(*(getattr(obj, f.name)
+                               for f in dataclasses.fields(obj))):
+                return True
+    return False
+
+
 def make_box_body(structure, spec: BoxSpec, source, receiver,
                   kernel_inject: bool = True):
     """One step of the fused box solver: (carry, t) → (carry, outputs).
@@ -525,14 +748,23 @@ def make_box_body(structure, spec: BoxSpec, source, receiver,
     where ``spare`` is the free field buffer the step writes ``next`` into;
     the step returns (next, cur, ..., prev) so three buffers rotate.
 
+    When the filter coefficients, the source or the receiver require grad
+    (and grad mode is on), nothing is written in place: ``next`` is a new
+    tensor each step, the injection works on a copy of the field, and the
+    carry's ``spare`` is None.
+
     ``kernel_inject``: point sources inject inside the fused step (the
-    default); False injects into the field in place before the step.
+    default; its adjoint treats the injected values as constants, so
+    material gradients are exact and signal gradients stop at a hard
+    source); False injects into the field before the step, which
+    differentiates with respect to everything.
     """
     dims = spec.dims
     num_nodes = dims[0] * dims[1] * dims[2]
     face_b, face_a = face_coefficients(structure, spec)
     geom = spec.geom_array()
     use_kernel_inject = kernel_inject and hasattr(source, "kernel_injection")
+    grad = requires_grad(face_b, face_a, source, receiver)
 
     def body(carry, t: int):
         current, previous, bcarry, rstate, ok, spare = carry
@@ -544,7 +776,9 @@ def make_box_body(structure, spec: BoxSpec, source, receiver,
             tap_field = _InjectedView(current.view(num_nodes), source, t)
         else:
             inj_idx, inj_val = NO_INJECT
-            tap_field = source.inject(current.view(num_nodes), t)
+            flat = current.reshape(num_nodes)
+            tap_field = source.inject(flat.clone() if grad else flat, t)
+            current = tap_field.view(dims)
 
         # mirror the injection onto the carried inner planes (a source at
         # an inner-layer node must be visible to the boundary update)
@@ -557,13 +791,13 @@ def make_box_body(structure, spec: BoxSpec, source, receiver,
         pplus_s = pplus_s.to(fdtype)
         nxt, in6_next = fused_step(geom, current, previous,
                                    unstack_planes(pplus_s, spec), inj_idx,
-                                   inj_val, out=spare)
+                                   inj_val, out=None if grad else spare)
         # instability shows at the boundary planes first, so a plane-sum
         # check is the O(n²) per-step stand-in for the reference's per-node
         # error flag; run_waveguide_box adds one full-field check at the end
         ok = ok & torch.isfinite(torch.sum(pplus_s))
         return ((nxt, current, (pplus_s, in6_next, pl_s, st_s), rstate, ok,
-                 previous), outputs)
+                 None if grad else previous), outputs)
 
     return body
 

@@ -8,8 +8,12 @@ device tensor read once, after the loop).
 ``execute`` routes as the reference does: a shoebox on a CUDA device that
 ``box_mega.mega_supported`` accepts takes the multi-step mega chunk path;
 CPU tensors, and ``kernel_inject=False``, take the fused streaming step.
-The general (non-shoebox) mesh path and gradient checkpointing are later
-slices of the port (ROADMAP queue A).
+Both routes differentiate: the mega path through its chunk-level
+``torch.autograd.Function`` (gradients with respect to the filter
+coefficients and the source signal), the fused path through the fused
+step's Function and plain autograd (everything, positions included, with
+optional checkpointing).  The general (non-shoebox) mesh path is a later
+slice of the port (ROADMAP queue A).
 
 Canonical driver parity: ``waveguide/canonical.h:30-124`` (hard source with
 calibrated impulse at the source node, directional receiver at the receiver
@@ -30,6 +34,7 @@ from wayverb_tpu_torch.core.geometry import Box, TriangleSoup, box_scene
 from wayverb_tpu_torch.waveguide import boundary as bdry
 from wayverb_tpu_torch.waveguide.box_fused import (BoxSpec, initial_box_carry,
                                                    make_box_body,
+                                                   requires_grad,
                                                    spec_from_inside)
 from wayverb_tpu_torch.waveguide.box_mega import (_stack_outputs,
                                                   mega_supported,
@@ -132,7 +137,8 @@ class WaveguideOutput:
 
 def run_waveguide_box(structure: MeshStructure, spec: BoxSpec, source,
                       receiver, num_steps: int, dtype=torch.float32,
-                      state_dtype=None, kernel_inject: bool = True) -> dict:
+                      state_dtype=None, checkpoint_every: int = 0,
+                      kernel_inject: bool = True) -> dict:
     """Run the fused plane-boundary solver for ``num_steps`` steps.
 
     Boundary work is one stacked plane update (plain torch) and the interior
@@ -140,7 +146,15 @@ def run_waveguide_box(structure: MeshStructure, spec: BoxSpec, source,
     ``state_dtype`` optionally runs the IIR filter state in a wider dtype
     than the field (the reference C++ keeps filter state in double,
     ``cl/filter_structs.h:14``).  ``kernel_inject=False`` injects point
-    sources into the field before the step instead of inside it.
+    sources into the field before the step instead of inside it
+    (differentiable with respect to the source signal; the in-step
+    injection stops signal gradients at a hard source, while material
+    gradients are exact either way).
+
+    ``checkpoint_every``: when a gradient is required, save the carry only
+    every that many steps and recompute each segment in the backward pass
+    (``torch.utils.checkpoint``), trading one more forward for
+    ``checkpoint_every`` times fewer stored fields.
 
     Returns {"outputs": stacked receiver outputs, "stable": () bool tensor}.
     """
@@ -148,9 +162,24 @@ def run_waveguide_box(structure: MeshStructure, spec: BoxSpec, source,
                          kernel_inject=kernel_inject)
     carry = initial_box_carry(structure, spec, receiver, dtype, state_dtype)
     per_step = []
-    for t in range(num_steps):
-        carry, outputs = body(carry, t)
-        per_step.append(outputs)
+    if checkpoint_every and num_steps > checkpoint_every and requires_grad(
+            structure, source, receiver):
+        from torch.utils.checkpoint import checkpoint
+
+        def segment(carry, t0):
+            outs = []
+            for t in range(t0, min(t0 + checkpoint_every, num_steps)):
+                carry, outputs = body(carry, t)
+                outs.append(outputs)
+            return carry, outs
+
+        for t0 in range(0, num_steps, checkpoint_every):
+            carry, outs = checkpoint(segment, carry, t0, use_reentrant=False)
+            per_step.extend(outs)
+    else:
+        for t in range(num_steps):
+            carry, outputs = body(carry, t)
+            per_step.append(outputs)
     # the per-step check covers the boundary planes only (O(n²)); a NaN
     # born in the interior persists in the field, so one final full-field
     # reduction catches it
@@ -166,14 +195,18 @@ def execute(mesh: Mesh, source, receiver, num_steps: int,
     routes to the mega chunk path (box_mega.py); other shoeboxes, CPU
     tensors among them, take the fused streaming step.  ``kernel_inject=
     False`` is the reference's escape hatch to the fused path with the
-    source injected into the field before each step.  Non-box meshes raise
+    source injected into the field before each step (exact gradients with
+    respect to the source signal).  Both routes differentiate: inputs that
+    require grad take the same route and get their gradients through the
+    route's adjoint kernels.  Non-box meshes raise
     NotImplementedError (their path is not ported yet).
     """
     if mesh.box_spec is None:
         raise NotImplementedError(_GENERAL_MESH)
     if kernel_inject and dtype == torch.float32 and mega_supported(
             mesh.box_spec, source, receiver, mesh.device,
-            filter_order=mesh.structure.filter_order):
+            filter_order=mesh.structure.filter_order, num_steps=num_steps,
+            grad=requires_grad(mesh.structure, source)):
         return run_waveguide_box_mega(mesh.structure, mesh.box_spec, source,
                                       receiver, num_steps)
     return run_waveguide_box(mesh.structure, mesh.box_spec, source, receiver,
