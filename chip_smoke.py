@@ -45,7 +45,30 @@ Drives the port through its public entry points on the card and fails
 15. gradients on the card against the plain versions on the CPU;
 16. three gradient steps on a scale of the filter numerators toward a target
     response lower the loss each time;
-17. one JSON line of per-kernel results, then the last line,
+17. B8, B9 and B12 (the general mesh's weighted step, its adjoint and the
+    masked interior step) against their plain versions at odd dims, at
+    tile-like dims and at the full shape of a hall with columns, with random
+    13-bit codes and with that hall's own ``weight_code`` and
+    ``interior_mask``;
+18. their times at that shape, and their plain versions';
+19. the columns hall (``raytracer.scenes.procedural_hall(2, 4, 1)``, 96
+    triangles, about 11.8 M nodes at a 1500 Hz cutoff) built as a general
+    mesh and run through ``canonical`` for 1000 steps: one B8 launch per
+    step, the seconds of each setup stage, step time, node-update rate, peak
+    memory and a profiler breakdown of a step;
+20. the T30 box built as a general mesh (no ``scene_box``) against Sabine
+    and against the mega path; a box two nodes thin through the region path
+    (B12) against its CPU run, and B12 against its plain version at that
+    box's shape and mask;
+21. the hybrid engine on the columns hall (no ``scene_box``): ``Engine.run``
+    + ``render`` + ``render_all``, with the seconds of each phase; then card
+    against CPU on the small columns hall;
+22. the general gradient: value and gradient of Σ taps² in the filter
+    coefficients on the columns hall, 64 steps checkpointed every 16, the
+    source three nodes from a column (B9 in the backward), and a profiler
+    breakdown of a forward + backward step; then card against CPU on the
+    small columns hall;
+23. one JSON line of per-kernel results, then the last line,
     ``{"ok": true, "device": {...}}``.
 
 A kernel's ``bound_ms`` is the least time the card could take for the same
@@ -83,7 +106,17 @@ GRAD_REL = 1e-4            # gradients between routes and card vs CPU
 CHUNK = 128
 GRAD_STEPS = 640           # the hall's backward workload: 5 chunks
 KERNELS = ("box_fused_step", "box_mega_chunk", "box_fused_step_bwd",
-           "box_mega_chunk_bwd")
+           "box_mega_chunk_bwd", "mesh_weighted_step",
+           "mesh_weighted_step_bwd", "mesh_interior_step")
+MESH_REL = 1e-5            # B8, B9, B12 vs plain, per unit of peak
+GENERAL_VS_MEGA_REL = 2e-5  # general path vs mega path on the T30 box
+WAVEGUIDE_REL = 1e-4       # waveguide card vs CPU, of peak
+# the columns hall: the engine's mesh rate at a 1500 Hz cutoff (10 kHz)
+COLUMNS_CUTOFF = 1500.0
+COLUMNS_FS = COLUMNS_CUTOFF / (0.25 * 0.6)
+COLUMNS_SRC, COLUMNS_RCV = (6.0, 4.0, 5.0), (7.5, 3.0, 6.5)
+COLUMNS_STEPS = 1000
+SMALL_COLUMNS_CUTOFF = 400.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12
 
@@ -380,19 +413,18 @@ def phase_kernel_time(torch, spec, card):
     return k_us, p_us
 
 
-def phase_profile(torch, mesh, box, dx, step_s, card):
-    """Where a fused step's time goes: a profiled 32-step window.
-
-    ``step_s``: the unprofiled wall time per step of the 1024-step run; the
-    profiler's own overhead inflates the profiled wall time."""
+def _profile_window(torch, tag, run, steps, step_s, card):
+    """Profile ``run()`` (``steps`` steps) and print where a step's time
+    goes.  ``step_s``: the unprofiled wall time per step of the long run;
+    the profiler's own overhead inflates the profiled wall time.  Returns
+    (device busy us/step, device kernels/step, idle share of the unprofiled
+    step, {kernel name: us/step}), or None when the profiler saw no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
-    steps = 32
-    fs = mesh.descriptor.sample_rate(340.0)
-    src, rcv = _hall_positions(box, dx)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _fused_canonical(mesh, src, rcv, (steps - 0.5) / fs)
+        run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = []
@@ -405,19 +437,33 @@ def phase_profile(torch, mesh, box, dx, step_s, card):
     busy_us = sum(r[0] for r in rows)
     n_kernels = sum(r[1] for r in rows)
     if busy_us <= 0:
-        print(f"[5 profile] device time not measured: the profiler saw no "
+        print(f"[{tag}] device time not measured: the profiler saw no "
               f"device activity (wall {wall_us / steps:.1f} us/step)")
-        return
+        return None
     busy_step_us = busy_us / steps
-    print(f"[5 profile] {steps} profiled steps: wall {wall_us / steps:.1f} "
+    idle = 1 - busy_step_us / (1e6 * step_s)
+    print(f"[{tag}] {steps} profiled steps: wall {wall_us / steps:.1f} "
           f"us/step (profiler on), device busy {busy_step_us:.1f} us/step, "
           f"{n_kernels / steps:.1f} device kernels/step; idle share "
           f"{1 - busy_us / wall_us:.3f} of the profiled wall, "
-          f"{1 - busy_step_us / (1e6 * step_s):.3f} of the unprofiled "
+          f"{idle:.3f} of the unprofiled "
           f"{1e6 * step_s:.1f} us/step [{card}]")
     for t, count, key in sorted(rows, reverse=True)[:8]:
-        print(f"[5 profile]   {t / steps:9.2f} us/step  {count / steps:6.2f}"
+        print(f"[{tag}]   {t / steps:9.2f} us/step  {count / steps:6.2f}"
               f"/step  {key[:90]}")
+    return (busy_step_us, n_kernels / steps, idle,
+            {key: t / steps for t, _, key in rows})
+
+
+def phase_profile(torch, mesh, box, dx, step_s, card):
+    """Where a fused step's time goes: a profiled 32-step window."""
+    steps = 32
+    fs = mesh.descriptor.sample_rate(340.0)
+    src, rcv = _hall_positions(box, dx)
+    _profile_window(
+        torch, "5 profile",
+        lambda: _fused_canonical(mesh, src, rcv, (steps - 0.5) / fs), steps,
+        step_s, card)
 
 
 # ---------------------------------------------------------------------------
@@ -1291,6 +1337,511 @@ def phase_descent(torch, card):
         _fail("gradient descent did not lower the loss at every step")
 
 
+# ---------------------------------------------------------------------------
+# the general (arbitrary-geometry) mesh: B8, B9, B12
+
+def _columns_spacing(cutoff):
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    fs = cutoff / (0.25 * 0.6)
+    return fs, grid_spacing(340.0, 1.0 / fs)
+
+
+def _columns_mesh(torch, cutoff, device, timings=None):
+    """The hall with columns, meshed as ``Engine`` meshes it at ``cutoff``
+    (no ``scene_box``: the general path)."""
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    fs, dx = _columns_spacing(cutoff)
+    soup, n_tri = procedural_hall(2, 4, 1)
+    if n_tri != 96:
+        _fail(f"the columns hall has {n_tri} triangles, expected 96")
+    return wgrun.compute_mesh(soup, np.full((1, 8), ABSORPTION), dx, fs,
+                              device=device, timings=timings)
+
+
+def _mesh_kernel_case(torch, tag, what, cur, prev, g, code, mask):
+    """B8, B9 and B12 against their plain versions on the same CUDA
+    tensors; returns the three max |kernel - plain|."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    pairs = (
+        ("B8", sk.weighted_step(cur, prev, code),
+         sk._weighted_step_plain(cur, prev, code)),
+        ("B9", sk.weighted_step_bwd(g, code),
+         sk._weighted_step_bwd_plain(g, code)),
+        ("B12", sk.interior_step(cur, prev, mask),
+         sk._interior_step_plain(cur, prev, mask)))
+    torch.cuda.synchronize()
+    errs = []
+    for name, got, want in pairs:
+        err = float((got - want).abs().max())
+        peak = float(want.abs().max())
+        errs.append(err)
+        print(f"[{tag}] {name} {tuple(cur.shape)} ({what}): max |kernel - "
+              f"plain| = {err:.3e}, peak {peak:.3e} (bound {MESH_REL:g} x "
+              "peak)")
+        if not (err <= MESH_REL * peak and peak > 0):
+            _fail(f"{name} disagrees with its plain version: {what}")
+    return errs
+
+
+def phase_mesh_kernels_vs_plain(torch, structure, card):
+    """B8, B9, B12 against their plain versions: odd and tile-like dims with
+    random 13-bit codes and masks, then the columns hall's shape with random
+    codes and with the hall's own weight code and interior mask."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rnd = lambda dims: torch.randn(*dims, generator=gen,  # noqa: E731
+                                   device="cuda")
+
+    def random_tables(dims):
+        code = torch.randint(0, 1 << 13, dims, generator=gen, device="cuda",
+                             dtype=torch.int32)
+        mask = (torch.rand(*dims, generator=gen, device="cuda") > 0.3).float()
+        return code, mask
+
+    hall = tuple(structure.weight_code.shape)
+    worst = [0.0, 0.0, 0.0]
+    cases = [((6, 7, 9), "odd dims, random codes"),
+             ((37, 29, 53), "odd dims, random codes"),
+             ((3, 2, 300), "a ragged z block, random codes"),
+             ((16, 8, 128), "tile-like dims, random codes"),
+             ((32, 16, 256), "tile-like dims, random codes"),
+             (hall, "columns hall shape, random codes")]
+    for dims, what in cases:
+        errs = _mesh_kernel_case(torch, "17 mesh", what, rnd(dims), rnd(dims),
+                                 rnd(dims), *random_tables(dims))
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+    errs = _mesh_kernel_case(
+        torch, "17 mesh", "the columns hall's own weight code and mask",
+        rnd(hall), rnd(hall), rnd(hall), structure.weight_code,
+        structure.interior_mask)
+    return [max(a, b) for a, b in zip(worst, errs)]
+
+
+def mesh_kernel_bounds(n):
+    """Bounds per step at ``n`` nodes, from the shapes alone.  B8: cur,
+    prev, int32 code in, out out; 6 multiplies and 6 adds, then two
+    multiplies and a subtract.  B9: g, code in, gcur out; 6 multiplies, 6
+    adds, a multiply.  B12: cur, prev, mask in, out out; 6 adds, a multiply,
+    a subtract, a multiply."""
+    return {"b8": _bound(16 * n, 15 * n), "b9": _bound(12 * n, 13 * n),
+            "b12": _bound(16 * n, 9 * n)}
+
+
+def phase_mesh_kernel_times(torch, structure, card):
+    """B8, B9, B12 alone at the columns hall's shape, and their plain
+    versions (CUDA events), with the hall's own code and mask."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    code, mask = structure.weight_code, structure.interior_mask
+    dims = tuple(code.shape)
+    n = code.numel()
+    cur, prev, g = (torch.randn(*dims, generator=gen, device="cuda")
+                    for _ in range(3))
+    out = torch.empty_like(cur)
+    bounds = mesh_kernel_bounds(n)
+    times = {}
+    for name, per_node, kernel, plain in (
+            ("b8", 16, lambda: sk.weighted_step(cur, prev, code, out=out),
+             lambda: sk._weighted_step_plain(cur, prev, code)),
+            ("b9", 12, lambda: sk.weighted_step_bwd(g, code),
+             lambda: sk._weighted_step_bwd_plain(g, code)),
+            ("b12", 16, lambda: sk.interior_step(cur, prev, mask, out=out),
+             lambda: sk._interior_step_plain(cur, prev, mask))):
+        k_us = _cuda_time_us(torch, kernel, 200)
+        p_us = _cuda_time_us(torch, plain, 20)
+        times[name] = (k_us, p_us)
+        print(f"[18 mesh] {name.upper()} alone at {dims} = {n} nodes: kernel "
+              f"{k_us:.2f} us/step ({per_node * n / k_us / 1e3:.1f} GB/s at "
+              f"{per_node} B/node), plain version {p_us:.2f} us/step, bound "
+              f"{1e3 * bounds[name][0]:.2f} us by {bounds[name][1]} [{card}]")
+    return times, bounds
+
+
+def _mesh_counts():
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    return {"mesh_weighted_step": sk.weighted_step.launches,
+            "mesh_weighted_step_bwd": sk.weighted_step_bwd.launches,
+            "mesh_interior_step": sk.interior_step.launches}
+
+
+def _reset_mesh_counts():
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    sk.weighted_step.launches = sk.weighted_step_bwd.launches = 0
+    sk.interior_step.launches = 0
+    _reset_grad_counts()
+
+
+def phase_columns_hall(torch, mesh, timings, setup_s, card):
+    """The columns hall through ``canonical`` on the card, 1000 steps."""
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    desc = mesh.descriptor
+    nodes = desc.num_nodes
+    steps = COLUMNS_STEPS
+    sim_time = (steps - 0.5) / COLUMNS_FS
+    b = mesh.structure.num_boundary_nodes
+    reentrant = int(((mesh.structure.interior_mask > 0).cpu().numpy()
+                     & ~mesh.inside).sum())
+    print(f"[19 columns] {desc.dimensions} = {nodes} nodes, "
+          f"{int(mesh.inside.sum())} inside, {b} boundary, {reentrant} "
+          f"reentrant; setup {setup_s:.2f} s: classification "
+          f"{timings['classify_s']:.2f} s by {timings['classifier']}, filter "
+          f"fit {timings['fit_s']:.2f} s, structure "
+          f"{timings['structure_s']:.2f} s")
+    if mesh.box_spec is not None or mesh.regions is not None \
+            or reentrant == 0:
+        _fail("the columns hall is not a general mesh")
+    wgrun.canonical(mesh, COLUMNS_SRC, COLUMNS_RCV, 15.5 / COLUMNS_FS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_mesh_counts()
+    t0 = time.perf_counter()
+    out = wgrun.canonical(mesh, COLUMNS_SRC, COLUMNS_RCV, sim_time)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**_mesh_counts(), **_grad_counts()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    n = out.pressure.shape[0]
+    finite = bool(torch.isfinite(out.pressure).all()
+                  and torch.isfinite(out.intensity).all())
+    stable = bool(out.stable)
+    peak = float(out.pressure.abs().max())
+    print(f"[19 columns] {n} steps: stable {stable}, finite {finite}, peak "
+          f"|p| {peak:.4f}, launches {counts}")
+    others = sum(v for k, v in counts.items() if k != "mesh_weighted_step")
+    if not (n == steps and stable and finite and peak > 0 and others == 0
+            and counts["mesh_weighted_step"] == steps):
+        _fail("the columns hall run failed its checks")
+    print(f"[19 columns] general path wall {1e3 * wall / steps:.4f} ms/step,"
+          f" {nodes * steps / wall:.4e} node-updates/s, peak memory "
+          f"{peak_mem / 2**20:.1f} MiB [{card}]")
+    prof = _profile_window(
+        torch, "19 profile",
+        lambda: wgrun.canonical(mesh, COLUMNS_SRC, COLUMNS_RCV,
+                                31.5 / COLUMNS_FS), 32, wall / steps, card)
+    if prof is not None:
+        b8_us = sum(t for key, t in prof[3].items()
+                    if "mesh_weighted_step_kernel" in key)
+        print(f"[19 profile] of the unprofiled {1e6 * wall / steps:.1f} "
+              f"us/step: B8 {b8_us:.1f} us, the other device kernels (the "
+              f"compact boundary pass, the isfinite check, injection, taps) "
+              f"{prof[0] - b8_us:.1f} us, device idle "
+              f"{1e6 * wall / steps - prof[0]:.1f} us [{card}]")
+    return {"dims": list(desc.dimensions), "nodes": nodes, "steps": steps,
+            "boundary_nodes": b, "wall_ms_per_step": 1e3 * wall / steps,
+            "peak_memory_bytes": peak_mem, "setup_s": setup_s, **timings,
+            "profile": None if prof is None else {
+                "device_busy_us_per_step": prof[0],
+                "b8_us_per_step": b8_us,
+                "kernels_per_step": prof[1], "idle_share": prof[2]}}
+
+
+def phase_general_physics(torch, t30_mesh, t30_src, t30_rcv, sabine, card):
+    """The T30 box as a general mesh against Sabine and the mega path; a
+    thin box through the region path against its CPU run."""
+    from wayverb_tpu_torch.core.environment import Environment
+    from wayverb_tpu_torch.core.geometry import Box, box_scene
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    env = Environment()
+    dx = grid_spacing(env.speed_of_sound, 1.0 / FS)
+    box = _t30_box()[0]
+    absorption = np.full((1, 8), ABSORPTION)
+    # anchored as the shoebox mesh is, so both grids hold the same nodes
+    mesh = wgrun.compute_mesh(box_scene(box), absorption, dx, FS,
+                              anchor=tuple(np.asarray(box.centre())),
+                              device="cuda")
+    if mesh.box_spec is not None or mesh.regions is not None:
+        _fail("the T30 box without scene_box did not build a general mesh")
+    if mesh.descriptor != t30_mesh.descriptor or \
+            int((mesh.inside != t30_mesh.inside).sum()):
+        _fail("the general T30 mesh differs from the shoebox mesh: "
+              f"{mesh.descriptor} vs {t30_mesh.descriptor}")
+    _reset_mesh_counts()
+    t0 = time.perf_counter()
+    out = wgrun.canonical(mesh, t30_src, t30_rcv, 2.0, env)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _mesh_counts()
+    _t30_of(out, sabine, "20 t30 general", dt, card)
+    ref = wgrun.canonical(t30_mesh, t30_src, t30_rcv, 2.0, env)
+    peak = float(ref.pressure.abs().max())
+    err = float((out.pressure - ref.pressure).abs().max())
+    print(f"[20 t30 general] {counts['mesh_weighted_step']} B8 launches; "
+          f"general path vs mega path: max |Δp| {err:.3e} = "
+          f"{err / peak:.3e} of peak (bound {GENERAL_VS_MEGA_REL:g})")
+    if not (counts["mesh_weighted_step"] == out.pressure.shape[0]
+            and err <= GENERAL_VS_MEGA_REL * peak):
+        _fail("the general path on the T30 box failed its checks")
+
+    # a box two nodes thin in z: too thin for the plane solver
+    thin = Box((0.0, 0.0, 0.0), (1.4, 1.6, 0.5))
+    outs = []
+    for device in ("cuda", "cpu"):
+        m = wgrun.shoebox_mesh(thin, absorption, dx, FS,
+                               anchor=(0.7, 0.8, 0.25 + dx / 2),
+                               device=device)
+        if m.box_spec is not None or m.regions is None:
+            _fail("the thin box did not route to the region path")
+        _reset_mesh_counts()
+        outs.append(wgrun.canonical(m, (0.5, 0.6, 0.2), (0.9, 1.1, 0.3),
+                                    0.09, env))
+        n_b12 = _mesh_counts()["mesh_interior_step"]
+        if n_b12 != (outs[-1].pressure.shape[0] if device == "cuda" else 0):
+            _fail(f"thin box on {device}: {n_b12} B12 launches")
+        if device == "cuda":
+            thin_launches = n_b12
+            # B12 at the shape and with the mask the region path gives it
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+            fields = [torch.randn(*m.descriptor.dimensions, generator=gen,
+                                  device="cuda") for _ in range(3)]
+            thin_err = _mesh_kernel_case(
+                torch, "20 thin box", "the thin box's own weight code and "
+                "mask", *fields, m.structure.weight_code,
+                m.structure.interior_mask)[2]
+    peak = float(outs[1].pressure.abs().max())
+    err = float((outs[0].pressure.cpu() - outs[1].pressure).abs().max())
+    print(f"[20 thin box] {m.descriptor.dimensions}, "
+          f"{outs[0].pressure.shape[0]} steps through the region path: "
+          f"{thin_launches} B12 launches on the card, 0 on the CPU; card vs "
+          f"CPU max |Δp| {err:.3e} = {err / peak:.3e} of peak (bound "
+          f"{WAVEGUIDE_REL:g})")
+    if not (bool(outs[0].stable) and bool(outs[1].stable)
+            and err <= WAVEGUIDE_REL * peak):
+        _fail("the thin box failed its checks")
+    return thin_launches, thin_err
+
+
+def _columns_engine(torch, cutoff, device):
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.surfaces import Surface
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    surfaces = Surface(absorption=torch.full((1, 8), ABSORPTION),
+                       scattering=torch.full((1, 8), 0.1))
+    return eng.Engine(procedural_hall(2, 4, 1)[0], surfaces,
+                      eng.WaveguideParameters(cutoff=cutoff,
+                                              usable_portion=0.6),
+                      device=device)
+
+
+def phase_hybrid_columns(torch, checked_code, card):
+    """Engine (no scene_box) .run + render + render_all on the columns hall;
+    seconds of each phase.  ``checked_code``: the weight code phase 17
+    checked B8 on.  Returns the launch counts of the run."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Microphone, Null
+    t0 = time.perf_counter()
+    e = _columns_engine(torch, COLUMNS_CUTOFF, "cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    code = e.mesh.structure.weight_code
+    if code.shape != checked_code.shape or not torch.equal(code,
+                                                           checked_code):
+        _fail(f"the engine's weight code {tuple(code.shape)} is not the one "
+              f"phase 17 checked, {tuple(checked_code.shape)}")
+    params = eng.RaytracerParameters()
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    _reset_mesh_counts()
+    mark("start")
+    results = e.run(COLUMNS_SRC, COLUMNS_RCV, gen, params,
+                    waveguide_time=COLUMNS_STEPS / COLUMNS_FS,
+                    state_callback=mark)
+    mark("end")
+    launches = {**_mesh_counts(), **_grad_counts()}
+    t_render = time.perf_counter()
+    ir = eng.render(results, Null(), 44100.0, gen)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t_render
+    both = eng.render_all(results, [Null(), Microphone(shape=0.5)], gen,
+                          output_sample_rate=44100.0)
+    torch.cuda.synchronize()
+    secs = {marks[i][0]: marks[i + 1][1] - marks[i][1]
+            for i in range(len(marks) - 1)}
+    trace_s = secs["running_raytracer"]
+    depth = eng.optimum_depth(e.surfaces)
+    steps = results.waveguide_bands[0].pressure.shape[0]
+    print(f"[21 hybrid columns] {e.soup.num_triangles} triangles, mesh "
+          f"{e.mesh.descriptor.dimensions} (the weight code phase 17 "
+          f"checked), engine setup {setup:.2f} s; {params.rays} rays x "
+          f"{depth} bounces")
+    print(f"[21 hybrid columns] seconds: trace {trace_s:.3f}, image sources "
+          f"{secs['finding_image_sources']:.3f}, waveguide "
+          f"{secs['running_waveguide']:.3f} ({steps} steps), finish "
+          f"{secs['finishing']:.3f}, render {t_render:.3f}; trace "
+          f"{params.rays * depth / trace_s:.4e} ray-bounces/s; launches "
+          f"{launches} [{card}]")
+    ir_np = ir.cpu().numpy()
+    finite = bool(np.all(np.isfinite(ir_np))) and \
+        bool(torch.isfinite(both).all())
+    arrival = float(np.linalg.norm(np.subtract(COLUMNS_SRC,
+                                               COLUMNS_RCV))) / 340.0
+    peak_t = float(np.abs(ir_np).argmax()) / 44100.0
+    half = int(0.5 * 44100)
+    early = float(np.square(ir_np[:half]).sum())
+    late = float(np.square(ir_np[-half:]).sum())
+    print(f"[21 hybrid columns] IR {ir_np.shape[0]} samples at 44.1 kHz, "
+          f"finite {finite}; peak at {1e3 * peak_t:.2f} ms, direct arrival "
+          f"{1e3 * arrival:.2f} ms (bound 20 ms); energy first 0.5 s "
+          f"{early:.4e}, last 0.5 s {late:.4e}; render_all "
+          f"{tuple(both.shape)}, max {float(both.abs().max()):.4f}")
+    others = sum(v for k, v in launches.items() if k != "mesh_weighted_step")
+    if not (finite and abs(peak_t - arrival) <= 0.02 and late < early
+            and steps == COLUMNS_STEPS
+            and launches["mesh_weighted_step"] == steps and others == 0
+            and tuple(both.shape) == (2, ir_np.shape[0])):
+        _fail("the hybrid columns hall failed its checks")
+    return launches, {"setup_s": setup, "trace_s": trace_s,
+                      "image_sources_s": secs["finding_image_sources"],
+                      "waveguide_s": secs["running_waveguide"],
+                      "render_s": t_render}
+
+
+def phase_hybrid_columns_card_vs_cpu(torch, card):
+    """The small columns hall (400 Hz cutoff) on the card and on the CPU,
+    same draws: the waveguide band and the rendered IR."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Null
+    params = eng.RaytracerParameters(rays=1 << 13, max_time=1.5)
+    outs, secs = [], []
+    for device in ("cuda", "cpu"):
+        _reset_mesh_counts()
+        t0 = time.perf_counter()
+        e = _columns_engine(torch, SMALL_COLUMNS_CUTOFF, device)
+        results = e.run(COLUMNS_SRC, COLUMNS_RCV,
+                        torch.Generator().manual_seed(SEED), params,
+                        waveguide_time=0.25)
+        ir = eng.render(results, Null(), 16000.0,
+                        torch.Generator().manual_seed(SEED + 1))
+        outs.append((results.waveguide_bands[0].pressure.cpu(), ir.cpu()))
+        secs.append(time.perf_counter() - t0)
+        n_b8 = _mesh_counts()["mesh_weighted_step"]
+        if n_b8 != (outs[-1][0].shape[0] if device == "cuda" else 0):
+            _fail(f"hybrid columns hall on {device}: {n_b8} B8 launches")
+    (card_p, card_ir), (cpu_p, cpu_ir) = outs
+    p_rel = float((card_p - cpu_p).abs().max()) / float(cpu_p.abs().max())
+    ir_rel = float((card_ir - cpu_ir).abs().max()) \
+        / float(cpu_ir.abs().max()) if card_ir.shape == cpu_ir.shape \
+        else float("inf")
+    print(f"[21 hybrid columns] small columns hall "
+          f"{e.mesh.descriptor.dimensions}, {params.rays} rays, "
+          f"{card_p.shape[0]} waveguide steps: card {secs[0]:.2f} s, CPU "
+          f"{secs[1]:.2f} s; waveguide {p_rel:.3e} of peak (bound "
+          f"{WAVEGUIDE_REL:g}), IR {tuple(card_ir.shape)} {ir_rel:.3e} of "
+          f"peak (bound {HYBRID_REL:g}) [{card}]")
+    if not (p_rel <= WAVEGUIDE_REL and ir_rel <= HYBRID_REL):
+        _fail("the hybrid columns hall on the card differs from the CPU run")
+
+
+def _general_grads(torch, mesh, src, rcv, steps, fs, timed=False):
+    """Value and gradients of Σ taps² in (coef_b, coef_a, signal) through
+    ``run_waveguide``, checkpointed every 16 steps."""
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, src, rcv, (steps - 0.5) / fs)
+    structure, source, leaves = _leaves(mesh, source)
+    sync = torch.cuda.synchronize if timed else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = wgrun.run_waveguide(structure, mesh.descriptor.dimensions, source,
+                              _tap_receiver(receiver), n,
+                              checkpoint_every=16)
+    loss = torch.sum(out["outputs"] ** 2)
+    sync()
+    t1 = time.perf_counter()
+    loss.backward()
+    sync()
+    t2 = time.perf_counter()
+    return (float(loss.detach()), bool(out["stable"]),
+            tuple(t.grad.detach() for t in leaves), t1 - t0, t2 - t1)
+
+
+def _beside_column(mesh, nodes_off):
+    """A position ``nodes_off`` nodes in +x from the first column's face
+    (the column of ``procedural_hall``'s first draw: x 5.505 ± 0.4 m,
+    z 8.969 m), at mid height."""
+    dx = mesh.descriptor.spacing
+    return (5.505 + 0.4 + nodes_off * dx, 4.0, 8.969)
+
+
+def phase_general_gradient(torch, mesh, card):
+    """The general gradient at full width: the columns hall, 64 steps."""
+    steps = 64
+    nodes = mesh.descriptor.num_nodes
+    src, rcv = _beside_column(mesh, 3), _beside_column(mesh, 5)
+    # warm-up through the checkpointed loop (32 > 16 steps): the first use
+    # of torch.utils.checkpoint costs seconds of imports
+    _general_grads(torch, mesh, src, rcv, 32, COLUMNS_FS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_mesh_counts()
+    loss, stable, grads, t_fwd, t_bwd = _general_grads(
+        torch, mesh, src, rcv, steps, COLUMNS_FS, timed=True)
+    counts = _mesh_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    names = ("coef_b", "coef_a", "signal")
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    nonzero = all(float(g.abs().max()) > 0 for g in grads)
+    print(f"[22 general grad] {mesh.descriptor.dimensions}, {steps} steps, "
+          f"checkpointed every 16, source 3 nodes from a column: loss "
+          f"{loss:.6e}, stable {stable}, gradients finite {finite}, nonzero "
+          f"{nonzero}; "
+          + ", ".join(f"max |d/d{nm}| {float(g.abs().max()):.4e}"
+                      for nm, g in zip(names, grads)))
+    print(f"[22 general grad] launches {counts} (the forward runs twice "
+          f"under checkpointing); forward {t_fwd:.4f} s "
+          f"({1e3 * t_fwd / steps:.4f} ms/step), backward {t_bwd:.4f} s "
+          f"({1e3 * t_bwd / steps:.4f} ms/step), "
+          f"{nodes * steps / (t_fwd + t_bwd):.4e} node-updates/s "
+          f"forward+backward, peak memory {peak_mem / 2**20:.1f} MiB "
+          f"[{card}]")
+    if not (stable and finite and nonzero
+            and counts["mesh_weighted_step_bwd"] > 0
+            and counts["mesh_weighted_step"] >= steps):
+        _fail("the general gradient run failed its checks")
+    prof = _profile_window(
+        torch, "22 profile",
+        lambda: _general_grads(torch, mesh, src, rcv, steps, COLUMNS_FS),
+        steps, (t_fwd + t_bwd) / steps, card)
+    return counts, {"steps": steps, "forward_s": t_fwd, "backward_s": t_bwd,
+                    "peak_memory_bytes": peak_mem,
+                    "profile": None if prof is None else {
+                        "device_busy_us_per_step": prof[0],
+                        "kernels_per_step": prof[1], "idle_share": prof[2]}}
+
+
+def phase_general_grad_card_vs_cpu(torch, card):
+    """Gradients through the general path on the card against the plain
+    versions on the CPU, on the small columns hall, 48 steps."""
+    fs, _ = _columns_spacing(SMALL_COLUMNS_CUTOFF)
+    results = {}
+    for device in ("cuda", "cpu"):
+        mesh = _columns_mesh(torch, SMALL_COLUMNS_CUTOFF, device)
+        _reset_mesh_counts()
+        t0 = time.perf_counter()
+        _, stable, grads, _, _ = _general_grads(
+            torch, mesh, _beside_column(mesh, 2), _beside_column(mesh, 4),
+            48, fs)
+        counts = _mesh_counts()
+        if (counts["mesh_weighted_step_bwd"] > 0) != (device == "cuda") \
+                or not stable:
+            _fail(f"general gradient on {device}: launches {counts}, stable "
+                  f"{stable}")
+        results[device] = grads
+        print(f"[22 general grad] small columns hall "
+              f"{mesh.descriptor.dimensions}, 48 steps on {device}: "
+              f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+    if not all(float(g.abs().max()) > 0 for g in results["cpu"]):
+        _fail("a CPU gradient of the small columns hall is all zero")
+    return _compare_grads("22 general grad", "general path on the card vs "
+                          "plain versions on the CPU", results["cuda"],
+                          results["cpu"])
+
+
 def main():
     import torch
     card = phase_device(torch)
@@ -1336,11 +1887,39 @@ def main():
     phase_hybrid_card_vs_cpu(torch, card)
     phase_grad_card_vs_cpu(torch, card)
     phase_descent(torch, card)
+    torch.cuda.empty_cache()
+
+    col_timings = {}
+    t0 = time.perf_counter()
+    col_mesh = _columns_mesh(torch, COLUMNS_CUTOFF, "cuda", col_timings)
+    col_setup_s = time.perf_counter() - t0
+    col_dims = list(col_mesh.descriptor.dimensions)
+    b8_err, b9_err, b12_err = phase_mesh_kernels_vs_plain(
+        torch, col_mesh.structure, card)
+    mesh_times, mesh_bounds = phase_mesh_kernel_times(
+        torch, col_mesh.structure, card)
+    torch.cuda.empty_cache()
+    columns = phase_columns_hall(torch, col_mesh, col_timings, col_setup_s,
+                                 card)
+    thin_launches, thin_err = phase_general_physics(
+        torch, t30_mesh, t30_src, t30_rcv, sabine, card)
+    b12_err = max(b12_err, thin_err)
+    col_launches, hybrid_columns = phase_hybrid_columns(
+        torch, col_mesh.structure.weight_code, card)
+    phase_hybrid_columns_card_vs_cpu(torch, card)
+    torch.cuda.empty_cache()
+    general_grad_counts, general_grad = phase_general_gradient(
+        torch, col_mesh, card)
+    phase_general_grad_card_vs_cpu(torch, card)
     counted = {"box_fused_step": b1_launches,
                "box_mega_chunk": launches["box_mega_chunk"],
                "box_fused_step_bwd": route_counts["box_fused_step_bwd"],
                "box_mega_chunk_grad": grad_counts["box_mega_chunk_grad"],
-               "box_mega_chunk_bwd": grad_counts["box_mega_chunk_bwd"]}
+               "box_mega_chunk_bwd": grad_counts["box_mega_chunk_bwd"],
+               "mesh_weighted_step": col_launches["mesh_weighted_step"],
+               "mesh_weighted_step_bwd":
+                   general_grad_counts["mesh_weighted_step_bwd"],
+               "mesh_interior_step": thin_launches}
     if not all(counted.values()):
         _fail(f"a kernel of a path was not launched: {counted}")
 
@@ -1410,7 +1989,30 @@ def main():
         "err_is": f"worst of six outputs; each is gated at {BWD_REL:g} of "
                   "its own largest value",
         **per_substep("b7", b7_us, b7_plain_us),
-    }], "gradient_path": {
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": f"wayverb_tpu_torch/csrc/{name}.cu",
+        "replaces": f"wayverb_tpu/waveguide/stencil_pallas.py:{line}",
+        "shape": shape,
+        "launches": counted[name],
+        "max_abs_err": err,
+        "ms": mesh_times[key][0] / 1e3,
+        "plain_ms": mesh_times[key][1] / 1e3,
+        "bound_ms": mesh_bounds[key][0], "bound_by": mesh_bounds[key][1],
+        "library_ms": None,
+        "ms_is_per": "step",
+        "launches_on": on,
+    } for name, key, line, err, shape, on in (
+        ("mesh_weighted_step", "b8", 172, b8_err, col_dims,
+         "Engine.run on the columns hall"),
+        ("mesh_weighted_step_bwd", "b9", 195, b9_err, col_dims,
+         "the columns hall's 64-step gradient"),
+        ("mesh_interior_step", "b12", 35, b12_err, col_dims,
+         "canonical on the thin box (the region path); timed at the "
+         "columns hall's shape")))], "columns_hall": columns,
+        "hybrid_columns_hall": hybrid_columns,
+        "general_gradient": general_grad, "gradient_path": {
         "shape": list(hall_dims), "steps": GRAD_STEPS, "chunk": CHUNK,
         "forward_s": grad_fwd_s, "backward_s": grad_bwd_s,
         "theta_grads_ms_per_chunk": theta_us / 1e3,

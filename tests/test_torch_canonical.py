@@ -4,8 +4,8 @@
 about 300 steps.  The port's mesh is carried across from the JAX mesh with
 ``convert.mesh_from_numpy``, so both packages run on the same coefficient
 tables.  Also here: the float64 filter state, the kernel-injection
-semantics, the refusal of non-box meshes and the package's independence
-from JAX.
+semantics, the routing of a mesh that is no box and the package's
+independence from JAX.
 """
 
 import ast
@@ -190,13 +190,25 @@ def test_interior_nan_flagged(port_mesh):
     assert not bool(out["stable"])
 
 
-def test_execute_raises_on_non_box_mesh(port_mesh):
-    source, receiver = _node_problem(port_mesh, impulse_signal(4, 1.0, "cpu"))
-    general = dataclasses.replace(port_mesh, box_spec=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_run.execute(general, source, receiver, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_run.compute_mesh(None, np.full((1, 8), 0.1), DX, FS, device="cpu")
+def test_execute_raises_on_non_box_mesh(port_mesh, jax_mesh):
+    """A mesh without a box spec no longer raises for being no box: it runs
+    the region path or the general path and agrees with the box path.  What
+    still raises is a structure that was carried across without the
+    general-path tables."""
+    source, receiver = _node_problem(port_mesh, impulse_signal(40, 1.0,
+                                                               "cpu"))
+    want = t_run.execute(port_mesh, source, receiver, 40)["outputs"]
+    by_regions = dataclasses.replace(port_mesh, box_spec=None)
+    general = dataclasses.replace(by_regions, regions=None)
+    for mesh in (by_regions, general):
+        got = t_run.execute(mesh, source, receiver, 40)
+        assert bool(got["stable"])
+        np.testing.assert_allclose(got["outputs"].numpy(), want.numpy(),
+                                   rtol=0, atol=ATOL)
+    bare = dataclasses.replace(_port_mesh(jax_mesh), box_spec=None)
+    assert not bare.structure.has_general_tables
+    with pytest.raises(ValueError, match="general-path tables"):
+        t_run.execute(bare, source, receiver, 4)
 
 
 def test_port_never_imports_jax():
@@ -217,7 +229,11 @@ def test_port_never_imports_jax():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         .removesuffix(".__init__") for p in pkg.rglob("*.py"))
-    assert "wayverb_tpu_torch.combined.engine" in modules
+    for name in ("combined.engine", "core.geometry", "convert",
+                 "raytracer.scenes", "waveguide.box_boundary",
+                 "waveguide.run", "waveguide.setup", "waveguide.stencil",
+                 "waveguide.stencil_kernels"):
+        assert f"wayverb_tpu_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "

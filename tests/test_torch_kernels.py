@@ -476,3 +476,195 @@ def test_signal_only_run_on_the_card_has_a_graph(cuda_device):
         grads.append(sig.grad.cpu())
     assert float(grads[1].abs().max()) > 0
     assert _rel(grads[0], grads[1]) <= GRAD_REL
+
+
+# ---------------------------------------------------------------------------
+# the general mesh: B8, B9, B12
+
+def _mesh_case(dims, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda: torch.randn(*dims, generator=gen,  # noqa: E731
+                              device=device)
+    code = torch.randint(0, 1 << 13, dims, generator=gen, device=device,
+                         dtype=torch.int32)
+    mask = (torch.rand(*dims, generator=gen, device=device) > 0.3).float()
+    return rnd(), rnd(), code, mask
+
+
+MESH_DIMS = [(6, 7, 9), (16, 8, 128), (37, 29, 53), (3, 2, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", MESH_DIMS)
+def test_weighted_step_kernel_matches_plain(cuda_device, dims):
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    cur, prev, code, _ = _mesh_case(dims, cuda_device)
+    before = tsk.weighted_step.launches
+    got = tsk.weighted_step(cur, prev, code)
+    assert tsk.weighted_step.launches == before + 1
+    want = tsk._weighted_step_plain(cur, prev, code)
+    assert float((got - want).abs().max()) <= ATOL
+    # the time loop's form: the result written over prev
+    buf = prev.clone()
+    assert tsk.weighted_step(cur, buf, code, out=buf) is buf
+    torch.cuda.synchronize()
+    assert float((buf - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", MESH_DIMS)
+def test_weighted_step_bwd_kernel_matches_plain(cuda_device, dims):
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    g, _, code, _ = _mesh_case(dims, cuda_device, seed=1)
+    before = tsk.weighted_step_bwd.launches
+    got = tsk.weighted_step_bwd(g, code)
+    assert tsk.weighted_step_bwd.launches == before + 1
+    want = tsk._weighted_step_bwd_plain(g, code)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", MESH_DIMS)
+def test_interior_step_kernel_matches_plain(cuda_device, dims):
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    cur, prev, _, mask = _mesh_case(dims, cuda_device, seed=2)
+    before = tsk.interior_step.launches
+    got = tsk.interior_step(cur, prev, mask)
+    assert tsk.interior_step.launches == before + 1
+    want = tsk._interior_step_plain(cur, prev, mask)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_weighted_step_function_on_the_card(cuda_device):
+    """The Function's backward launches B9; gradients equal plain
+    autograd's through the plain version."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    cur, prev, code, _ = _mesh_case((9, 10, 33), cuda_device, seed=3)
+    h = torch.randn_like(cur)
+    grads = []
+    for fn in (tsk.weighted_step, tsk._weighted_step_plain):
+        c = cur.clone().requires_grad_(True)
+        p = prev.clone().requires_grad_(True)
+        before = tsk.weighted_step_bwd.launches
+        torch.sum(fn(c, p, code) * h).backward()
+        grads.append((c.grad, p.grad,
+                      tsk.weighted_step_bwd.launches - before))
+    (gc, gp, n_kernel), (wc, wp, n_plain) = grads
+    assert (n_kernel, n_plain) == (1, 0)
+    assert float((gc - wc).abs().max()) <= ATOL
+    assert float((gp - wp).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_mesh_kernels_reject_what_they_cannot_take(cuda_device):
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    cur, prev, code, mask = _mesh_case((6, 7, 9), cuda_device)
+    with pytest.raises(ValueError):
+        tsk.weighted_step(cur.double(), prev.double(), code)
+    with pytest.raises(ValueError):
+        tsk.weighted_step(cur, prev, code.long())
+    with pytest.raises(ValueError):
+        tsk.weighted_step(cur, prev, code, out=cur)
+    with pytest.raises(ValueError):
+        tsk.weighted_step(cur.transpose(1, 2).contiguous().transpose(1, 2),
+                          prev, code)
+    with pytest.raises(ValueError):
+        tsk.weighted_step_bwd(cur, code.cpu())
+    with pytest.raises(ValueError):
+        tsk.interior_step(cur, prev, mask[:5])
+    with pytest.raises(ValueError):
+        tsk.interior_step(cur.clone().requires_grad_(True), prev, mask)
+
+
+def _small_columns_hall(device):
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    fs = 400.0 / (0.25 * 0.6)
+    dx = grid_spacing(340.0, 1.0 / fs)
+    mesh = wgrun.compute_mesh(procedural_hall(2, 4, 1)[0],
+                              np.full((1, 8), 0.1), dx, fs, device=device)
+    return mesh, fs
+
+
+@pytest.mark.cuda
+def test_general_canonical_on_the_card_matches_cpu(cuda_device):
+    """``canonical`` on a hall with columns: one B8 launch per step on the
+    card, none on the CPU; 1e-5 per unit of peak."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    outs = []
+    for device in (cuda_device, "cpu"):
+        mesh, fs = _small_columns_hall(device)
+        assert mesh.box_spec is None and mesh.regions is None
+        before = tsk.weighted_step.launches, tbm.mega_chunk.launches
+        outs.append(wgrun.canonical(mesh, (6.0, 4.0, 5.0), (7.5, 3.0, 6.5),
+                                    99.5 / fs))
+        assert (tsk.weighted_step.launches - before[0],
+                tbm.mega_chunk.launches - before[1]) == \
+            ((100, 0) if device == cuda_device else (0, 0))
+    card, cpu = outs
+    assert bool(card.stable) and bool(cpu.stable)
+    peak = float(cpu.pressure.abs().max())
+    assert float((card.pressure.cpu() - cpu.pressure).abs().max()) <= \
+        ATOL * max(1.0, peak)
+    assert float((card.intensity.cpu() - cpu.intensity).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_thin_box_on_the_card_matches_cpu(cuda_device):
+    """A box two nodes thin takes the region path: one B12 launch per step
+    on the card; 1e-5 per unit of peak against the CPU run."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    fs = 3333.33
+    dx = grid_spacing(340.0, 1.0 / fs)
+    box = Box((0.0, 0.0, 0.0), (1.4, 1.6, 0.5))
+    outs = []
+    for device in (cuda_device, "cpu"):
+        mesh = wgrun.shoebox_mesh(box, np.full((1, 8), 0.1), dx, fs,
+                                  anchor=(0.7, 0.8, 0.25 + dx / 2),
+                                  device=device)
+        assert mesh.box_spec is None and len(mesh.regions) == 26
+        before = tsk.interior_step.launches
+        outs.append(wgrun.canonical(mesh, (0.5, 0.6, 0.2), (0.9, 1.1, 0.3),
+                                    0.03))
+        assert tsk.interior_step.launches - before == \
+            (100 if device == cuda_device else 0)
+    card, cpu = outs
+    peak = float(cpu.pressure.abs().max())
+    assert bool(card.stable) and bool(cpu.stable)
+    assert float((card.pressure.cpu() - cpu.pressure).abs().max()) <= \
+        ATOL * max(1.0, peak)
+
+
+@pytest.mark.cuda
+def test_general_gradient_on_the_card_matches_cpu(cuda_device):
+    """d(Σ taps²)/d(coef_b, coef_a, signal) through ``run_waveguide`` on the
+    hall with columns, 48 steps, checkpointed every 16, the source two
+    nodes from a column: B9 launches on the card, and the gradients agree
+    with the CPU run's within 1e-4 of the largest component."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    steps = 48
+    results = []
+    for device in (cuda_device, "cpu"):
+        mesh, fs = _small_columns_hall(device)
+        source, receiver, n, _ = wgrun.canonical_problem(
+            mesh, (6.4, 4.0, 8.97), (6.9, 4.0, 8.97), (steps - 0.5) / fs)
+        leaves = [t.detach().clone().requires_grad_(True) for t in
+                  (mesh.structure.coef_b, mesh.structure.coef_a,
+                   source.signal)]
+        structure = dataclasses.replace(mesh.structure, coef_b=leaves[0],
+                                        coef_a=leaves[1])
+        before = tsk.weighted_step_bwd.launches
+        out = wgrun.run_waveguide(
+            structure, mesh.descriptor.dimensions,
+            dataclasses.replace(source, signal=leaves[2]), receiver, n,
+            checkpoint_every=16)
+        torch.sum(out["outputs"][1] ** 2).backward()
+        launched = tsk.weighted_step_bwd.launches - before
+        assert (launched > 0) == (device == cuda_device)
+        results.append([t.grad.cpu() for t in leaves])
+    for got, want in zip(*results):
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= GRAD_REL * scale

@@ -8,14 +8,18 @@ band.  Flow (parity: reference ``combined/engine.cpp:90-188`` +
  2. run the ray tracer (stochastic histogram + traced image-source paths +
     direct line-of-sight),
  3. run the waveguide for the duration the stochastic tail indicates (on a
-    CUDA device a shoebox takes the mega chunk kernel),
+    CUDA device a shoebox takes the mega chunk kernel, any other scene the
+    general weighted-step kernel),
  4. per capsule: postprocess both solvers to the output rate, crossover at
     the waveguide cutoff, window to the direct arrival.
 
 Random numbers come from a ``torch.Generator``; the ray directions and the
 dirac draws can also be passed in, so a test can feed the reference's
-``jax.random`` draws.  Not ported yet: a ``device_mesh`` (ROADMAP A.7) and
-``bands > 1`` (ROADMAP A.6); both raise ``NotImplementedError``.
+``jax.random`` draws.  With ``scene_box`` the scene is a shoebox; without
+it, any closed triangle soup of at most 100 triangles (larger scenes need
+the ray acceleration of ROADMAP A.5b).  Not ported yet: a ``device_mesh``
+(ROADMAP A.7) and ``bands > 1`` (ROADMAP A.6); both raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Carry a scene's state across from the reference package as numpy arrays.
 
-``mesh_from_numpy`` builds the port's shoebox ``Mesh`` from the fields of a
-reference mesh, so both packages can run on exactly the same coefficient
-tables (the fitted boundary filters are the system's learnable parameters).
+``mesh_from_numpy`` builds the port's ``Mesh`` (shoebox, thin box or general
+scene) from the fields of a reference mesh, so both packages can run on
+exactly the same coefficient and boundary tables (the fitted boundary
+filters are the system's learnable parameters).
 ``soup_from_numpy`` and ``surface_from_numpy`` do the same for a scene's
 triangles and materials.  The caller extracts the arrays; this package
 never imports the reference.
@@ -15,35 +16,52 @@ import torch
 
 from wayverb_tpu_torch.core.geometry import TriangleSoup
 from wayverb_tpu_torch.core.surfaces import Surface
+from wayverb_tpu_torch.waveguide.box_boundary import Region
 from wayverb_tpu_torch.waveguide.box_fused import BoxSpec
 from wayverb_tpu_torch.waveguide.descriptor import MeshDescriptor
 from wayverb_tpu_torch.waveguide.run import Mesh
-from wayverb_tpu_torch.waveguide.setup import MeshStructure
+from wayverb_tpu_torch.waveguide.setup import (GENERAL_TABLE_DTYPES,
+                                               structure_from_numpy)
 
 
 def mesh_from_numpy(d: dict, device) -> Mesh:
-    """Build a shoebox ``Mesh`` on ``device`` from numpy arrays.
+    """Build a ``Mesh`` on ``device`` from numpy arrays.
 
     Keys: ``min_corner`` (3,), ``dimensions`` (3,), ``spacing`` (), the
-    ``inside`` mask (X, Y, Z), ``coef_b``/``coef_a`` (S, order+1),
-    ``room_volume`` (), and the box spec's ``box_dims``, ``box_ilo``,
-    ``box_ihi`` (3,) and ``box_face_surface`` (6,).  The general-path
-    tables of the structure are left out (the box path does not read them).
+    ``inside`` mask (X, Y, Z), ``coef_b``/``coef_a`` (S, order+1) and
+    ``room_volume`` ().  Optional: the box spec's ``box_dims``, ``box_ilo``,
+    ``box_ihi`` (3,) and ``box_face_surface`` (6,) for a shoebox; the
+    general-path tables of the structure under their field names
+    (``interior_mask``, ``b_node_idx``, ``b_neighbor_idx``,
+    ``b_neighbor_w``, ``b_slot_mask``, ``b_slot_inner_idx``,
+    ``b_slot_coef``, ``weight_code``), all or none; and ``regions``, a
+    sequence of (start, size, inner_dirs, slot_coefs) tuples.  A mesh
+    without the box spec routes to the region path when it has regions and
+    to the general path otherwise; without the general-path tables it
+    serves the box path only.
     """
-    ints = lambda k: tuple(int(v) for v in np.asarray(d[k]))  # noqa: E731
+    ints = lambda v: tuple(int(x) for x in np.asarray(v))  # noqa: E731
     desc = MeshDescriptor(
         min_corner=tuple(float(v) for v in np.asarray(d["min_corner"])),
-        dimensions=ints("dimensions"), spacing=float(d["spacing"]))
-    structure = MeshStructure(
-        coef_b=torch.tensor(np.asarray(d["coef_b"]), dtype=torch.float32,
-                            device=device),
-        coef_a=torch.tensor(np.asarray(d["coef_a"]), dtype=torch.float32,
-                            device=device))
-    spec = BoxSpec(dims=ints("box_dims"), ilo=ints("box_ilo"),
-                   ihi=ints("box_ihi"), face_surface=ints("box_face_surface"))
+        dimensions=ints(d["dimensions"]), spacing=float(d["spacing"]))
+    present = [k for k in GENERAL_TABLE_DTYPES if k in d]
+    if present and len(present) != len(GENERAL_TABLE_DTYPES):
+        raise ValueError("general-path tables must come all or none; got "
+                         f"only {present}")
+    structure = structure_from_numpy(d["coef_b"], d["coef_a"],
+                                     {k: d[k] for k in present}, device)
+    spec = None
+    if "box_dims" in d:
+        spec = BoxSpec(dims=ints(d["box_dims"]), ilo=ints(d["box_ilo"]),
+                       ihi=ints(d["box_ihi"]),
+                       face_surface=ints(d["box_face_surface"]))
+    regions = None
+    if d.get("regions") is not None:
+        regions = [Region(*(ints(part) for part in r)) for r in d["regions"]]
     return Mesh(descriptor=desc, structure=structure,
                 inside=np.asarray(d["inside"], dtype=bool),
-                room_volume=float(d["room_volume"]), box_spec=spec)
+                room_volume=float(d["room_volume"]), regions=regions,
+                box_spec=spec)
 
 
 def soup_from_numpy(vertices, triangles, surfaces, device="cpu"

@@ -3,9 +3,8 @@
 Port of ``wayverb_tpu.core.geometry``: ``TriangleSoup``, ``Box``,
 ``box_scene``, ``scene_aabb``, the triangle normals and areas, mirroring,
 the broadcast ray–scene queries (an (R, T) Möller–Trumbore, no per-ray
-loops), the segment–sphere test and the tetrahedron volume sum.  The
-point-in-mesh parity vote (``points_inside``) waits for the arbitrary
-geometry slice.
+loops), the point-in-mesh parity vote (``points_inside``), the segment–sphere
+test and the tetrahedron volume sum.
 
 ``Box`` mirrors the reference's float32 arithmetic on purpose: its centre is
 a float32 value, and the mesh anchor is that centre, so both packages build
@@ -134,6 +133,75 @@ def scene_intersection(origin, direction, soup: TriangleSoup,
     idx = torch.argmin(t_masked, dim=-1)
     t_best = torch.gather(t_masked, 1, idx[:, None])[:, 0]
     return t_best, idx, torch.any(hit, dim=-1)
+
+
+def count_intersections(origin, direction, soup: TriangleSoup):
+    """(R,) number of triangles each ray passes through (t > 0)."""
+    _, _, _, hit = ray_triangle_intersection(
+        origin[:, None, :], direction[:, None, :], soup.corners()[None])
+    return torch.sum(hit, dim=-1)
+
+
+# Fixed direction table for the point-in-mesh parity vote.  The reference C++
+# (``core/src/cl/voxel.cpp:156-226``) uses 32 fixed pseudo-random unit
+# vectors and a majority vote over odd crossing counts; the JAX package
+# draws its own table from a fixed key, and these are its float32 values,
+# so both packages vote with the same rays.
+_PARITY_DIRECTIONS = (
+    (-0.00047527250717394054, -0.9847056865692139, -0.17422546446323395),
+    (0.5968388319015503, 0.19945192337036133, 0.777175784111023),
+    (0.7111278176307678, 0.03650689125061035, -0.7021142244338989),
+    (0.5269975066184998, 0.10833215713500977, -0.8429340124130249),
+    (-0.16835632920265198, 0.7769031524658203, -0.6066940426826477),
+    (-0.9751377701759338, -0.1623835563659668, -0.15079094469547272),
+    (-0.3007239103317261, -0.05568289756774902, 0.9520843029022217),
+    (-0.11448982357978821, 0.658332109451294, 0.7439696788787842),
+    (-0.9346819519996643, -0.08503031730651855, 0.34516578912734985),
+    (0.8313184380531311, 0.5516378879547119, -0.06786293536424637),
+    (0.269249826669693, 0.8560540676116943, 0.4412209987640381),
+    (0.5139167308807373, -0.4743368625640869, -0.7147685289382935),
+    (-0.6779379844665527, -0.12054944038391113, -0.7251675128936768),
+    (0.5607728362083435, -0.307833194732666, -0.7686172723770142),
+    (-0.5933821797370911, -0.15646576881408691, -0.7895669341087341),
+    (0.7676702737808228, -0.291839599609375, 0.5705365538597107),
+    (-0.7355836629867554, 0.377352237701416, 0.5626028180122375),
+    (-0.7176271677017212, -0.4906172752380371, -0.4942731261253357),
+    (0.09253395348787308, 0.3947625160217285, 0.9141116142272949),
+    (-0.8607093691825867, 0.49664926528930664, -0.11188782751560211),
+    (0.6561362743377686, 0.41788506507873535, 0.6283767223358154),
+    (0.9582609534263611, -0.16270661354064941, 0.23507976531982422),
+    (0.7595062255859375, 0.5378425121307373, 0.3658904731273651),
+    (-0.592570424079895, -0.32946181297302246, 0.7350613474845886),
+    (-0.8291452527046204, -0.555194616317749, 0.06539970636367798),
+    (0.8736832737922668, 0.13654088973999023, 0.46694129705429077),
+    (0.014209321700036526, -0.9932975769042969, -0.1147083193063736),
+    (0.1492035835981369, 0.8234848976135254, -0.5473672747612),
+    (-0.07331234216690063, 0.8590579032897949, -0.5066012144088745),
+    (-0.03074379824101925, 0.9950222969055176, 0.09479150176048279),
+    (-0.9852278828620911, -0.08670306205749512, -0.14767752587795258),
+    (-0.1818239539861679, 0.9645569324493408, -0.19123271107673645),
+)
+_NUM_PARITY_RAYS = len(_PARITY_DIRECTIONS)
+
+
+def _parity_directions(dtype=torch.float32, device="cpu"):
+    return torch.tensor(_PARITY_DIRECTIONS, dtype=dtype, device=device)
+
+
+def points_inside(points, soup: TriangleSoup):
+    """(P,) bool: is each point inside the (closed) mesh?
+
+    Casts 32 fixed-direction rays per point and majority-votes on crossing
+    parity — robust to rays grazing edges.  Runs on the device of
+    ``points``; ``soup`` must lie there too.
+    """
+    dirs = _parity_directions(points.dtype, points.device)      # (D, 3)
+    P = points.shape[0]
+    origins = torch.repeat_interleave(points, _NUM_PARITY_RAYS, dim=0)
+    directions = dirs.repeat(P, 1)                              # (P*D, 3)
+    counts = count_intersections(origins, directions, soup)
+    odd = (counts % 2).reshape(P, _NUM_PARITY_RAYS)
+    return torch.sum(odd, dim=-1) * 2 > _NUM_PARITY_RAYS
 
 
 def line_of_sight(start, end, soup: TriangleSoup, exclude_triangle=None):

@@ -1,9 +1,10 @@
 """Ray-intersection backend choice.
 
 Port of ``wayverb_tpu.raytracer.accel.auto_accel``, its dense branch only:
-scenes of at most 100 triangles (every shoebox) stay on the dense (R, T)
-broadcast of ``core.geometry.scene_intersection``.  The voxel DDA and the
-Möller–Trumbore kernels for larger scenes are not ported yet.
+scenes of at most 100 triangles (every shoebox, and the small procedural
+halls of ``raytracer.scenes``) stay on the dense (R, T) broadcast of
+``core.geometry.scene_intersection``.  The voxel DDA and the Möller–Trumbore
+kernels for larger scenes are not ported yet (ROADMAP A.5b).
 """
 
 from __future__ import annotations
@@ -20,4 +21,4 @@ def auto_accel(soup: TriangleSoup):
     raise NotImplementedError(
         f"scenes above {DENSE_MAX_TRIANGLES} triangles need the voxel DDA or "
         "the Möller–Trumbore kernels, not ported yet: ROADMAP queue A, "
-        "item 5")
+        "item A.5b")

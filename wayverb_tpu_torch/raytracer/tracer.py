@@ -112,7 +112,7 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
     if accel is not None:
         raise NotImplementedError(
             "ray acceleration structures are not ported yet: ROADMAP queue "
-            "A, item 5")
+            "A, item A.5b")
     device = soup.vertices.device
     source = _as_point(source, device)
     receiver = _as_point(receiver, device)

@@ -129,6 +129,7 @@ def descriptor_for_box(box: Box, spacing: float,
 
 
 def default_alignment() -> Tuple[int, int, int] | None:
-    """Grid alignment the kernels need: none, the CUDA fused step takes any
-    dims (the reference pads to TPU tiles on a TPU only)."""
+    """Grid alignment the kernels need: none, the CUDA kernels (the box
+    steps and the general mesh's dense steps) take any dims (the reference
+    pads to TPU tiles on a TPU only)."""
     return None

@@ -1,19 +1,23 @@
 """Waveguide execution: the time loop and the canonical driver.
 
-Port of the shoebox path of ``wayverb_tpu.waveguide.run``.  The reference's
-``lax.scan`` becomes a Python loop over ``box_fused.make_box_body``; every
-value stays on the device until the run finishes (the stability flag is a
-device tensor read once, after the loop).
+Port of ``wayverb_tpu.waveguide.run``.  The reference's ``lax.scan``
+becomes a Python loop; every value stays on the device until the run
+finishes (the stability flag is a device tensor read once, after the loop).
 
-``execute`` routes as the reference does: a shoebox on a CUDA device that
+``execute`` routes as the reference does.  A shoebox on a CUDA device that
 ``box_mega.mega_supported`` accepts takes the multi-step mega chunk path;
-CPU tensors, and ``kernel_inject=False``, take the fused streaming step.
-Both routes differentiate: the mega path through its chunk-level
+other shoeboxes (CPU tensors, ``kernel_inject=False``) take the fused
+streaming step.  A box too thin for the plane solver takes the region path
+(``run_waveguide_regions``: the masked interior kernel plus 26 slice
+updates).  Any other scene, built by ``compute_mesh`` without ``scene_box``,
+takes the general path (``run_waveguide``: the dense weighted-step kernel
+plus the compact boundary pass of ``stencil.py``).
+
+All routes differentiate: the mega path through its chunk-level
 ``torch.autograd.Function`` (gradients with respect to the filter
-coefficients and the source signal), the fused path through the fused
-step's Function and plain autograd (everything, positions included, with
-optional checkpointing).  The general (non-shoebox) mesh path is a later
-slice of the port (ROADMAP queue A).
+coefficients and the source signal), the fused and the general path through
+their step's Function and plain autograd (everything, positions included,
+with optional checkpointing).
 
 Canonical driver parity: ``waveguide/canonical.h:30-124`` (hard source with
 calibrated impulse at the source node, directional receiver at the receiver
@@ -24,14 +28,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from wayverb_tpu_torch.core.environment import Environment
-from wayverb_tpu_torch.core.geometry import Box, TriangleSoup, box_scene
+from wayverb_tpu_torch.core.geometry import (Box, TriangleSoup, box_scene,
+                                             scene_aabb)
 from wayverb_tpu_torch.waveguide import boundary as bdry
+from wayverb_tpu_torch.waveguide.box_boundary import (apply_regions,
+                                                      initial_region_states,
+                                                      shoebox_regions)
 from wayverb_tpu_torch.waveguide.box_fused import (BoxSpec, initial_box_carry,
                                                    make_box_body,
                                                    requires_grad,
@@ -47,13 +56,16 @@ from wayverb_tpu_torch.waveguide.receivers import make_directional_receiver
 from wayverb_tpu_torch.waveguide.setup import (MeshStructure,
                                                _closest_triangle_surface,
                                                build_structure,
+                                               classify_inside_scene,
                                                classify_inside_shoebox,
                                                estimate_volume)
 from wayverb_tpu_torch.waveguide.sources import (HardSource, impulse_signal,
                                                  rectilinear_calibration_factor)
-
-_GENERAL_MESH = ("general (non-shoebox) meshes are not ported yet: ROADMAP "
-                 "queue A, 'Arbitrary geometry'")
+from wayverb_tpu_torch.waveguide.stencil import (boundary_pressures,
+                                                 expand_boundary_coefficients,
+                                                 prepare_boundary_tables,
+                                                 waveguide_step_carried)
+from wayverb_tpu_torch.waveguide.stencil_kernels import interior_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,13 +73,18 @@ class Mesh:
     """Descriptor + structure + bookkeeping for one scene.
 
     ``box_spec``: for shoebox scenes, the static geometry driving the fused
-    plane-boundary solver (box_fused.py); None for a general scene.
+    plane-boundary solver (box_fused.py); None for a general scene and for
+    a box too thin for that solver.
+    ``regions``: for shoebox scenes, the gather-free region decomposition
+    (box_boundary.py): the path of a thin box and a second oracle for the
+    plane path.
     """
 
     descriptor: MeshDescriptor
     structure: MeshStructure
     inside: np.ndarray       # host copy for placement checks
     room_volume: float
+    regions: Optional[list] = None
     box_spec: Optional[BoxSpec] = None
 
     @property
@@ -86,45 +103,71 @@ class Mesh:
 
 def compute_mesh(soup: TriangleSoup, surface_absorption, spacing: float,
                  sample_rate: float, scene_box: Optional[Box] = None,
-                 anchor=None, *, device) -> Mesh:
-    """Build a mesh for a shoebox scene (``scene_box`` given).
+                 anchor=None, *, device, timings: Optional[dict] = None
+                 ) -> Mesh:
+    """Build a mesh for a scene.
 
     ``surface_absorption``: (S, bands) per-material absorption →
     per-material order-6 impedance filters fitted at the mesh rate, placed
-    on ``device``.  ``anchor``: the point that lands exactly on a node
-    (default: the box centre).
+    on ``device``.  ``scene_box`` enables the analytic shoebox inside test
+    and the box solvers; without it the scene is any closed triangle soup,
+    classified by the 32-ray parity vote (``classify_inside_scene``: the
+    native runtime, else ``points_inside`` on ``device``).  ``anchor``: the
+    point that lands exactly on a node (default: the centre of the box or
+    of the scene's bounding box).
+
+    ``timings``: optional dictionary that receives the seconds of the three
+    setup stages (``classify_s``, ``fit_s``, ``structure_s``) and, for a
+    general scene, the classifier that ran (``classifier``).
     """
-    if scene_box is None:
-        raise NotImplementedError(_GENERAL_MESH)
+    aabb = scene_box if scene_box is not None else scene_aabb(soup)
     if anchor is None:
-        anchor = tuple(np.asarray(scene_box.centre()))
-    adjusted = compute_adjusted_boundary(scene_box, anchor, spacing)
+        anchor = tuple(np.asarray(aabb.centre()))
+    adjusted = compute_adjusted_boundary(aabb, anchor, spacing)
     desc = descriptor_for_box(adjusted, spacing, align=default_alignment())
-    inside = classify_inside_shoebox(desc, scene_box)
+
+    t0 = time.perf_counter()
+    if scene_box is not None:
+        inside = classify_inside_shoebox(desc, scene_box)
+        classifier = "shoebox"
+    else:
+        inside = classify_inside_scene(desc, soup, device=device)
+        classifier = classify_inside_scene.last_backend
+    t1 = time.perf_counter()
 
     surface_absorption = np.asarray(surface_absorption)
     coeffs = [bdry.compute_boundary_coefficients(surface_absorption[i],
                                                  sample_rate)
               for i in range(surface_absorption.shape[0])]
     coef_b, coef_a = bdry.coefficient_table(coeffs)
+    t2 = time.perf_counter()
     structure = build_structure(desc, inside, soup, coef_b, coef_a, device)
+    if timings is not None:
+        timings.update(classify_s=t1 - t0, fit_s=t2 - t1,
+                       structure_s=time.perf_counter() - t2,
+                       classifier=classifier)
 
-    # surface per face from the closest triangle to each face centre
-    centre = np.asarray(scene_box.centre())
-    dims_m = np.asarray(scene_box.max_corner) - \
-        np.asarray(scene_box.min_corner)
-    face_centres = np.tile(centre, (6, 1))
-    for axis in range(3):
-        face_centres[2 * axis, axis] -= dims_m[axis] / 2
-        face_centres[2 * axis + 1, axis] += dims_m[axis] / 2
-    face_surfaces = _closest_triangle_surface(face_centres, soup)
-    try:
-        box_spec = spec_from_inside(inside, face_surfaces)
-    except ValueError:
-        box_spec = None   # degenerate box: execute raises for it
+    regions = None
+    box_spec = None
+    if scene_box is not None:
+        # surface per face from the closest triangle to each face centre
+        centre = np.asarray(scene_box.centre())
+        dims_m = np.asarray(scene_box.max_corner) - \
+            np.asarray(scene_box.min_corner)
+        face_centres = np.tile(centre, (6, 1))
+        for axis in range(3):
+            face_centres[2 * axis, axis] -= dims_m[axis] / 2
+            face_centres[2 * axis + 1, axis] += dims_m[axis] / 2
+        face_surfaces = _closest_triangle_surface(face_centres, soup)
+        regions = shoebox_regions(inside, face_surfaces)
+        try:
+            box_spec = spec_from_inside(inside, face_surfaces)
+        except ValueError:
+            box_spec = None   # degenerate box: the region path runs it
 
     return Mesh(descriptor=desc, structure=structure, inside=inside,
-                room_volume=estimate_volume(desc, inside), box_spec=box_spec)
+                room_volume=estimate_volume(desc, inside), regions=regions,
+                box_spec=box_spec)
 
 
 @dataclasses.dataclass
@@ -133,6 +176,34 @@ class WaveguideOutput:
     intensity: Any         # (T, 3) directional intensity
     sample_rate: float
     stable: Any            # () bool tensor: no NaN/Inf during the run
+
+
+def _run_loop(body, carry, num_steps: int, checkpoint_every: int,
+              grad: bool):
+    """Drive ``body(carry, t) → (carry, outputs)`` for ``num_steps`` steps;
+    returns (carry, per-step outputs).  With ``checkpoint_every`` and a
+    gradient required, the carry is saved only every that many steps and
+    each segment is recomputed in the backward pass
+    (``torch.utils.checkpoint``)."""
+    per_step = []
+    if checkpoint_every and num_steps > checkpoint_every and grad:
+        from torch.utils.checkpoint import checkpoint
+
+        def segment(carry, t0):
+            outs = []
+            for t in range(t0, min(t0 + checkpoint_every, num_steps)):
+                carry, outputs = body(carry, t)
+                outs.append(outputs)
+            return carry, outs
+
+        for t0 in range(0, num_steps, checkpoint_every):
+            carry, outs = checkpoint(segment, carry, t0, use_reentrant=False)
+            per_step.extend(outs)
+    else:
+        for t in range(num_steps):
+            carry, outputs = body(carry, t)
+            per_step.append(outputs)
+    return carry, per_step
 
 
 def run_waveguide_box(structure: MeshStructure, spec: BoxSpec, source,
@@ -161,30 +232,127 @@ def run_waveguide_box(structure: MeshStructure, spec: BoxSpec, source,
     body = make_box_body(structure, spec, source, receiver,
                          kernel_inject=kernel_inject)
     carry = initial_box_carry(structure, spec, receiver, dtype, state_dtype)
-    per_step = []
-    if checkpoint_every and num_steps > checkpoint_every and requires_grad(
-            structure, source, receiver):
-        from torch.utils.checkpoint import checkpoint
-
-        def segment(carry, t0):
-            outs = []
-            for t in range(t0, min(t0 + checkpoint_every, num_steps)):
-                carry, outputs = body(carry, t)
-                outs.append(outputs)
-            return carry, outs
-
-        for t0 in range(0, num_steps, checkpoint_every):
-            carry, outs = checkpoint(segment, carry, t0, use_reentrant=False)
-            per_step.extend(outs)
-    else:
-        for t in range(num_steps):
-            carry, outputs = body(carry, t)
-            per_step.append(outputs)
+    carry, per_step = _run_loop(body, carry, num_steps, checkpoint_every,
+                                requires_grad(structure, source, receiver))
     # the per-step check covers the boundary planes only (O(n²)); a NaN
     # born in the interior persists in the field, so one final full-field
     # reduction catches it
     stable = carry[4] & torch.all(torch.isfinite(carry[0]))
     return {"outputs": _stack_outputs(per_step), "stable": stable}
+
+
+def _require_general_tables(structure: MeshStructure):
+    if not structure.has_general_tables:
+        raise ValueError(
+            "this MeshStructure was built without the general-path tables "
+            "(weight_code, interior_mask, b_*): build it with "
+            "build_structure, or pass the tables to convert.mesh_from_numpy")
+
+
+def run_waveguide(structure: MeshStructure, dims, source, receiver,
+                  num_steps: int, dtype=torch.float32,
+                  checkpoint_every: int = 0) -> dict:
+    """Run the general mesh for ``num_steps`` steps.
+
+    ``source`` must expose ``inject(field_flat, t)``; ``receiver`` must
+    expose ``init_state(dtype, device)`` and ``tap(field_flat, state)``.
+    Each step is one dense kernel (``stencil_kernels.weighted_step``) and
+    the compact boundary pass.  Without a gradient two field buffers rotate
+    (the step writes the next field over the previous one); when the
+    coefficients, the source or the receiver require grad every step
+    allocates its field and injects into a copy.
+
+    ``checkpoint_every``: when > 0 and a gradient is required, reverse-mode
+    memory drops from O(num_steps) pressure fields to O(num_steps/k + k) at
+    the cost of one forward recompute.
+
+    Returns {"outputs": stacked receiver outputs, "stable": () bool tensor}.
+    """
+    _require_general_tables(structure)
+    dims = tuple(int(d) for d in dims)
+    device = structure.device
+    num_nodes = dims[0] * dims[1] * dims[2]
+    grad = requires_grad(structure, source, receiver)
+    current = torch.zeros(dims, dtype=dtype, device=device)
+    previous = torch.zeros(dims, dtype=dtype, device=device)
+    expanded = expand_boundary_coefficients(structure)
+    tables = prepare_boundary_tables(structure, expanded)
+
+    # boundary previous-pressure carry: previous_t[b] equals last step's
+    # computed boundary pressures plus the injection's effect, so sources
+    # exposing ``patch_tap`` (exact compact injection mirror) skip one
+    # sparse gather per step; others re-gather (always correct)
+    patch_tap = getattr(source, "patch_tap", None)
+
+    def body(carry, t: int):
+        current, previous, fstate, rstate, pb, bp_last, ok = carry
+        flat = current.reshape(num_nodes)
+        cur_flat = source.inject(flat.clone() if grad else flat, t)
+        current = cur_flat.view(dims)
+        rstate, outputs = receiver.tap(cur_flat, rstate)
+        if patch_tap is not None:
+            pb_next = patch_tap(structure.b_node_idx, bp_last, t)
+            prev_b = pb
+        else:
+            pb_next = pb            # unused placeholder
+            prev_b = None           # gather inside the step
+        nxt, fstate, bp = waveguide_step_carried(
+            current, previous, prev_b, fstate, structure, expanded, tables,
+            out=None if grad else previous)
+        ok = ok & torch.all(torch.isfinite(nxt))
+        return (nxt, current, fstate, rstate, pb_next, bp, ok), outputs
+
+    init = (current, previous, structure.initial_filter_state(dtype),
+            receiver.init_state(dtype, device),
+            boundary_pressures(previous, structure),
+            boundary_pressures(current, structure),
+            torch.ones((), dtype=torch.bool, device=device))
+    carry, per_step = _run_loop(body, init, num_steps, checkpoint_every, grad)
+    return {"outputs": _stack_outputs(per_step), "stable": carry[6]}
+
+
+def run_waveguide_regions(structure: MeshStructure, dims, source, receiver,
+                          num_steps: int, regions, dtype=torch.float32
+                          ) -> dict:
+    """Run using the gather-free region boundary path (shoebox meshes).
+
+    ``regions``: sequence of ``box_boundary.Region`` (static).  Each step is
+    the masked interior kernel (``stencil_kernels.interior_step``) and the
+    26 region updates as slice arithmetic.  Three field buffers rotate when
+    no gradient is required (the regions still read the previous field
+    after the interior pass, so it cannot take the result).
+    """
+    _require_general_tables(structure)
+    dims = tuple(int(d) for d in dims)
+    device = structure.device
+    num_nodes = dims[0] * dims[1] * dims[2]
+    regions = list(regions)
+    grad = requires_grad(structure, source, receiver)
+    field = lambda: torch.zeros(dims, dtype=dtype,  # noqa: E731
+                                device=device)
+
+    def body(carry, t: int):
+        current, previous, states, rstate, ok, spare = carry
+        flat = current.reshape(num_nodes)
+        cur_flat = source.inject(flat.clone() if grad else flat, t)
+        current = cur_flat.view(dims)
+        rstate, outputs = receiver.tap(cur_flat, rstate)
+        nxt = interior_step(current, previous, structure.interior_mask,
+                            out=spare)
+        nxt, states = apply_regions(nxt, current, previous, states, regions,
+                                    structure.coef_b, structure.coef_a)
+        ok = ok & torch.all(torch.isfinite(nxt))
+        return (nxt, current, states, rstate, ok,
+                None if grad else previous), outputs
+
+    init = (field(), field(),
+            initial_region_states(regions, structure.filter_order, dtype,
+                                  device),
+            receiver.init_state(dtype, device),
+            torch.ones((), dtype=torch.bool, device=device),
+            None if grad else field())
+    carry, per_step = _run_loop(body, init, num_steps, 0, grad)
+    return {"outputs": _stack_outputs(per_step), "stable": carry[4]}
 
 
 def execute(mesh: Mesh, source, receiver, num_steps: int,
@@ -196,21 +364,30 @@ def execute(mesh: Mesh, source, receiver, num_steps: int,
     tensors among them, take the fused streaming step.  ``kernel_inject=
     False`` is the reference's escape hatch to the fused path with the
     source injected into the field before each step (exact gradients with
-    respect to the source signal).  Both routes differentiate: inputs that
+    respect to the source signal).  A box too thin for the plane solver
+    (no ``box_spec``) takes the region path; a general scene (neither
+    ``box_spec`` nor ``regions``) takes ``run_waveguide``.  Every route
+    differentiates except the region path on a CUDA device: inputs that
     require grad take the same route and get their gradients through the
-    route's adjoint kernels.  Non-box meshes raise
-    NotImplementedError (their path is not ported yet).
+    route's adjoint kernels.
     """
-    if mesh.box_spec is None:
-        raise NotImplementedError(_GENERAL_MESH)
-    if kernel_inject and dtype == torch.float32 and mega_supported(
-            mesh.box_spec, source, receiver, mesh.device,
-            filter_order=mesh.structure.filter_order, num_steps=num_steps,
-            grad=requires_grad(mesh.structure, source)):
-        return run_waveguide_box_mega(mesh.structure, mesh.box_spec, source,
-                                      receiver, num_steps)
-    return run_waveguide_box(mesh.structure, mesh.box_spec, source, receiver,
-                             num_steps, dtype, kernel_inject=kernel_inject)
+    if mesh.box_spec is not None:
+        if kernel_inject and dtype == torch.float32 and mega_supported(
+                mesh.box_spec, source, receiver, mesh.device,
+                filter_order=mesh.structure.filter_order,
+                num_steps=num_steps,
+                grad=requires_grad(mesh.structure, source)):
+            return run_waveguide_box_mega(mesh.structure, mesh.box_spec,
+                                          source, receiver, num_steps)
+        return run_waveguide_box(mesh.structure, mesh.box_spec, source,
+                                 receiver, num_steps, dtype,
+                                 kernel_inject=kernel_inject)
+    if mesh.regions is not None:
+        return run_waveguide_regions(
+            mesh.structure, mesh.descriptor.dimensions, source, receiver,
+            num_steps, mesh.regions, dtype)
+    return run_waveguide(mesh.structure, mesh.descriptor.dimensions, source,
+                         receiver, num_steps, dtype)
 
 
 def canonical_problem(mesh: Mesh, source_position, receiver_position,

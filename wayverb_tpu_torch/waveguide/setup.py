@@ -1,14 +1,15 @@
 """Mesh setup: node classification + boundary structure.
 
-Port of ``wayverb_tpu.waveguide.setup`` for the shoebox path: the analytic
-inside test, the boundary classification, the surface assignment and the
-structure assembly.  The general scene classification
-(``classify_inside_scene``) waits for the arbitrary-geometry slice.
+Port of ``wayverb_tpu.waveguide.setup``: the analytic and the general
+inside tests, the boundary classification, the surface assignment and the
+structure assembly.
 
-The box path reads only ``coef_b``, ``coef_a`` and ``filter_order``, so
-only the coefficient tables are device tensors.  The compact general-path
-tables stay host numpy (``None`` when a mesh is built without them, as
-``convert.mesh_from_numpy`` does) until the general slice needs them.
+Classification and assembly run on the host in numpy; the finished
+``MeshStructure`` holds device tensors.  The box path reads only ``coef_b``,
+``coef_a`` and ``filter_order``; the general path (``stencil.py``) reads the
+compact boundary tables and the dense ``weight_code``.  A structure built
+without those tables (``convert.mesh_from_numpy`` on a dictionary that
+lacks them) carries ``None`` there and serves the box path only.
 
 Node taxonomy (parity: reference ``mesh_setup_program.cpp``): inside,
 reentrant, 1D/2D/3D boundary, outside.  Surface assignment (parity:
@@ -41,27 +42,70 @@ _AXIS_OF_DIR = np.asarray([0, 0, 1, 1, 2, 2])
 
 @dataclasses.dataclass(frozen=True)
 class MeshStructure:
-    """Boundary filter tables (device) + the general-path tables (host).
+    """Everything the stencil needs, as tensors on one device.
 
     ``coef_b``/``coef_a``: (S, order+1) per-surface impedance filters, the
-    system's learnable parameters, as device tensors.  The remaining fields
-    are the reference's compact boundary arrays, kept as host numpy.
+    system's learnable parameters.  The remaining fields are the reference's
+    compact boundary arrays (length B, flat C-order node indices as int64,
+    which torch indexes with directly) and two dense volumes.
+
+    ``weight_code``: the packed per-node neighbour-weight bitfield driving
+    the fused general-mesh step (``stencil_kernels.weighted_step``): bit d
+    (0..5) set when neighbour d has weight >= 1, bit 6+d when weight == 2,
+    bit 12 on interior/reentrant nodes (subtract-previous term).
     """
 
     coef_b: torch.Tensor            # (S, order+1) impedance numerators
     coef_a: torch.Tensor            # (S, order+1) impedance denominators
-    interior_mask: Optional[np.ndarray] = None     # (X,Y,Z) f32
-    b_node_idx: Optional[np.ndarray] = None        # (B,) int32
-    b_neighbor_idx: Optional[np.ndarray] = None    # (B,6) int32
-    b_neighbor_w: Optional[np.ndarray] = None      # (B,6) f32 2/1/0
-    b_slot_mask: Optional[np.ndarray] = None       # (B,3) f32
-    b_slot_inner_idx: Optional[np.ndarray] = None  # (B,3) int32
-    b_slot_coef: Optional[np.ndarray] = None       # (B,3) int32
-    weight_code: Optional[np.ndarray] = None       # (X,Y,Z) int32
+    interior_mask: Optional[torch.Tensor] = None     # (X,Y,Z) f32
+    b_node_idx: Optional[torch.Tensor] = None        # (B,) int64, sorted
+    b_neighbor_idx: Optional[torch.Tensor] = None    # (B,6) int64 (clamped)
+    b_neighbor_w: Optional[torch.Tensor] = None      # (B,6) f32 2/1/0
+    b_slot_mask: Optional[torch.Tensor] = None       # (B,3) f32
+    b_slot_inner_idx: Optional[torch.Tensor] = None  # (B,3) int64
+    b_slot_coef: Optional[torch.Tensor] = None       # (B,3) int64
+    weight_code: Optional[torch.Tensor] = None       # (X,Y,Z) int32
 
     @property
     def filter_order(self) -> int:
         return self.coef_b.shape[1] - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.coef_b.device
+
+    @property
+    def has_general_tables(self) -> bool:
+        return self.weight_code is not None
+
+    @property
+    def num_boundary_nodes(self) -> int:
+        return self.b_node_idx.shape[0]
+
+    def initial_filter_state(self, dtype=torch.float32) -> torch.Tensor:
+        return torch.zeros(
+            (self.num_boundary_nodes, 3, self.filter_order), dtype=dtype,
+            device=self.device)
+
+
+# dtypes of the general-path tables on the device
+GENERAL_TABLE_DTYPES = {
+    "interior_mask": torch.float32, "b_node_idx": torch.int64,
+    "b_neighbor_idx": torch.int64, "b_neighbor_w": torch.float32,
+    "b_slot_mask": torch.float32, "b_slot_inner_idx": torch.int64,
+    "b_slot_coef": torch.int64, "weight_code": torch.int32}
+
+
+def structure_from_numpy(coef_b, coef_a, tables: dict, device
+                         ) -> MeshStructure:
+    """A ``MeshStructure`` on ``device`` from host arrays.  ``tables``: the
+    general-path tables by field name; an empty dictionary leaves them out."""
+    dev = lambda x, dt: torch.tensor(np.asarray(x), dtype=dt,  # noqa: E731
+                                     device=device)
+    return MeshStructure(
+        coef_b=dev(coef_b, torch.float32), coef_a=dev(coef_a, torch.float32),
+        **{name: dev(tables[name], dt)
+           for name, dt in GENERAL_TABLE_DTYPES.items() if name in tables})
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +117,43 @@ def classify_inside_shoebox(desc: MeshDescriptor, box) -> np.ndarray:
     lo = np.asarray(box.min_corner)
     hi = np.asarray(box.max_corner)
     return np.all((pos > lo) & (pos < hi), axis=-1)
+
+
+def classify_inside_scene(desc: MeshDescriptor, soup: TriangleSoup,
+                          chunk: int = 8192, device="cpu",
+                          use_native: bool = True) -> np.ndarray:
+    """General inside test: 32-ray parity vote per node.
+
+    Prefers the native C++ voxel-DDA runtime (``utils.native``, built with
+    g++ on demand); where that is unavailable, or with ``use_native=False``,
+    the batched ``core.geometry.points_inside`` runs on ``device`` in chunks
+    of ``chunk`` nodes (a chunk holds chunk × 32 rays × T triangles
+    intermediates).  ``classify_inside_scene.last_backend`` names the one
+    that ran ("native" or "points_inside").
+    """
+    pos = desc.node_positions().reshape(-1, 3)
+
+    if use_native:
+        from wayverb_tpu_torch.utils import native
+        native_result = native.classify_inside(
+            pos, np.asarray(soup.vertices.cpu()),
+            np.asarray(soup.triangles.cpu()))
+        if native_result is not None:
+            classify_inside_scene.last_backend = "native"
+            return native_result.reshape(desc.dimensions)
+
+    from wayverb_tpu_torch.core.geometry import points_inside
+    soup = soup.to(device)
+    out = torch.zeros(pos.shape[0], dtype=torch.bool, device=device)
+    for i in range(0, pos.shape[0], chunk):
+        pts = torch.as_tensor(pos[i:i + chunk], dtype=torch.float32,
+                              device=device)
+        out[i:i + chunk] = points_inside(pts, soup)
+    classify_inside_scene.last_backend = "points_inside"
+    return out.cpu().numpy().reshape(desc.dimensions)
+
+
+classify_inside_scene.last_backend = None
 
 
 def _shift_inside(inside: np.ndarray, offset) -> np.ndarray:
@@ -230,8 +311,8 @@ def build_structure(desc: MeshDescriptor, inside: np.ndarray,
                     coef_a: np.ndarray, device) -> MeshStructure:
     """Assemble the MeshStructure from an inside mask + surfaces.
 
-    ``coef_b``/``coef_a``: (S, order+1) per-surface impedance filters; they
-    go to ``device``, everything else stays on the host.
+    ``coef_b``/``coef_a``: (S, order+1) per-surface impedance filters.
+    The assembly runs on the host; the finished tables go to ``device``.
     """
     dims = desc.dimensions
     category, inner = classify_boundaries(inside)
@@ -337,20 +418,16 @@ def build_structure(desc: MeshDescriptor, inside: np.ndarray,
     wc_flat[b_node_idx] = b_bits
     weight_code = wc_flat.reshape(dims)
 
-    return MeshStructure(
-        coef_b=torch.tensor(np.asarray(coef_b), dtype=torch.float32,
-                            device=device),
-        coef_a=torch.tensor(np.asarray(coef_a), dtype=torch.float32,
-                            device=device),
+    return structure_from_numpy(coef_b, coef_a, dict(
         interior_mask=interior_mask,
         b_node_idx=b_node_idx,
         b_neighbor_idx=neigh_idx,
-        b_neighbor_w=w.astype(np.float32),
-        b_slot_mask=slot_mask.astype(np.float32),
+        b_neighbor_w=w,
+        b_slot_mask=slot_mask,
         b_slot_inner_idx=slot_inner_idx,
         b_slot_coef=slot_coef,
         weight_code=weight_code,
-    )
+    ), device)
 
 
 def estimate_volume(desc: MeshDescriptor, inside: np.ndarray) -> float:

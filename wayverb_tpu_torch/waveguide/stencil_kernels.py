@@ -1,0 +1,275 @@
+"""The dense stencil kernels of the general (arbitrary-geometry) mesh.
+
+Port of ``wayverb_tpu.waveguide.stencil_pallas`` (the reference names the
+module after its Pallas TPU kernels): the fused weighted step driven by the
+packed per-node bitfield ``MeshStructure.weight_code``, its adjoint, and the
+masked interior step.  The sharded (haloed) variants of that module are not
+ported yet.
+
+    weighted_step:  out[x] = λ²·Σ_d w_d(x)·cur[x+e_d] − bit12(x)·prev[x]
+                    w_d(x) = bit(d) + bit(6+d) of weight_code[x] ∈ {0, 1, 2}
+    interior_step:  out = (λ²·Σ₆ cur − prev)·mask
+
+Direction order d = 0..5 ↔ (−x, +x, −y, +y, −z, +z), matching
+``descriptor.DIRECTION_OFFSETS``; neighbours beyond the grid read as zero.
+One dense pass of ``weighted_step`` yields the interior update and every
+boundary node's weighted neighbour sum.
+
+Each function has a hand-written CUDA kernel for Hopper and a plain torch
+version beside it.  CUDA tensors launch the kernel
+(``csrc/mesh_weighted_step.cu``, ``csrc/mesh_weighted_step_bwd.cu``,
+``csrc/mesh_interior_step.cu``; float32, any dims) or raise; CPU tensors run
+the plain version.  Launches are counted in ``weighted_step.launches``,
+``weighted_step_bwd.launches`` and ``interior_step.launches``.
+
+``weighted_step`` is linear in (cur, prev).  When one of them requires grad
+it goes through a ``torch.autograd.Function`` whose backward is
+``weighted_step_bwd`` for ``cur`` and the elementwise ``−bit12·g`` for
+``prev``; it saves nothing but the weight code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from wayverb_tpu_torch.waveguide.box_fused import _neighbor_sum
+from wayverb_tpu_torch.waveguide.descriptor import (COURANT_SQ,
+                                                    DIRECTION_OFFSETS)
+
+_OPPOSITE = (1, 0, 3, 2, 5, 4)
+
+
+def _weight(code, d: int, dtype):
+    return (((code >> d) & 1) + ((code >> (6 + d)) & 1)).to(dtype)
+
+
+def _is_interior(code, dtype):
+    return ((code >> 12) & 1).to(dtype)
+
+
+def _shifted(field, d: int):
+    """field[x + e_d], zero where x + e_d lies beyond the grid."""
+    off = DIRECTION_OFFSETS[d]
+    axis = int(abs(off).argmax())
+    n = field.shape[axis]
+    out = torch.zeros_like(field)
+    if off[axis] == 1:
+        out.narrow(axis, 0, n - 1).copy_(field.narrow(axis, 1, n - 1))
+    else:
+        out.narrow(axis, 1, n - 1).copy_(field.narrow(axis, 0, n - 1))
+    return out
+
+
+def _weighted_step_plain(current, previous, weight_code):
+    """The plain torch version of the weighted step: a transcription of the
+    reference's ``weighted_step_jnp``."""
+    acc = torch.zeros_like(current)
+    for d in range(6):
+        acc = acc + _weight(weight_code, d, current.dtype) \
+            * _shifted(current, d)
+    return COURANT_SQ * acc \
+        - _is_interior(weight_code, current.dtype) * previous
+
+
+def _weighted_step_bwd_plain(g, weight_code):
+    """The plain torch version of the weighted step's adjoint in ``cur``:
+    the transpose written out in the reference's ``_weighted_bwd`` (the
+    product w_opp(dd)·g is formed at each site, then shifted)."""
+    acc = torch.zeros_like(g)
+    for dd in range(6):
+        acc = acc + _shifted(
+            _weight(weight_code, _OPPOSITE[dd], g.dtype) * g, dd)
+    return COURANT_SQ * acc
+
+
+def _interior_step_plain(current, previous, interior_mask):
+    """The plain torch version of the masked 7-point update (includes
+    reentrant nodes): the reference's ``stencil.interior_step``."""
+    return (COURANT_SQ * _neighbor_sum(current) - previous) * interior_mask
+
+
+# ---------------------------------------------------------------------------
+# launching
+
+@functools.cache
+def _lib(name: str, entry: str, n_pointers: int) -> ctypes.CDLL:
+    from wayverb_tpu_torch._build import load
+    lib = load(name)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.wv_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.wv_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(what: str, name: str, t, ref, dtype=torch.float32):
+    if t.device != ref.device or t.dtype != dtype or not t.is_contiguous() \
+            or t.shape != ref.shape:
+        raise ValueError(
+            f"{what}: {name} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(ref.shape)} on {ref.device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def _launch(what: str, name: str, entry: str, tensors, out):
+    """Launch ``entry`` of ``csrc/<name>.cu`` on the (X, Y, Z) tensors plus
+    ``out``, on the current stream of their device."""
+    ref = tensors[0]
+    if ref.dim() != 3:
+        raise ValueError(f"{what}: fields must be (X, Y, Z), got "
+                         f"{tuple(ref.shape)}")
+    X, Y, Z = ref.shape
+    if X > 65535 or (Y + 1) // 2 > 65535 or X * Y * Z == 0:
+        raise ValueError(f"{what}: grid {(X, Y, Z)} is outside what the "
+                         "kernel's launch geometry covers")
+    lib = _lib(name, entry, len(tensors) + 1)
+    err = getattr(lib, entry)(
+        *(t.data_ptr() for t in tensors), out.data_ptr(), X, Y, Z,
+        torch.cuda.current_stream(ref.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.wv_cuda_error_string(err).decode())
+    return out
+
+
+def _out_buffer(what: str, out, current):
+    """The output buffer: fresh, or the caller's ``out`` (never ``cur``)."""
+    if out is None:
+        return torch.empty_like(current)
+    _check(what, "out", out, current)
+    if out.data_ptr() == current.data_ptr():
+        raise ValueError(f"{what}: out must not alias cur (six neighbours "
+                         "of cur are read)")
+    return out
+
+
+def _weighted_step_forward(current, previous, weight_code, out):
+    """The step without autograd: kernel on CUDA tensors, plain on CPU."""
+    if current.is_cuda:
+        what = "weighted_step"
+        _check(what, "cur", current, current)
+        _check(what, "prev", previous, current)
+        _check(what, "weight_code", weight_code, current, torch.int32)
+        res = _launch(what, "mesh_weighted_step",
+                      "wv_mesh_weighted_step_f32",
+                      (current, previous, weight_code),
+                      _out_buffer(what, out, current))
+        weighted_step.launches += 1
+        return res
+    if current.device.type != "cpu":
+        raise ValueError(f"weighted_step: no kernel for device "
+                         f"{current.device}")
+    res = _weighted_step_plain(current, previous, weight_code)
+    return res if out is None else out.copy_(res)
+
+
+def weighted_step(current, previous, weight_code, out=None):
+    """Dense fused step: interior update + boundary weighted neighbour sums
+    in one pass over (X, Y, Z) fields.
+
+    ``out``: optional preallocated result buffer; it must not be ``current``
+    and may be ``previous`` (each node reads only its own ``previous``), so
+    a time loop can rotate two field buffers.  Unlike the reference's pure
+    arrays the step then writes in place.
+
+    CPU tensors run ``_weighted_step_plain``; CUDA tensors launch the kernel
+    (counted in ``weighted_step.launches``) or raise.  When grad mode is on
+    and ``current`` or ``previous`` requires grad, the step runs under a
+    ``torch.autograd.Function`` (``out`` must then be None).
+    """
+    if torch.is_grad_enabled() and (current.requires_grad
+                                    or previous.requires_grad):
+        if out is not None:
+            raise ValueError("weighted_step: out= cannot take the result "
+                             "when a gradient is required")
+        return _WeightedStep.apply(current, previous, weight_code)
+    return _weighted_step_forward(current, previous, weight_code, out)
+
+
+weighted_step.launches = 0
+
+
+def weighted_step_bwd(g, weight_code):
+    """ĝcur = λ²·Σ_dd w_opp(dd)(y+e_dd)·g[y+e_dd]: the transpose of
+    ``weighted_step`` in ``cur``, reading the neighbour's weight code.
+
+    CPU tensors run ``_weighted_step_bwd_plain``; CUDA tensors launch the
+    kernel (counted in ``weighted_step_bwd.launches``) or raise.
+    """
+    if g.is_cuda:
+        what = "weighted_step_bwd"
+        g = g.contiguous()
+        _check(what, "g", g, g)
+        _check(what, "weight_code", weight_code, g, torch.int32)
+        res = _launch(what, "mesh_weighted_step_bwd",
+                      "wv_mesh_weighted_step_bwd_f32", (g, weight_code),
+                      torch.empty_like(g))
+        weighted_step_bwd.launches += 1
+        return res
+    if g.device.type != "cpu":
+        raise ValueError(f"weighted_step_bwd: no kernel for device "
+                         f"{g.device}")
+    return _weighted_step_bwd_plain(g, weight_code)
+
+
+weighted_step_bwd.launches = 0
+
+
+class _WeightedStep(torch.autograd.Function):
+    """``weighted_step`` with its hand-written adjoint.  The step is linear
+    in (cur, prev), so only the weight code is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, current, previous, weight_code):
+        ctx.save_for_backward(weight_code)
+        return _weighted_step_forward(current, previous, weight_code, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        weight_code, = ctx.saved_tensors
+        gcur = weighted_step_bwd(g, weight_code) \
+            if ctx.needs_input_grad[0] else None
+        gprev = -_is_interior(weight_code, g.dtype) * g \
+            if ctx.needs_input_grad[1] else None
+        return gcur, gprev, None
+
+
+def interior_step(current, previous, interior_mask, out=None):
+    """Masked 7-point update of (X, Y, Z) fields (interior and reentrant
+    nodes; 0 elsewhere).
+
+    ``out``: optional preallocated result buffer (not ``current``; it may be
+    ``previous``).  CPU tensors run ``_interior_step_plain``, which plain
+    autograd differentiates; CUDA tensors launch the kernel (counted in
+    ``interior_step.launches``) or raise, and a CUDA tensor that requires
+    grad raises: the TPU kernel this replaces has no adjoint either.
+    """
+    if current.is_cuda:
+        what = "interior_step"
+        if torch.is_grad_enabled() and (current.requires_grad
+                                        or previous.requires_grad):
+            raise ValueError("interior_step: the kernel has no adjoint; "
+                             "differentiate through weighted_step")
+        _check(what, "cur", current, current)
+        _check(what, "prev", previous, current)
+        _check(what, "interior_mask", interior_mask, current)
+        res = _launch(what, "mesh_interior_step",
+                      "wv_mesh_interior_step_f32",
+                      (current, previous, interior_mask),
+                      _out_buffer(what, out, current))
+        interior_step.launches += 1
+        return res
+    if current.device.type != "cpu":
+        raise ValueError(f"interior_step: no kernel for device "
+                         f"{current.device}")
+    res = _interior_step_plain(current, previous, interior_mask)
+    return res if out is None else out.copy_(res)
+
+
+interior_step.launches = 0
