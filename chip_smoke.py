@@ -68,7 +68,28 @@ Drives the port through its public entry points on the card and fails
     source three nodes from a column (B9 in the backward), and a profiler
     breakdown of a forward + backward step; then card against CPU on the
     small columns hall;
-23. one JSON line of per-kernel results, then the last line,
+23. B3 and B4 (the closest ray–triangle hit over all triangles, and behind
+    the Morton-tile gate) against their plain versions, to the bit: 100, 512
+    and 4,096 rays on 12 to 20,000 triangles, with and without excludes, rays
+    that all miss, a triangle list held three times, then the model hall's
+    and the large hall's own tables, also with origins that are not finite;
+24. their times at 65,536 rays of a real bounce: B3 at the model hall
+    (``raytracer.scenes.procedural_hall()``, 5,448 triangles), B4 and B3 at
+    the large hall (``procedural_hall_large()``, 97,068 triangles), and the
+    plain versions', whose results B3 and B4 must equal to the bit at these
+    shapes, the main paths' own: on the rays just timed and on a later
+    bounce's visibility query, where some rays have left the scene;
+25. the model hall end to end: written with ``save_obj``, read back with
+    ``load_scene``, ``Engine`` without ``scene_box`` (``auto_accel`` gives
+    the MT kernels), ``run`` + ``render`` + ``render_all``, with the seconds
+    of setup and of each phase, the trace's rate and the peak memory;
+26. the large hall through ``trace`` with the culled kernel, 40 bounces, and
+    again with ``cull=False``;
+27. the voxel DDA on the card on the model hall, 40 bounces, and one bounce's
+    closest hits against B3's;
+28. a small hall above 100 triangles through ``Engine.run`` + ``render``: the
+    MT kernel on the card against the DDA on the CPU, same draws;
+29. one JSON line of per-kernel results, then the last line,
     ``{"ok": true, "device": {...}}``.
 
 A kernel's ``bound_ms`` is the least time the card could take for the same
@@ -78,14 +99,20 @@ For a chunk kernel that is the chunk's state in and out, as if the fields
 stayed on chip between sub-steps.  Phase 12 also prints, outside the JSON
 line and not as a bound, the same reckoning with the fields streamed through
 device memory every sub-step, which is what a field larger than the 50 MB L2
-forces.
+forces.  B3's operations are those of the Möller–Trumbore arithmetic (its
+compares and selects not counted) on every (ray, real triangle) pair; B4's
+least work is the slab tests, since what the
+gate lets through depends on the data (phase 24 prints the all-pairs figure
+and the share of tile pairs that ran, not as a bound).
 """
 
+import functools
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -107,7 +134,8 @@ CHUNK = 128
 GRAD_STEPS = 640           # the hall's backward workload: 5 chunks
 KERNELS = ("box_fused_step", "box_mega_chunk", "box_fused_step_bwd",
            "box_mega_chunk_bwd", "mesh_weighted_step",
-           "mesh_weighted_step_bwd", "mesh_interior_step")
+           "mesh_weighted_step_bwd", "mesh_interior_step", "ray_mt_closest",
+           "ray_mt_closest_culled")
 MESH_REL = 1e-5            # B8, B9, B12 vs plain, per unit of peak
 GENERAL_VS_MEGA_REL = 2e-5  # general path vs mega path on the T30 box
 WAVEGUIDE_REL = 1e-4       # waveguide card vs CPU, of peak
@@ -117,6 +145,23 @@ COLUMNS_FS = COLUMNS_CUTOFF / (0.25 * 0.6)
 COLUMNS_SRC, COLUMNS_RCV = (6.0, 4.0, 5.0), (7.5, 3.0, 6.5)
 COLUMNS_STEPS = 1000
 SMALL_COLUMNS_CUTOFF = 400.0
+# the ray leg: B3 and B4 equal their plain versions to the bit
+RAYS = 1 << 16
+MT_T_RTOL = 1e-5           # the DDA's t against B3's, on ...
+MT_T_SHARE = 0.999         # ... this share of the rays (grazing rays: a
+#                            small determinant amplifies float32 rounding)
+MT_ID_SHARE = 0.98         # the share of equal triangle ids (shared edges)
+# float32 arithmetic of the Möller–Trumbore test on one (ray, triangle) pair:
+# 46 multiplies, adds, subtracts and the reciprocal (the two cross products
+# 9 each, the determinant 5, the reciprocal 1, o - v0 3, u, v and t 6 each,
+# u + v 1).  Its about 14 compares, selects and the running-minimum update are
+# not counted, so the bound is the arithmetic's alone.  One slab test: per
+# axis two subtracts, two multiplies, two minima and two maxima.
+MT_OPS_PER_PAIR = 46
+SLAB_OPS_PER_TILE = 24
+LATE_BOUNCE = 20           # a bounce by which some rays of a trace have died
+LARGE_SRC, LARGE_RCV = (2.0, 1.7, 3.0), (6.0, 1.9, 9.0)
+LARGE_BOUNCES = 40
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12
 
@@ -1842,6 +1887,601 @@ def phase_general_grad_card_vs_cpu(torch, card):
                           results["cpu"])
 
 
+# ---------------------------------------------------------------------------
+# the ray acceleration: B3, B4, the voxel DDA, the scene loaders
+
+def _ray_surfaces(torch, device):
+    from wayverb_tpu_torch.core.surfaces import Surface
+    return Surface(absorption=torch.full((1, 8), ABSORPTION, device=device),
+                   scattering=torch.full((1, 8), 0.1, device=device))
+
+
+def _ray_counts():
+    from wayverb_tpu_torch.raytracer.mt_kernels import mt_closest
+    return {"ray_mt_closest": mt_closest.launches,
+            "ray_mt_closest_culled": mt_closest.culled_launches}
+
+
+def _reset_ray_counts():
+    from wayverb_tpu_torch.raytracer.mt_kernels import mt_closest
+    mt_closest.launches = mt_closest.culled_launches = 0
+
+
+def _triangles_soup(torch, num_triangles):
+    """The first ``num_triangles`` triangles of a procedural hall (the
+    kernels need no closed scene); 12 is the hall's bare shoebox."""
+    import dataclasses
+    from wayverb_tpu_torch.core.geometry import Box, box_scene
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    if num_triangles == 12:
+        return box_scene(Box((0.0, 0.0, 0.0), (20.0, 8.0, 15.0)))
+    args = {1000: (10, 0, 1), 5448: (20, 6, 3), 20000: (40, 10, 4)}
+    soup, n = procedural_hall(*args[num_triangles])
+    if n < num_triangles:
+        _fail(f"procedural_hall{args[num_triangles]} has only {n} triangles")
+    return dataclasses.replace(soup, triangles=soup.triangles[:num_triangles],
+                               surfaces=soup.surfaces[:num_triangles])
+
+
+def _random_rays(torch, n, gen, num_triangles=None, outside=False):
+    """Rays from inside the 20 x 8 x 15 m hall (or from beyond it, heading
+    away), with random excludes when given a triangle count."""
+    size = torch.tensor([20.0, 8.0, 15.0], device="cuda")
+    o = (0.05 + 0.9 * torch.rand(n, 3, generator=gen, device="cuda")) * size
+    d = torch.nn.functional.normalize(
+        torch.randn(n, 3, generator=gen, device="cuda"), dim=-1)
+    if outside:
+        o, d = o + 100.0, d.abs()
+    ex = torch.full((n,), -1, dtype=torch.int32, device="cuda") \
+        if num_triangles is None else torch.randint(
+            -1, num_triangles, (n,), generator=gen, device="cuda",
+            dtype=torch.int32)
+    return o, d, ex
+
+
+def _mt_compare(torch, tag, what, rays, tris, got, want):
+    """A launch's (t, id) against the plain version's on the same rays;
+    returns (max |t - t_plain|, share of rays that hit).  Equality to the
+    bit is the gate."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    (t, i), (t_want, i_want) = got, want
+    err = float((t - t_want).abs().max())
+    ids_differ = int((i != i_want).sum())
+    hits = float((t_want < mk.BIG).float().mean())
+    name = "B4" if tris.culled else "B3"
+    print(f"[{tag}] {name} {rays} rays x {tris.num} triangles (Tpad "
+          f"{tris.packed.shape[1]}; {what}): max |t - t_plain| = {err:.3e}, "
+          f"{ids_differ} ids differ, {100 * hits:.1f}% of rays hit (gate: "
+          "equal to the bit)", flush=True)
+    if not (err == 0.0 and ids_differ == 0 and torch.equal(t, t_want)
+            and torch.equal(i, i_want)):
+        _fail(f"{name} disagrees with its plain version: {what}")
+    return err, hits
+
+
+def _mt_case(torch, tag, what, o, d, ex, tris):
+    """``mt_closest`` (B3, or B4 for culled ``tris``) against its plain
+    version on the same CUDA tensors, as the kernel takes them."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    o, d, ex, _ = mk._kernel_rays(o, d, ex, tris)
+    got = mk.mt_closest(o, d, ex, tris)
+    torch.cuda.synchronize()
+    plain = mk._closest_culled_plain if tris.culled else mk._closest_plain
+    return _mt_compare(torch, tag, what, o.shape[0], tris, got,
+                       plain(o, d, ex, tris))
+
+
+def phase_mt_vs_plain(torch, model_tris, large_tris, card):
+    """B3 and B4 against their plain versions; returns their worst errors."""
+    from wayverb_tpu_torch.core.geometry import TriangleSoup
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    worst = {False: 0.0, True: 0.0}
+    for num_triangles, cull in ((12, False), (1000, False), (5448, False),
+                                (20000, False), (12, True), (1000, True),
+                                (20000, True)):
+        tris = mk.build_mt_triangles(_triangles_soup(torch, num_triangles),
+                                     cull=cull).to("cuda")
+        for rays in (100, 512, 4096):
+            for what in ("no excludes", "random excludes", "all miss"):
+                o, d, ex = _random_rays(
+                    torch, rays, gen,
+                    num_triangles if what == "random excludes" else None,
+                    outside=what == "all miss")
+                err, hits = _mt_case(torch, "23 mt", what, o, d, ex, tris)
+                worst[cull] = max(worst[cull], err)
+                if (hits == 0.0) != (what == "all miss"):
+                    _fail(f"{what}: {100 * hits:.1f}% of the rays hit")
+    # equal t in two triangle tiles: the lowest id wins, then the next copy
+    soup = _triangles_soup(torch, 1000)
+    dup = TriangleSoup(soup.vertices, torch.cat([soup.triangles] * 3),
+                       torch.cat([soup.surfaces] * 3))
+    o, d, _ = _random_rays(torch, 4096, gen)
+    for cull in (False, True):
+        tris = mk.build_mt_triangles(dup, cull=cull).to("cuda")
+        t, i, hit = mk.mt_intersection(o, d, tris)
+        t1, i1, hit1 = mk.mt_intersection(o, d, tris, exclude_triangle=i)
+        ok = bool(hit.any()) and int(i[hit].max()) < 1000 \
+            and torch.equal(hit1, hit) and torch.equal(t1[hit], t[hit]) \
+            and torch.equal(i1[hit], i[hit] + 1000)
+        print(f"[23 mt] {'B4' if cull else 'B3'} on a triangle list held "
+              f"three times (3000 triangles, equal t): lowest id wins, then "
+              f"the next copy once it is excluded: {ok}")
+        if not ok:
+            _fail("equal t did not resolve to the lowest triangle id")
+        worst[cull] = max(worst[cull], _mt_case(
+            torch, "23 mt", "a triangle list held three times, excludes from "
+            "the first hit", o, d, i, tris)[0])
+    # the tables the main paths use
+    o, d, _ = _random_rays(torch, 4096, gen)
+    _, first, _ = mk.mt_intersection(o, d, model_tris)
+    worst[False] = max(worst[False], _mt_case(
+        torch, "23 mt", "the model hall's own table, excludes from a first "
+        "hit", o, d, first, model_tris)[0])
+    _, first, _ = mk.mt_intersection(o, d, large_tris)
+    worst[True] = max(worst[True], _mt_case(
+        torch, "23 mt", "the large hall's own culled table, excludes from a "
+        "first hit", o, d, first, large_tris)[0])
+    # rays that have left the scene, as a trace's visibility query holds
+    # them: every eighth origin NaN, every eighth infinite
+    o = o.clone()
+    o[0::8] = float("nan")
+    o[1::8, 0] = float("inf")
+    for cull, tris in ((False, model_tris), (True, large_tris)):
+        worst[cull] = max(worst[cull], _mt_case(
+            torch, "23 mt", "a quarter of the origins NaN or infinite", o, d,
+            first, tris)[0])
+    return worst[False], worst[True]
+
+
+def _recorded_queries(torch, soup, tris, src, rcv, keep):
+    """The rays of a trace (65,536 rays from ``src``) exactly as ``mt_closest``
+    gets them (``_kernel_rays``' output: excludes int32, and sorted rays and
+    sorted ids for culled ``tris``).  A bounce makes two queries, the closest
+    hit (number 2 * bounce) and the visibility of the receiver from the hit
+    point (2 * bounce + 1), where a ray that has left the scene has a
+    non-finite origin.  ``keep``: the numbers of the queries wanted; returns
+    {number: (origin, direction, exclude)}."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    from wayverb_tpu_torch.raytracer import tracer
+    kept, count = {}, [0]
+    real = mk._kernel_rays
+
+    def recording(*args):
+        out = real(*args)
+        if count[0] in keep:
+            kept[count[0]] = out[:3]
+        count[0] += 1
+        return out
+
+    bounces = max(keep) // 2 + 1
+    mk._kernel_rays = recording
+    try:
+        tracer.trace(soup, _ray_surfaces(torch, "cuda"), src, rcv,
+                     torch.Generator(device="cuda").manual_seed(SEED + 21),
+                     num_rays=RAYS, depth=bounces, max_time=1.0, accel=tris)
+    finally:
+        mk._kernel_rays = real
+    if count[0] != 2 * bounces or set(kept) != set(keep):
+        _fail(f"recorded {count[0]} ray queries, expected {2 * bounces}")
+    return kept
+
+
+def _cuda_time_once_us(torch, fn):
+    """(microseconds by CUDA events, result) of one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(stop), out
+
+
+def _plain_with_tile_count(tris, o, d, ex):
+    """The plain version's result, and the number of (ray tile, triangle
+    tile) pairs whose arithmetic it ran (for the culled one: the pairs the
+    gate let through)."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    scanned, real = [0], mk._mt_tile
+
+    def counting(*args):
+        scanned[0] += 1
+        return real(*args)
+
+    plain = mk._closest_culled_plain if tris.culled else mk._closest_plain
+    mk._mt_tile = counting
+    try:
+        out = plain(o, d, ex, tris)
+    finally:
+        mk._mt_tile = real
+    return out, scanned[0]
+
+
+def mt_bounds(rays, tris):
+    """Bounds of one launch.  Bytes: origin, direction, exclude in (28 B a
+    ray), packed (and tile boxes) in, t and id out (8 B a ray).  B3's
+    operations: MT_OPS_PER_PAIR on every (ray, real triangle) pair.  B4's
+    least operations: one slab test per (ray, triangle tile); the scans the
+    gate lets through depend on the data."""
+    n_bytes = 36 * rays + 4 * tris.packed.numel()
+    if not tris.culled:
+        return _bound(n_bytes, MT_OPS_PER_PAIR * rays * tris.num)
+    tiles = tris.tile_boxes.shape[0]
+    return _bound(n_bytes + 4 * tris.tile_boxes.numel(),
+                  SLAB_OPS_PER_TILE * rays * tiles)
+
+
+def phase_mt_times(torch, model_soup, model_tris, large_soup, large_tris,
+                   large_plain_tris, card):
+    """B3 and B4 alone at 65,536 rays of the third bounce of their traces
+    (CUDA events), and their plain versions (one run each), whose results
+    the kernels must equal to the bit at this, the main paths' shape; then
+    the same on a later bounce's visibility query, dead rays among it."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    out = {}
+    timed, late = 2 * 2, 2 * LATE_BOUNCE + 1
+    cases = (
+        ("b3", "model hall", model_soup, model_tris, COLUMNS_SRC,
+         COLUMNS_RCV, 50, True),
+        ("b4", "large hall", large_soup, large_tris, LARGE_SRC, LARGE_RCV,
+         20, True),
+        ("b3_large", "large hall, cull=False", large_soup, large_plain_tris,
+         LARGE_SRC, LARGE_RCV, 5, False))
+    for key, what, soup, tris, src, rcv, reps, time_plain in cases:
+        queries = _recorded_queries(
+            torch, soup, tris, src, rcv,
+            {timed, late} if time_plain else {timed})
+        o, d, ex = queries[timed]
+        k_us = _cuda_time_us(torch, lambda: mk.mt_closest(o, d, ex, tris),
+                             reps)
+        bound = mt_bounds(RAYS, tris)
+        pairs = RAYS * tris.num
+        line = (f"[24 mt] {key.upper()} alone, {RAYS} rays of bounce 2 x "
+                f"{tris.num} triangles (Tpad {tris.packed.shape[1]}; {what}): "
+                f"kernel {k_us:.1f} us/launch ({RAYS / k_us:.4e} rays/us, "
+                f"{MT_OPS_PER_PAIR * pairs / k_us / 1e6:.2f} TFLOP/s counted "
+                f"over all pairs), bound {1e3 * bound[0]:.2f} us by "
+                f"{bound[1]}")
+        p_us = ran = err = None
+        if time_plain:
+            p_us, (want, scanned) = _cuda_time_once_us(
+                torch, lambda: _plain_with_tile_count(tris, o, d, ex))
+            line += f", plain version {p_us:.0f} us (one run)"
+            if tris.culled:
+                tile_pairs = (RAYS // mk.RB) * tris.tile_boxes.shape[0]
+                ran = scanned / tile_pairs
+                all_pairs_us = 1e9 * MT_OPS_PER_PAIR * pairs / F32_FLOP_PER_S
+                line += (f"; the gate let {100 * ran:.2f}% of "
+                         f"{tile_pairs} (ray tile, triangle tile) "
+                         f"pairs through; all pairs at the float32 rate "
+                         f"would take {all_pairs_us:.1f} us (not the bound)")
+        print(line + f" [{card}]", flush=True)
+        if time_plain:
+            err, hits = _mt_compare(
+                torch, "24 mt", f"{what}: the closest-hit query of bounce 2, "
+                "the rays just timed", RAYS, tris,
+                mk.mt_closest(o, d, ex, tris), want)
+            lo, ld, lex = queries[late]
+            dead = int((~torch.isfinite(lo).all(dim=1)).sum())
+            plain = mk._closest_culled_plain if tris.culled \
+                else mk._closest_plain
+            err_late, hits_late = _mt_compare(
+                torch, "24 mt", f"{what}: the visibility query of bounce "
+                f"{LATE_BOUNCE}, {dead} origins not finite", RAYS, tris,
+                mk.mt_closest(lo, ld, lex, tris), plain(lo, ld, lex, tris))
+            err = max(err, err_late)
+            if not (hits > 0.99 and dead > 0 and hits_late < 1.0):
+                _fail(f"{what}: the recorded rays are not a trace's "
+                      f"({100 * hits:.2f}% hit at bounce 2; {dead} dead rays "
+                      f"at bounce {LATE_BOUNCE})")
+        out[key] = {"us": k_us, "plain_us": p_us, "bound": bound,
+                    "tile_pairs_run": ran, "max_abs_err": err,
+                    "shape": [RAYS, tris.packed.shape[1]]}
+    print(f"[24 mt] at the large hall the gate saves "
+          f"{out['b3_large']['us'] / out['b4']['us']:.2f}x (B3 "
+          f"{out['b3_large']['us']:.1f} us against B4 {out['b4']['us']:.1f} "
+          f"us per launch, the ray sort not counted) [{card}]")
+    return out
+
+
+def phase_model_hall(torch, model_soup, card):
+    """The model hall as a user's room: save_obj -> load_scene -> Engine
+    (no scene_box) -> run + render + render_all on the card."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core import scene as scene_io
+    from wayverb_tpu_torch.core.attenuator import Microphone, Null
+    from wayverb_tpu_torch.core.surfaces import Surface
+    from wayverb_tpu_torch.raytracer.accel import auto_accel
+    from wayverb_tpu_torch.raytracer.mt_kernels import MtTriangles
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model_hall.obj")
+        t0 = time.perf_counter()
+        scene_io.save_obj(path, scene_io.SceneData(model_soup, ["default"]))
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        scene = scene_io.load_scene(path)
+        t_load = time.perf_counter() - t0
+    for f in ("vertices", "triangles", "surfaces"):
+        if not torch.equal(getattr(scene.soup, f), getattr(model_soup, f)):
+            _fail(f"the model hall's {f} changed on the way through the file")
+    surfaces = scene.with_surfaces(Surface.uniform(ABSORPTION, 0.1))
+    # the seconds of the mesh's setup stages, through compute_mesh's own
+    # ``timings``, and of the ray tables, built once more here
+    st = {}
+    compute_mesh = eng.wgrun.compute_mesh
+    eng.wgrun.compute_mesh = functools.partial(compute_mesh, timings=st)
+    try:
+        t0 = time.perf_counter()
+        e = eng.Engine(scene.soup, surfaces,
+                       eng.WaveguideParameters(cutoff=COLUMNS_CUTOFF,
+                                               usable_portion=0.6),
+                       device="cuda")
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+    finally:
+        eng.wgrun.compute_mesh = compute_mesh
+    t0 = time.perf_counter()
+    auto_accel(scene.soup, "cuda")
+    torch.cuda.synchronize()
+    st["accel_s"] = time.perf_counter() - t0
+    print(f"[25 model hall] {scene.soup.num_triangles} triangles through a "
+          f"{size / 1e3:.0f} kB .obj (save {t_save:.2f} s, load "
+          f"{t_load:.2f} s); mesh {e.mesh.descriptor.dimensions} = "
+          f"{e.mesh.descriptor.num_nodes} nodes, "
+          f"{e.mesh.structure.num_boundary_nodes} boundary; engine setup "
+          f"{setup:.2f} s: classification {st['classify_s']:.2f} s by "
+          f"{st['classifier']}, filter fit {st['fit_s']:.2f} s, structure "
+          f"{st['structure_s']:.2f} s, ray tables {st['accel_s']:.3f} s")
+    if not (isinstance(e.ray_grid, MtTriangles) and not e.ray_grid.culled
+            and e.ray_grid.packed.is_cuda and e.mesh.box_spec is None
+            and e.mesh.regions is None):
+        _fail("the model hall did not get unculled MtTriangles on the card "
+              "and a general mesh")
+    params = eng.RaytracerParameters()
+    depth = eng.optimum_depth(e.surfaces)
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_mesh_counts()
+    _reset_ray_counts()
+    mark("start")
+    results = e.run(COLUMNS_SRC, COLUMNS_RCV, gen, params,
+                    waveguide_time=COLUMNS_STEPS / COLUMNS_FS,
+                    state_callback=mark)
+    mark("end")
+    launches = {**_mesh_counts(), **_grad_counts(), **_ray_counts()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    t_render = time.perf_counter()
+    ir = eng.render(results, Null(), 44100.0, gen)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t_render
+    both = eng.render_all(results, [Null(), Microphone(shape=0.5)], gen,
+                          output_sample_rate=44100.0)
+    torch.cuda.synchronize()
+    secs = {marks[i][0]: marks[i + 1][1] - marks[i][1]
+            for i in range(len(marks) - 1)}
+    trace_s = secs["running_raytracer"]
+    band = results.waveguide_bands[0]
+    steps = band.pressure.shape[0]
+    print(f"[25 model hall] {params.rays} rays x {depth} bounces, image-"
+          f"source order {params.maximum_image_source_order}, "
+          f"{results.image_source.count} image sources; seconds: trace "
+          f"{trace_s:.3f}, image sources "
+          f"{secs['finding_image_sources']:.3f}, waveguide "
+          f"{secs['running_waveguide']:.3f} ({steps} steps), finish "
+          f"{secs['finishing']:.3f}, render {t_render:.3f}; trace "
+          f"{params.rays * depth / trace_s:.4e} ray-bounces/s; peak memory "
+          f"{peak_mem / 2**20:.1f} MiB; launches {launches} [{card}]")
+    ir_np = ir.cpu().numpy()
+    finite = bool(np.all(np.isfinite(ir_np))) \
+        and bool(torch.isfinite(both).all())
+    stable = bool(torch.isfinite(band.pressure).all())
+    arrival = float(np.linalg.norm(np.subtract(COLUMNS_SRC,
+                                               COLUMNS_RCV))) / 340.0
+    peak_t = float(np.abs(ir_np).argmax()) / 44100.0
+    half = int(0.5 * 44100)
+    early = float(np.square(ir_np[:half]).sum())
+    late = float(np.square(ir_np[-half:]).sum())
+    print(f"[25 model hall] IR {ir_np.shape[0]} samples at 44.1 kHz, finite "
+          f"{finite}, waveguide stable {stable}; peak "
+          f"{float(np.abs(ir_np).max()):.4e} at {1e3 * peak_t:.2f} ms, "
+          f"direct arrival {1e3 * arrival:.2f} ms (bound 20 ms); energy "
+          f"first 0.5 s {early:.4e}, last 0.5 s {late:.4e}; render_all "
+          f"{tuple(both.shape)}, max {float(both.abs().max()):.4f}")
+    others = sum(v for k, v in launches.items()
+                 if k not in ("mesh_weighted_step", "ray_mt_closest"))
+    if not (finite and stable and float(np.abs(ir_np).max()) > 0
+            and abs(peak_t - arrival) <= 0.02 and late < early
+            and steps == COLUMNS_STEPS
+            and launches["mesh_weighted_step"] == steps
+            and launches["ray_mt_closest"] == 2 * depth == 272
+            and others == 0
+            and tuple(both.shape) == (2, ir_np.shape[0])):
+        _fail("the model hall failed its checks")
+    return launches, {
+        "triangles": scene.soup.num_triangles, "rays": params.rays,
+        "bounces": depth, "setup_s": setup,
+        **{k: v for k, v in st.items()}, "load_scene_s": t_load,
+        "trace_s": trace_s, "ray_bounces_per_s": params.rays * depth / trace_s,
+        "image_sources_s": secs["finding_image_sources"],
+        "image_sources": results.image_source.count,
+        "waveguide_s": secs["running_waveguide"], "render_s": t_render,
+        "peak_memory_bytes": peak_mem}
+
+
+def _timed_trace(torch, soup, accel, src, rcv, bounces, seed):
+    from wayverb_tpu_torch.raytracer import tracer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tracer.trace(soup, _ray_surfaces(torch, "cuda"), src, rcv,
+                       torch.Generator(device="cuda").manual_seed(seed),
+                       num_rays=RAYS, depth=bounces, max_time=1.0,
+                       accel=accel)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_large_hall(torch, large_soup, large_tris, large_plain_tris, card):
+    """``trace`` on the 97 k-triangle hall with the culled kernel, then with
+    cull=False: launches, energy, rates, and the first bounce's hits."""
+    out = {}
+    for key, tris in (("culled", large_tris), ("all pairs", large_plain_tris)):
+        # one bounce first: the first argsort and scatter pay for themselves
+        _timed_trace(torch, large_soup, tris, LARGE_SRC, LARGE_RCV, 1, SEED)
+        _reset_ray_counts()
+        res, dt = _timed_trace(torch, large_soup, tris, LARGE_SRC, LARGE_RCV,
+                               LARGE_BOUNCES, SEED + 23)
+        counts = _ray_counts()
+        energy = float(res.histogram.sum())
+        alive = float((res.triangle_history[-1] >= 0).float().mean())
+        print(f"[26 large hall] {tris.num} triangles, {RAYS} rays x "
+              f"{LARGE_BOUNCES} bounces, {key}: {dt:.3f} s, "
+              f"{RAYS * LARGE_BOUNCES / dt:.4e} ray-bounces/s; deposited "
+              f"energy {energy:.6e}, {100 * alive:.2f}% of rays alive at the "
+              f"end; launches {counts} [{card}]")
+        want = {"ray_mt_closest": 0, "ray_mt_closest_culled": 0}
+        want["ray_mt_closest_culled" if tris.culled else "ray_mt_closest"] = \
+            2 * LARGE_BOUNCES
+        if not (counts == want and math.isfinite(energy) and energy > 0
+                and alive > 0.99):
+            _fail(f"the large hall's trace ({key}) failed its checks")
+        out[key] = (res, dt, counts)
+    # Among exactly equal t the lowest id wins, and the culled kernel's ids
+    # are Morton-sorted: a ray through a shared edge may take the other of
+    # two coplanar triangles.  Such hits must lie in one plane.
+    from wayverb_tpu_torch.core.geometry import triangle_normals
+    first = [out[k][0].triangle_history[0].long() for k in out]
+    differ = first[0] != first[1]
+    same = 1.0 - float(differ.float().mean())
+    normals = triangle_normals(large_soup)
+    coplanar = bool(torch.allclose(normals[first[0][differ]],
+                                   normals[first[1][differ]], atol=1e-6))
+    e0, e1 = (float(out[k][0].histogram.sum()) for k in out)
+    print(f"[26 large hall] first bounce: {int(differ.sum())} of {RAYS} hit "
+          f"triangles differ between the culled and the all-pairs kernel "
+          f"(bound {100 * (1 - MT_T_SHARE):.1f}%), every one a tie between "
+          f"coplanar triangles: {coplanar}; deposited energy differs by "
+          f"{abs(e0 - e1) / e1:.3e} of it (bound 1e-4); the culled trace is "
+          f"{out['all pairs'][1] / out['culled'][1]:.2f}x faster [{card}]")
+    if not (same >= MT_T_SHARE and coplanar and abs(e0 - e1) <= 1e-4 * e1):
+        _fail("culled and all-pairs kernels disagree on the first bounce")
+    return out["culled"][2], {
+        "triangles": large_tris.num, "rays": RAYS, "bounces": LARGE_BOUNCES,
+        "culled_s": out["culled"][1], "all_pairs_s": out["all pairs"][1],
+        "culled_ray_bounces_per_s": RAYS * LARGE_BOUNCES / out["culled"][1],
+        "all_pairs_ray_bounces_per_s":
+            RAYS * LARGE_BOUNCES / out["all pairs"][1]}
+
+
+def phase_dda_on_card(torch, model_soup, model_tris, card):
+    """The voxel DDA on the card on the model hall: its rate beside B3's,
+    and one bounce's closest hits against B3's."""
+    from wayverb_tpu_torch.raytracer import accel as ray_accel
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    t0 = time.perf_counter()
+    grid = ray_accel.build_ray_grid(model_soup).to("cuda")
+    t_build = time.perf_counter() - t0
+    _timed_trace(torch, model_soup, grid, COLUMNS_SRC, COLUMNS_RCV, 1, SEED)
+    _reset_ray_counts()
+    res, dt = _timed_trace(torch, model_soup, grid, COLUMNS_SRC, COLUMNS_RCV,
+                           LARGE_BOUNCES, SEED + 24)
+    if any(_ray_counts().values()):
+        _fail("the DDA trace launched an MT kernel")
+    res_mt, dt_mt = _timed_trace(torch, model_soup, model_tris, COLUMNS_SRC,
+                                 COLUMNS_RCV, LARGE_BOUNCES, SEED + 24)
+    agree = float((res.triangle_history
+                   == res_mt.triangle_history).float().mean())
+    e_dda, e_mt = float(res.histogram.sum()), float(res_mt.histogram.sum())
+    print(f"[27 dda] model hall, grid {grid.res}, at most "
+          f"{grid.max_per_cell} triangles a cell (built in {t_build:.2f} s "
+          f"on the host); {RAYS} rays x {LARGE_BOUNCES} bounces: DDA "
+          f"{dt:.3f} s = {RAYS * LARGE_BOUNCES / dt:.4e} ray-bounces/s, B3 "
+          f"{dt_mt:.3f} s = {RAYS * LARGE_BOUNCES / dt_mt:.4e} (same draws; "
+          f"{100 * agree:.3f}% of the hit history equal, deposited energy "
+          f"{e_dda:.6e} vs {e_mt:.6e}) [{card}]")
+    # unculled tables: the kernel's rays are the tracer's, ids the soup's
+    o, d, ex = _recorded_queries(torch, model_soup, model_tris, COLUMNS_SRC,
+                                 COLUMNS_RCV, {4})[4]
+    tg, ig, hg = ray_accel.grid_intersection(o, d, grid, model_soup, ex)
+    tm, im, hm = mk.mt_intersection(o, d, model_tris, ex)
+    hits_equal = float((hg == hm).float().mean())
+    both = hg & hm
+    rel = (tg[both] - tm[both]).abs() / tm[both]
+    within = float((rel <= MT_T_RTOL).float().mean())
+    ids = float((ig[both] == im[both]).float().mean())
+    print(f"[27 dda] closest hits of bounce 2, DDA against B3: hit masks "
+          f"equal on {100 * hits_equal:.4f}% of rays (bound "
+          f"{100 * MT_T_SHARE:g}%), relative |Δt| <= {MT_T_RTOL:g} on "
+          f"{100 * within:.4f}% (bound {100 * MT_T_SHARE:g}%; max "
+          f"{float(rel.max()):.3e}), {100 * ids:.3f}% of ids equal (bound "
+          f"{100 * MT_ID_SHARE:g}%)")
+    if not (hits_equal >= MT_T_SHARE and within >= MT_T_SHARE
+            and ids >= MT_ID_SHARE and e_dda > 0
+            and abs(e_dda - e_mt) <= 1e-2 * e_mt):
+        _fail("the DDA on the card disagrees with B3")
+    return {"grid_res": list(grid.res), "max_per_cell": grid.max_per_cell,
+            "dda_s": dt, "dda_ray_bounces_per_s": RAYS * LARGE_BOUNCES / dt,
+            "b3_s": dt_mt,
+            "b3_ray_bounces_per_s": RAYS * LARGE_BOUNCES / dt_mt}
+
+
+def phase_hall_card_vs_cpu(torch, card):
+    """A hall of 132 triangles (above the dense limit) through Engine.run +
+    render: the MT kernel on the card against the DDA on the CPU, same
+    draws."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Null
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    params = eng.RaytracerParameters(rays=1 << 13, max_time=1.5)
+    soup, n_tri = procedural_hall(3, 2, 1)
+    outs, secs, backends = [], [], []
+    for device in ("cuda", "cpu"):
+        _reset_mesh_counts()
+        _reset_ray_counts()
+        t0 = time.perf_counter()
+        e = eng.Engine(soup, _ray_surfaces(torch, "cpu"),
+                       eng.WaveguideParameters(cutoff=SMALL_COLUMNS_CUTOFF,
+                                               usable_portion=0.6),
+                       device=device)
+        results = e.run(COLUMNS_SRC, COLUMNS_RCV,
+                        torch.Generator().manual_seed(SEED), params,
+                        waveguide_time=0.25)
+        ir = eng.render(results, Null(), 16000.0,
+                        torch.Generator().manual_seed(SEED + 1))
+        outs.append((results.waveguide_bands[0].pressure.cpu(), ir.cpu(),
+                     results.image_source.count))
+        secs.append(time.perf_counter() - t0)
+        backends.append(type(e.ray_grid).__name__)
+        n_b3 = _ray_counts()["ray_mt_closest"]
+        depth = eng.optimum_depth(e.surfaces)
+        if n_b3 != (2 * depth if device == "cuda" else 0):
+            _fail(f"small hall on {device}: {n_b3} B3 launches")
+    (card_p, card_ir, card_n), (cpu_p, cpu_ir, cpu_n) = outs
+    p_rel = float((card_p - cpu_p).abs().max()) / float(cpu_p.abs().max())
+    ir_rel = float((card_ir - cpu_ir).abs().max()) \
+        / float(cpu_ir.abs().max()) if card_ir.shape == cpu_ir.shape \
+        else float("inf")
+    print(f"[28 card vs cpu] hall of {n_tri} triangles, "
+          f"{e.mesh.descriptor.dimensions}, {params.rays} rays: card "
+          f"({backends[0]}) {secs[0]:.2f} s, CPU ({backends[1]}) "
+          f"{secs[1]:.2f} s; image sources {card_n} vs {cpu_n}; waveguide "
+          f"{p_rel:.3e} of peak (bound {WAVEGUIDE_REL:g}), IR "
+          f"{tuple(card_ir.shape)} {ir_rel:.3e} of peak (bound "
+          f"{HYBRID_REL:g}) [{card}]")
+    if not (backends == ["MtTriangles", "RayGrid"] and card_n == cpu_n
+            and p_rel <= WAVEGUIDE_REL and ir_rel <= HYBRID_REL):
+        _fail("the hall on the card differs from the CPU run")
+    return ir_rel
+
+
 def main():
     import torch
     card = phase_device(torch)
@@ -1911,6 +2551,33 @@ def main():
     general_grad_counts, general_grad = phase_general_gradient(
         torch, col_mesh, card)
     phase_general_grad_card_vs_cpu(torch, card)
+    del col_mesh
+    torch.cuda.empty_cache()
+
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    from wayverb_tpu_torch.raytracer.scenes import (procedural_hall,
+                                                    procedural_hall_large)
+    (model_cpu, n_model), (large_cpu, n_large) = procedural_hall(), \
+        procedural_hall_large()
+    if (n_model, n_large) != (5448, 97068):
+        _fail(f"the halls have {n_model} and {n_large} triangles, expected "
+              "5448 and 97068")
+    model_soup, large_soup = model_cpu.to("cuda"), large_cpu.to("cuda")
+    model_tris = mk.build_mt_triangles(model_cpu).to("cuda")
+    large_tris = mk.build_mt_triangles(large_cpu).to("cuda")
+    large_plain_tris = mk.build_mt_triangles(large_cpu, cull=False).to("cuda")
+    if model_tris.culled or not large_tris.culled:
+        _fail("build_mt_triangles culls the model hall or not the large one")
+    b3_err, b4_err = phase_mt_vs_plain(torch, model_tris, large_tris, card)
+    mt_times = phase_mt_times(torch, model_soup, model_tris, large_soup,
+                              large_tris, large_plain_tris, card)
+    model_launches, model_hall = phase_model_hall(torch, model_cpu, card)
+    torch.cuda.empty_cache()
+    large_launches, large_hall = phase_large_hall(
+        torch, large_soup, large_tris, large_plain_tris, card)
+    dda = phase_dda_on_card(torch, model_soup, model_tris, card)
+    torch.cuda.empty_cache()
+    phase_hall_card_vs_cpu(torch, card)
     counted = {"box_fused_step": b1_launches,
                "box_mega_chunk": launches["box_mega_chunk"],
                "box_fused_step_bwd": route_counts["box_fused_step_bwd"],
@@ -1919,7 +2586,10 @@ def main():
                "mesh_weighted_step": col_launches["mesh_weighted_step"],
                "mesh_weighted_step_bwd":
                    general_grad_counts["mesh_weighted_step_bwd"],
-               "mesh_interior_step": thin_launches}
+               "mesh_interior_step": thin_launches,
+               "ray_mt_closest": model_launches["ray_mt_closest"],
+               "ray_mt_closest_culled":
+                   large_launches["ray_mt_closest_culled"]}
     if not all(counted.values()):
         _fail(f"a kernel of a path was not launched: {counted}")
 
@@ -2010,7 +2680,33 @@ def main():
          "the columns hall's 64-step gradient"),
         ("mesh_interior_step", "b12", 35, b12_err, col_dims,
          "canonical on the thin box (the region path); timed at the "
-         "columns hall's shape")))], "columns_hall": columns,
+         "columns hall's shape"))), *({
+        "name": name,
+        "route": "cuda",
+        "source": f"wayverb_tpu_torch/csrc/{name}.cu",
+        "replaces": f"wayverb_tpu/raytracer/mt_pallas.py:{line}",
+        "shape": mt_times[key]["shape"],
+        "launches": counted[name],
+        "max_abs_err": err,
+        "ms": mt_times[key]["us"] / 1e3,
+        "plain_ms": mt_times[key]["plain_us"] / 1e3,
+        "bound_ms": mt_times[key]["bound"][0],
+        "bound_by": mt_times[key]["bound"][1],
+        "library_ms": None,
+        "ms_is_per": "launch",
+        "launches_on": on,
+        **extra,
+    } for name, key, line, err, on, extra in (
+        ("ray_mt_closest", "b3", 192,
+         max(b3_err, mt_times["b3"]["max_abs_err"]),
+         "Engine.run on the model hall (two launches a bounce)", {}),
+        ("ray_mt_closest_culled", "b4", 203,
+         max(b4_err, mt_times["b4"]["max_abs_err"]),
+         "trace on the large hall (two launches a bounce)",
+         {"tile_pairs_run": mt_times["b4"]["tile_pairs_run"],
+          "all_pairs_kernel_ms": mt_times["b3_large"]["us"] / 1e3})))],
+        "model_hall": model_hall, "large_hall": large_hall,
+        "dda_on_card": dda, "columns_hall": columns,
         "hybrid_columns_hall": hybrid_columns,
         "general_gradient": general_grad, "gradient_path": {
         "shape": list(hall_dims), "steps": GRAD_STEPS, "chunk": CHUNK,

@@ -229,7 +229,8 @@ def test_port_never_imports_jax():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         .removesuffix(".__init__") for p in pkg.rglob("*.py"))
-    for name in ("combined.engine", "core.geometry", "convert",
+    for name in ("combined.engine", "core.geometry", "core.scene", "convert",
+                 "raytracer.accel", "raytracer.mt_kernels",
                  "raytracer.scenes", "waveguide.box_boundary",
                  "waveguide.run", "waveguide.setup", "waveguide.stencil",
                  "waveguide.stencil_kernels"):

@@ -668,3 +668,148 @@ def test_general_gradient_on_the_card_matches_cpu(cuda_device):
         scale = float(want.abs().max())
         assert scale > 0
         assert float((got - want).abs().max()) <= GRAD_REL * scale
+
+
+# ---------------------------------------------------------------------------
+# the ray–triangle kernels (B3, B4)
+
+def _hall_soup(num_triangles):
+    """A procedural hall of exactly ``num_triangles`` triangles."""
+    from wayverb_tpu_torch.core.geometry import box_scene
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    if num_triangles == 12:
+        return box_scene(Box((0.0, 0.0, 0.0), (20.0, 8.0, 15.0)))
+    args = {1000: (10, 0, 1), 5448: (20, 6, 3), 20000: (40, 10, 4)}
+    soup, n = procedural_hall(*args[num_triangles])
+    # trim to the requested count: the kernels need no closed scene
+    assert n >= num_triangles
+    return dataclasses.replace(soup, triangles=soup.triangles[:num_triangles],
+                               surfaces=soup.surfaces[:num_triangles])
+
+
+def _hall_rays(n, device, seed, num_triangles=None, outside=False):
+    gen = torch.Generator().manual_seed(seed)
+    size = torch.tensor([20.0, 8.0, 15.0])
+    o = (0.05 + 0.9 * torch.rand(n, 3, generator=gen)) * size
+    d = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen),
+                                      dim=-1)
+    if outside:                       # beyond the scene, heading away
+        o, d = o + 100.0, d.abs()
+    ex = torch.full((n,), -1, dtype=torch.int32) if num_triangles is None \
+        else torch.randint(-1, num_triangles, (n,), generator=gen,
+                           dtype=torch.int32)
+    return o.to(device), d.to(device), ex.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rays", [100, 512, 4096])
+@pytest.mark.parametrize("num_triangles,cull", [
+    (12, False), (1000, False), (5448, False), (20000, False),
+    (12, True), (1000, True), (20000, True)])
+def test_mt_closest_kernels_match_plain(cuda_device, rays, num_triangles,
+                                        cull):
+    """B3 (all pairs) and B4 (culled) against their plain versions on the
+    same CUDA tensors, to the bit: with and without excludes, and rays that
+    all miss."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    tris = mk.build_mt_triangles(_hall_soup(num_triangles),
+                                 cull=cull).to(cuda_device)
+    plain = mk._closest_culled_plain if cull else mk._closest_plain
+    for case in ("no excludes", "excludes", "all miss"):
+        o, d, ex = _hall_rays(
+            rays, cuda_device, seed=rays + num_triangles,
+            num_triangles=num_triangles if case == "excludes" else None,
+            outside=case == "all miss")
+        if cull:
+            order = torch.argsort(mk._ray_sort_keys(o, d, tris), stable=True)
+            o, d, ex = (x[order].contiguous() for x in (o, d, ex))
+        before = (mk.mt_closest.launches, mk.mt_closest.culled_launches)
+        t, i = mk.mt_closest(o, d, ex, tris)
+        torch.cuda.synchronize()
+        after = (mk.mt_closest.launches, mk.mt_closest.culled_launches)
+        assert after == (before[0] + (not cull), before[1] + cull)
+        t_want, i_want = plain(o, d, ex, tris)
+        assert torch.equal(t, t_want), (case, float((t - t_want).abs().max()))
+        assert torch.equal(i, i_want), case
+        hits = float((t < mk.BIG).float().mean())
+        # (a trimmed hall is not closed: some rays leave through the gap)
+        assert hits == 0.0 if case == "all miss" else hits > 0.5, (case, hits)
+
+
+@pytest.mark.cuda
+def test_mt_kernels_lowest_id_wins_and_no_gradient(cuda_device):
+    """A triangle list repeated three times (equal t in two triangle tiles):
+    the lowest id wins, then the next copy once that is excluded;
+    ``mt_closest`` refuses an input that requires grad and tensors it cannot
+    take."""
+    from wayverb_tpu_torch.core.geometry import TriangleSoup
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    soup = _hall_soup(1000)
+    dup = TriangleSoup(soup.vertices, torch.cat([soup.triangles] * 3),
+                       torch.cat([soup.surfaces] * 3))
+    o, d, ex = _hall_rays(700, cuda_device, seed=3)
+    for cull in (False, True):
+        tris = mk.build_mt_triangles(dup, cull=cull).to(cuda_device)
+        t, i, hit = mk.mt_intersection(o, d, tris)
+        assert bool(hit.any()) and int(i[hit].max()) < 1000
+        t1, i1, hit1 = mk.mt_intersection(o, d, tris, exclude_triangle=i)
+        assert torch.equal(hit1, hit) and torch.equal(t1[hit], t[hit])
+        assert torch.equal(i1[hit], i[hit] + 1000)
+    with pytest.raises(ValueError, match="no gradient"):
+        mk.mt_closest(o.clone().requires_grad_(True), d, ex, tris)
+    with pytest.raises(ValueError, match="exclude"):
+        mk.mt_closest(o, d, ex.long(), tris)
+    with pytest.raises(ValueError, match="origin"):
+        mk.mt_closest(o.cpu().to(torch.float64).to(cuda_device), d, ex, tris)
+    with pytest.raises(ValueError, match="packed"):
+        mk.mt_closest(o, d, ex, mk.build_mt_triangles(dup))   # on the CPU
+
+
+@pytest.mark.cuda
+def test_auto_accel_on_the_card(cuda_device):
+    from wayverb_tpu_torch.raytracer import accel, mt_kernels as mk
+    assert accel.auto_accel(_hall_soup(12), cuda_device) is None
+    small = accel.auto_accel(_hall_soup(1000), "cuda")
+    assert isinstance(small, mk.MtTriangles) and not small.culled
+    assert small.packed.is_cuda and small.packed.shape == (9, 1024)
+    large = accel.auto_accel(_hall_soup(20000), cuda_device)
+    assert large.culled and large.tile_boxes.is_cuda
+    assert large.tile_boxes.shape == (20, 8)
+    assert isinstance(accel.auto_accel(_hall_soup(1000), "cpu"),
+                      accel.RayGrid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", [False, True])
+def test_trace_on_the_card_matches_dda_on_cpu(cuda_device, cull):
+    """``trace`` on a small hall: the MT kernels on the card against the
+    voxel DDA on the CPU, same draws.  Hit histories equal on ≥ 99.5 % of
+    entries (a hit on a shared edge may take either triangle), per-band
+    histogram totals within 1e-3."""
+    from wayverb_tpu_torch.core.surfaces import Surface
+    from wayverb_tpu_torch.raytracer import accel, mt_kernels as mk, tracer
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    soup = procedural_hall(8, 2, 2)[0]
+    surfaces = Surface(torch.full((1, 8), 0.1), torch.full((1, 8), 0.1))
+    src, rcv = (2.0, 1.7, 3.0), (6.0, 1.9, 9.0)
+    kwargs = dict(num_rays=2048, depth=8, max_time=0.4)
+    cpu = tracer.trace(soup, surfaces, src, rcv,
+                       torch.Generator().manual_seed(4),
+                       accel=accel.build_ray_grid(soup), **kwargs)
+    before = (mk.mt_closest.launches, mk.mt_closest.culled_launches)
+    card = tracer.trace(
+        soup.to(cuda_device), surfaces.to(cuda_device), src, rcv,
+        torch.Generator().manual_seed(4),
+        accel=mk.build_mt_triangles(soup, cull=cull).to(cuda_device),
+        **kwargs)
+    after = (mk.mt_closest.launches, mk.mt_closest.culled_launches)
+    # two launches a bounce: the closest hit, then the receiver's visibility
+    assert after[cull] - before[cull] == 16
+    assert after[not cull] == before[not cull]
+    agree = (card.triangle_history.cpu() == cpu.triangle_history) \
+        .float().mean()
+    assert float(agree) >= 0.995, float(agree)
+    g = card.histogram.cpu().sum(dim=(0, 1, 2))
+    w = cpu.histogram.sum(dim=(0, 1, 2))
+    assert float(w.min()) > 0
+    np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-3)

@@ -100,7 +100,7 @@ def test_geometry_matches(rng):
         np.asarray(jg.line_segment_sphere_intersection(
             jnp.asarray(o), jnp.asarray(ends), jnp.asarray(centre), 0.5)))
     close(tg.tetrahedron_volume_sum(tsoup), jg.tetrahedron_volume_sum(jsoup))
-    assert accel.auto_accel(tsoup) is None
+    assert accel.auto_accel(tsoup, "cpu") is None
 
 
 @pytest.mark.parametrize("name", ["sinc_kernel", "blackman", "hanning",

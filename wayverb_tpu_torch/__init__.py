@@ -7,8 +7,12 @@ JAX package wrote in Pallas is a hand-written CUDA kernel for Hopper
 given CPU tensors runs the kernel's plain PyTorch version instead; given CUDA
 tensors it launches the kernel or raises.
 
-Ported so far: the shoebox waveguide leg, ``waveguide.run.canonical`` →
-``execute`` → ``run_waveguide_box`` (fused-step kernel) → ``postprocess``.
+Ported so far: the hybrid engine on one device and one band
+(``combined.engine.Engine.run`` → ``render``) for a shoebox or any closed
+triangle soup (``core.scene.load_scene`` reads one from a model file), with
+the shoebox and the general waveguide and their gradients, and the ray
+tracer on the dense broadcast, the Möller–Trumbore kernels or the voxel DDA
+(``raytracer.accel.auto_accel``).
 """
 
 __version__ = "0.1.0"

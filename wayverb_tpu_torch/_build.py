@@ -72,3 +72,18 @@ def load(name: str) -> ctypes.CDLL:
     """The built library ``name``, compiled first if it is missing or
     older than its source."""
     return ctypes.CDLL(str(build(name)[0]))
+
+
+@functools.cache
+def load_entry(name: str, entry: str, n_pointers: int) -> ctypes.CDLL:
+    """Library ``name`` with its function ``entry`` declared as
+    (``n_pointers`` pointers, three ints, the stream) → CUDA error code, and
+    its ``wv_cuda_error_string`` declared."""
+    lib = load(name)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.wv_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.wv_cuda_error_string.restype = ctypes.c_char_p
+    return lib

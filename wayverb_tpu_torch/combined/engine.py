@@ -16,9 +16,11 @@ band.  Flow (parity: reference ``combined/engine.cpp:90-188`` +
 Random numbers come from a ``torch.Generator``; the ray directions and the
 dirac draws can also be passed in, so a test can feed the reference's
 ``jax.random`` draws.  With ``scene_box`` the scene is a shoebox; without
-it, any closed triangle soup of at most 100 triangles (larger scenes need
-the ray acceleration of ROADMAP A.5b).  Not ported yet: a ``device_mesh``
-(ROADMAP A.7) and ``bands > 1`` (ROADMAP A.6); both raise
+it, any closed triangle soup (``core.scene.load_scene`` reads one from a
+model file).  Above 100 triangles the ray tracer takes the backend
+``raytracer.accel.auto_accel`` picks for the engine's device; image sources
+are validated on the dense broadcast whatever the backend.  Not ported yet:
+a ``device_mesh`` (ROADMAP A.7) and ``bands > 1`` (ROADMAP A.6); both raise
 ``NotImplementedError``.
 """
 
@@ -127,7 +129,7 @@ class Engine:
             soup.to("cpu"), surfaces.absorption.cpu().numpy(), spacing,
             waveguide_params.sample_rate, scene_box=scene_box,
             device=self.device)
-        self.ray_grid = auto_accel(soup)
+        self.ray_grid = auto_accel(soup, self.device)
 
     def run(self, source, receiver, generator: Optional[torch.Generator],
             raytracer_params: RaytracerParameters = RaytracerParameters(),

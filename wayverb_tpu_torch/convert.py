@@ -5,8 +5,9 @@ scene) from the fields of a reference mesh, so both packages can run on
 exactly the same coefficient and boundary tables (the fitted boundary
 filters are the system's learnable parameters).
 ``soup_from_numpy`` and ``surface_from_numpy`` do the same for a scene's
-triangles and materials.  The caller extracts the arrays; this package
-never imports the reference.
+triangles and materials, ``ray_grid_from_numpy`` and
+``mt_triangles_from_numpy`` for the ray acceleration tables.  The caller
+extracts the arrays; this package never imports the reference.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import torch
 
 from wayverb_tpu_torch.core.geometry import TriangleSoup
 from wayverb_tpu_torch.core.surfaces import Surface
+from wayverb_tpu_torch.raytracer.accel import RayGrid
+from wayverb_tpu_torch.raytracer.mt_kernels import MtTriangles
 from wayverb_tpu_torch.waveguide.box_boundary import Region
 from wayverb_tpu_torch.waveguide.box_fused import BoxSpec
 from wayverb_tpu_torch.waveguide.descriptor import MeshDescriptor
@@ -82,3 +85,29 @@ def surface_from_numpy(absorption, scattering, device="cpu") -> Surface:
     f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,  # noqa
                                  device=device)
     return Surface(absorption=f32(absorption), scattering=f32(scattering))
+
+
+def ray_grid_from_numpy(cells, lo, voxel, res, device="cpu") -> RayGrid:
+    """A ``RayGrid`` from the fields of a reference grid: (C, K) int32
+    ``cells``, (3,) float32 ``lo`` and ``voxel``, and the ``res`` triple."""
+    as_t = lambda x, dt: torch.tensor(np.asarray(x), dtype=dt,  # noqa: E731
+                                      device=device)
+    return RayGrid(cells=as_t(cells, torch.int32), lo=as_t(lo, torch.float32),
+                   voxel=as_t(voxel, torch.float32),
+                   res=tuple(int(r) for r in res))
+
+
+def mt_triangles_from_numpy(packed, num, tile_boxes=None, perm=None,
+                            inv_perm=None, scene_lo=None, scene_inv_ext=None,
+                            device="cpu") -> MtTriangles:
+    """An ``MtTriangles`` from the fields of the reference's packed
+    triangles; the five optional tables come all (culled) or none."""
+    def as_t(x, dt):
+        return None if x is None else torch.tensor(np.asarray(x), dtype=dt,
+                                                   device=device)
+    return MtTriangles(
+        packed=as_t(packed, torch.float32), num=int(num),
+        tile_boxes=as_t(tile_boxes, torch.float32),
+        perm=as_t(perm, torch.int32), inv_perm=as_t(inv_perm, torch.int32),
+        scene_lo=as_t(scene_lo, torch.float32),
+        scene_inv_ext=as_t(scene_inv_ext, torch.float32))

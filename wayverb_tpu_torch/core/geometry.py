@@ -114,18 +114,20 @@ def ray_triangle_intersection(origin, direction, corners):
     return t, u, v, hit
 
 
-def scene_intersection(origin, direction, soup: TriangleSoup,
-                       exclude_triangle=None):
-    """Closest hit of rays (R, 3) against the whole scene.
+# The dense closest-hit broadcast keeps about ten (rows, T) or (rows, T, 3)
+# float32 intermediates alive at once (eager torch does not fuse them away as
+# XLA does), so it walks its rows in blocks of at most this many (ray,
+# triangle) pairs.  Each row's result depends on that row alone.  The limit
+# keeps the tracer's dense branch (at most 100 triangles) in one block at
+# 65,536 rays: 6.6 M pairs.
+DENSE_MAX_PAIRS = 1 << 23
 
-    Returns ``(t, tri_index, hit)`` each of shape (R,).  ``exclude_triangle``
-    (R,) int skips self-intersection with the launching triangle.
-    """
-    corners = soup.corners()                                  # (T, 3, 3)
+
+def _closest_of_rows(origin, direction, corners, exclude_triangle):
     t, _, _, hit = ray_triangle_intersection(
         origin[:, None, :], direction[:, None, :], corners[None])
     if exclude_triangle is not None:
-        tri_ids = torch.arange(soup.num_triangles,
+        tri_ids = torch.arange(corners.shape[0],
                                device=origin.device)[None, :]
         hit = hit & (tri_ids != exclude_triangle[:, None])
     t_masked = torch.where(hit, t, torch.full_like(t, float("inf")))
@@ -133,6 +135,27 @@ def scene_intersection(origin, direction, soup: TriangleSoup,
     idx = torch.argmin(t_masked, dim=-1)
     t_best = torch.gather(t_masked, 1, idx[:, None])[:, 0]
     return t_best, idx, torch.any(hit, dim=-1)
+
+
+def scene_intersection(origin, direction, soup: TriangleSoup,
+                       exclude_triangle=None):
+    """Closest hit of rays (R, 3) against the whole scene.
+
+    Returns ``(t, tri_index, hit)`` each of shape (R,).  ``exclude_triangle``
+    (R,) int skips self-intersection with the launching triangle.  The rows
+    are walked in blocks of at most DENSE_MAX_PAIRS (ray, triangle) pairs,
+    which bounds the memory and changes no number.
+    """
+    corners = soup.corners()                                  # (T, 3, 3)
+    R = origin.shape[0]
+    rows = max(1, DENSE_MAX_PAIRS // max(corners.shape[0], 1))
+    if R <= rows:
+        return _closest_of_rows(origin, direction, corners, exclude_triangle)
+    parts = [_closest_of_rows(
+        origin[r0:r0 + rows], direction[r0:r0 + rows], corners,
+        None if exclude_triangle is None else exclude_triangle[r0:r0 + rows])
+        for r0 in range(0, R, rows)]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def count_intersections(origin, direction, soup: TriangleSoup):

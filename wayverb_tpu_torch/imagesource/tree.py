@@ -4,7 +4,10 @@ them geometrically, and compute per-path 8-band pressure.
 Port of ``wayverb_tpu.imagesource.tree``.  The candidate set comes straight
 from the tracer's (depth, R) triangle history; dedupe is a host-side
 ``np.unique`` per order, and validation/mirroring/pressure are batched over
-all paths of one order, on the soup's device.
+all paths of one order, on the soup's device.  Validation uses the dense
+closest-hit test whatever backend traced the rays, as in the reference; that
+test walks its rows in blocks (``core.geometry.DENSE_MAX_PAIRS``), so tens
+of thousands of paths on thousands of triangles fit the device.
 
 Pressure parity: ``fast_pressure_calculator.h:31-62`` — product over
 bounces of angle-dependent reflectance (kuttruff eq 9.22) times the

@@ -3,9 +3,10 @@
 Port of ``wayverb_tpu.raytracer.scenes``: a deterministic concert-hall
 generator, a closed shoebox shell with closed floor-to-ceiling columns.  At
 ``procedural_hall(2, 4, 1)`` it has 96 triangles, which the dense ray branch
-serves; the default (about 5.2k triangles) and ``procedural_hall_large``
-(about 9e4) need the ray acceleration that is not ported yet.  The geometry
-is built in numpy and handed over with ``convert.soup_from_numpy``.
+serves; the default (5,448 triangles) and ``procedural_hall_large`` (97,068)
+take the ray acceleration of ``raytracer.accel`` and
+``raytracer.mt_kernels``.  The geometry is built in numpy and handed over
+with ``convert.soup_from_numpy``.
 """
 
 from __future__ import annotations

@@ -38,6 +38,11 @@ from wayverb_tpu_torch.core.geometry import (TriangleSoup, line_of_sight,
 from wayverb_tpu_torch.core.orientation import (angle_lut_indices,
                                                 random_unit_vectors)
 from wayverb_tpu_torch.core.surfaces import Surface
+from wayverb_tpu_torch.raytracer.accel import (RayGrid, grid_intersection,
+                                               grid_line_of_sight)
+from wayverb_tpu_torch.raytracer.mt_kernels import (MtTriangles,
+                                                    mt_intersection,
+                                                    mt_line_of_sight)
 
 DEFAULT_RECEIVER_RADIUS = 0.1      # simulation_parameters.h:25-33
 DEFAULT_HISTOGRAM_SR = 1000.0
@@ -99,8 +104,10 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
     ``surfaces``: (S, bands) material table indexed by ``soup.surfaces``.
     Specular (non-scattered) receiver crossings only contribute from bounce
     ``max_image_source_order`` on — below that the image-source solver
-    covers them deterministically.  ``accel`` must be None (the dense
-    broadcast; ``accel.auto_accel`` returns None for shoeboxes).
+    covers them deterministically.  ``accel``: None (the dense (R, T)
+    broadcast), an ``accel.RayGrid`` (the voxel DDA) or an
+    ``mt_kernels.MtTriangles`` (the Möller–Trumbore kernels), on the soup's
+    device; ``accel.auto_accel`` picks one for a scene and a device.
     ``time_cutoff``: deposits later than it are dropped (``trace_jit``).
     The reference's ``capture_positions`` (reflection points for the GUI's
     visual mode) waits for the tools slice.
@@ -109,11 +116,25 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
     unit vectors; otherwise they are drawn from ``generator``
     (``core.orientation.random_unit_vectors``).
     """
-    if accel is not None:
-        raise NotImplementedError(
-            "ray acceleration structures are not ported yet: ROADMAP queue "
-            "A, item A.5b")
     device = soup.vertices.device
+    if isinstance(accel, MtTriangles):
+        intersect = lambda p, d, ex: mt_intersection(      # noqa: E731
+            p, d, accel, exclude_triangle=ex)
+        los = lambda a, b, ex: mt_line_of_sight(           # noqa: E731
+            a, b, accel, exclude_triangle=ex)
+    elif isinstance(accel, RayGrid):
+        intersect = lambda p, d, ex: grid_intersection(    # noqa: E731
+            p, d, accel, soup, exclude_triangle=ex)
+        los = lambda a, b, ex: grid_line_of_sight(         # noqa: E731
+            a, b, accel, soup, exclude_triangle=ex)
+    elif accel is None:
+        intersect = lambda p, d, ex: scene_intersection(   # noqa: E731
+            p, d, soup, exclude_triangle=ex)
+        los = lambda a, b, ex: line_of_sight(              # noqa: E731
+            a, b, soup, exclude_triangle=ex)
+    else:
+        raise TypeError(f"trace: accel must be None, a RayGrid or an "
+                        f"MtTriangles, got {type(accel).__name__}")
     source = _as_point(source, device)
     receiver = _as_point(receiver, device)
     bands = surfaces.absorption.shape[-1]
@@ -164,8 +185,8 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
 
     history = []
     for step in range(depth):
-        t, tri, hit = scene_intersection(pos, dirs, soup,
-                                         exclude_triangle=prev_tri)
+        t, tri, hit = intersect(pos, dirs, prev_tri)
+        tri = tri.long()           # the MT and DDA backends give int32 ids
         alive = alive & hit
         ipt = pos + dirs * t[:, None]
 
@@ -191,7 +212,7 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
         deposit(last_pos, spec_dist, last_volume, spec_mask)
 
         # diffuse rain toward the visible receiver
-        visible = line_of_sight(ipt, recv_rows, soup, exclude_triangle=tri)
+        visible = los(ipt, recv_rows, tri)
         to_recv = receiver - ipt
         to_recv_dist = torch.linalg.vector_norm(to_recv, dim=-1)
         n = normals[tri]

@@ -30,11 +30,9 @@ it goes through a ``torch.autograd.Function`` whose backward is
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
+from wayverb_tpu_torch._build import load_entry
 from wayverb_tpu_torch.waveguide.box_fused import _neighbor_sum
 from wayverb_tpu_torch.waveguide.descriptor import (COURANT_SQ,
                                                     DIRECTION_OFFSETS)
@@ -94,19 +92,6 @@ def _interior_step_plain(current, previous, interior_mask):
 # ---------------------------------------------------------------------------
 # launching
 
-@functools.cache
-def _lib(name: str, entry: str, n_pointers: int) -> ctypes.CDLL:
-    from wayverb_tpu_torch._build import load
-    lib = load(name)
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.wv_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.wv_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check(what: str, name: str, t, ref, dtype=torch.float32):
     if t.device != ref.device or t.dtype != dtype or not t.is_contiguous() \
             or t.shape != ref.shape:
@@ -128,7 +113,7 @@ def _launch(what: str, name: str, entry: str, tensors, out):
     if X > 65535 or (Y + 1) // 2 > 65535 or X * Y * Z == 0:
         raise ValueError(f"{what}: grid {(X, Y, Z)} is outside what the "
                          "kernel's launch geometry covers")
-    lib = _lib(name, entry, len(tensors) + 1)
+    lib = load_entry(name, entry, len(tensors) + 1)
     err = getattr(lib, entry)(
         *(t.data_ptr() for t in tensors), out.data_ptr(), X, Y, Z,
         torch.cuda.current_stream(ref.device).cuda_stream)
