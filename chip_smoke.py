@@ -89,7 +89,24 @@ Drives the port through its public entry points on the card and fails
     closest hits against B3's;
 28. a small hall above 100 triangles through ``Engine.run`` + ``render``: the
     MT kernel on the card against the DDA on the CPU, same draws;
-29. one JSON line of per-kernel results, then the last line,
+29. the sharded waveguide on one card, four x-shards of ``cuda:0``:
+    ``Engine(device_mesh=…)`` builds the columns hall with x aligned to the
+    shard count, (344, 139, 259); B10 and B11 (the weighted step of one
+    x-shard with its halo rows, and its adjoint with the halo cotangents)
+    against their plain versions at the shard shape (86, 139, 259), at one
+    and two rows and at odd (Y, Z), with non-zero halos, and their times;
+30. that hall through ``run_waveguide_general_sharded``, 1000 steps (4000
+    B10 launches), against the single-device B8 run on the same mesh, with
+    the wall ms/step of both, the peak memory and a profiled window;
+31. the sharded general gradient, 64 steps, B11 in the backward, against
+    the single-device gradient;
+32. ``Engine(device_mesh=…).run`` + ``render`` against a single-device
+    engine on the same mesh, same draws, with the seconds of each phase;
+33. the shoebox hall (224, 224, 256) through ``run_waveguide_box_sharded``
+    on four shards (B1 with real halos), 256 steps against the single-device
+    fused run, then a 16-step gradient (B5 with halo cotangents);
+34. ``sharded_trace`` on four shards: the direct energy against 8/(4πr²);
+35. one JSON line of per-kernel results, then the last line,
     ``{"ok": true, "device": {...}}``.
 
 A kernel's ``bound_ms`` is the least time the card could take for the same
@@ -135,7 +152,8 @@ GRAD_STEPS = 640           # the hall's backward workload: 5 chunks
 KERNELS = ("box_fused_step", "box_mega_chunk", "box_fused_step_bwd",
            "box_mega_chunk_bwd", "mesh_weighted_step",
            "mesh_weighted_step_bwd", "mesh_interior_step", "ray_mt_closest",
-           "ray_mt_closest_culled")
+           "ray_mt_closest_culled", "mesh_weighted_step_haloed",
+           "mesh_weighted_step_haloed_bwd")
 MESH_REL = 1e-5            # B8, B9, B12 vs plain, per unit of peak
 GENERAL_VS_MEGA_REL = 2e-5  # general path vs mega path on the T30 box
 WAVEGUIDE_REL = 1e-4       # waveguide card vs CPU, of peak
@@ -2482,6 +2500,495 @@ def phase_hall_card_vs_cpu(torch, card):
     return ir_rel
 
 
+# ---------------------------------------------------------------------------
+# the sharded waveguide: B10, B11, parallel/ on x-shards of one card
+
+SHARDS = 4
+SHARD_DEVICES = ["cuda:0"] * SHARDS
+SHARDED_GENERAL_REL = 5e-5  # tests/test_general_sharded.py:62-63, of peak
+ENGINE_SHARDED_REL = 1e-5   # sharded vs single-device engine IR, of peak
+BOX_SHARDED_REL = 1e-5      # sharded vs single fused shoebox, of peak
+BOX_SHARDED_STEPS = 256
+
+
+def _shard_counts():
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    return {"mesh_weighted_step_haloed": sk.weighted_step_sharded.launches,
+            "mesh_weighted_step_haloed_bwd":
+                sk.weighted_step_sharded_bwd.launches}
+
+
+def _reset_shard_counts():
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    sk.weighted_step_sharded.launches = 0
+    sk.weighted_step_sharded_bwd.launches = 0
+    _reset_mesh_counts()
+
+
+def _device_mesh():
+    from wayverb_tpu_torch.parallel.sharding import make_device_mesh
+    return make_device_mesh(SHARDS, devices=SHARD_DEVICES)
+
+
+def _sharded_columns_engine(torch, card):
+    """``Engine(device_mesh=…)`` on the columns hall at 1500 Hz: its mesh,
+    x aligned to the shard count, also serves phases 30 and 31."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.surfaces import Surface
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    surfaces = Surface(absorption=torch.full((1, 8), ABSORPTION),
+                       scattering=torch.full((1, 8), 0.1))
+    t0 = time.perf_counter()
+    e = eng.Engine(procedural_hall(2, 4, 1)[0], surfaces,
+                   eng.WaveguideParameters(cutoff=COLUMNS_CUTOFF,
+                                           usable_portion=0.6),
+                   device_mesh=_device_mesh(), device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    dims = e.mesh.descriptor.dimensions
+    print(f"[29 sharded] Engine(device_mesh={SHARDS} x cuda:0) on the "
+          f"columns hall: mesh {dims} (x aligned to {SHARDS}), setup "
+          f"{setup:.2f} s; shards of {(dims[0] // SHARDS,) + dims[1:]} "
+          f"[{card}]")
+    if dims[0] % SHARDS or e.mesh.box_spec is not None:
+        _fail("the sharded engine's mesh is not a general mesh whose x "
+              "divides over the shards")
+    return e, setup
+
+
+def _device_time_us(torch, fn, reps):
+    """(device µs of one ``fn()``, host µs of one call).  A shard's kernel
+    takes less time on the card than its wrapper takes on the host, so
+    events around a plain loop would time the host's launch rate: a spin
+    kernel (``torch.cuda._sleep``) holds the stream for twice the time the
+    host needs to enqueue ``reps`` calls, and the events then time the
+    kernels back to back."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        fn()
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - t0) / 8
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * reps * host_us * 2000))  # cycles at <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(stop) / reps, host_us
+
+
+def shard_kernel_bounds(xl, Y, Z):
+    """Bounds per launch at a shard of (xl, Y, Z).  B10: B8's cur, prev,
+    int32 code in and out out, plus the two halo rows in; 15 operations a
+    node.  B11: B9's g, code in and gcur out, plus the two halo rows out; 13
+    operations a node and two multiplies per halo element."""
+    n, row = xl * Y * Z, Y * Z
+    return {"b10": _bound(16 * n + 8 * row, 15 * n),
+            "b11": _bound(12 * n + 8 * row, 13 * n + 4 * row)}
+
+
+def phase_shard_kernels(torch, structure, card):
+    """B10 and B11 against their plain versions on the card, random inputs
+    with non-zero halos: the columns hall's shard shape, one and two rows,
+    odd (Y, Z), and a shard of the hall's own weight code; then their times
+    at the shard shape."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    X, Y, Z = structure.weight_code.shape
+    xl = X // SHARDS
+    rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                 device="cuda")
+    worst = [0.0, 0.0]
+    cases = [((xl, Y, Z), "the columns hall's shard shape"),
+             ((1, Y, Z), "one row"), ((2, Y, Z), "two rows"),
+             ((5, 37, 53), "odd (Y, Z)"), ((1, 7, 9), "one row, odd (Y, Z)"),
+             ((3, 2, 300), "a ragged z block")]
+    for dims, what in cases + [((xl, Y, Z), "a shard of the hall's own "
+                                "weight code")]:
+        if what.startswith("a shard"):
+            code = structure.weight_code[xl:2 * xl].contiguous()
+        else:
+            code = torch.randint(0, 1 << 13, dims, generator=gen,
+                                 device="cuda", dtype=torch.int32)
+        cur, prev, g = rnd(*dims), rnd(*dims), rnd(*dims)
+        halos = (rnd(1, *dims[1:]), rnd(1, *dims[1:]))
+        fwd = (sk.weighted_step_sharded(cur, prev, code, halos),
+               sk._weighted_step_sharded_plain(cur, prev, code, halos))
+        gk, (hk0, hk1) = sk.weighted_step_sharded_bwd(g, code)
+        gp, (hp0, hp1) = sk._weighted_step_sharded_bwd_plain(g, code)
+        torch.cuda.synchronize()
+        pairs = (("B10", [fwd]), ("B11", [(gk, gp), (hk0, hp0),
+                                          (hk1, hp1)]))
+        for i, (name, outs) in enumerate(pairs):
+            err = max(float((a - b).abs().max()) for a, b in outs)
+            peak = max(float(b.abs().max()) for _, b in outs)
+            worst[i] = max(worst[i], err)
+            print(f"[29 sharded] {name} {dims} ({what}): max |kernel - "
+                  f"plain| = {err:.3e}, peak {peak:.3e} (bound {MESH_REL:g} "
+                  "x peak)")
+            if not (err <= MESH_REL * peak and peak > 0):
+                _fail(f"{name} disagrees with its plain version: {what}")
+
+    dims = (xl, Y, Z)
+    code = structure.weight_code[xl:2 * xl].contiguous()
+    cur, prev, g = rnd(*dims), rnd(*dims), rnd(*dims)
+    halos = (rnd(1, Y, Z), rnd(1, Y, Z))
+    out = torch.empty_like(cur)
+    bounds = shard_kernel_bounds(xl, Y, Z)
+    times = {}
+    for name, kernel, plain in (
+            ("b10", lambda: sk.weighted_step_sharded(cur, prev, code, halos,
+                                                     out=out),
+             lambda: sk._weighted_step_sharded_plain(cur, prev, code, halos)),
+            ("b11", lambda: sk.weighted_step_sharded_bwd(g, code),
+             lambda: sk._weighted_step_sharded_bwd_plain(g, code))):
+        k_us, k_host = _device_time_us(torch, kernel, 200)
+        p_us, _ = _device_time_us(torch, plain, 20)
+        times[name] = (k_us, p_us)
+        print(f"[29 sharded] {name.upper()} alone at {dims} = "
+              f"{xl * Y * Z} nodes: kernel {k_us:.2f} us/launch on the "
+              f"device ({k_host:.2f} us a call on the host), plain version "
+              f"{p_us:.2f} us, bound {1e3 * bounds[name][0]:.2f} us by "
+              f"{bounds[name][1]} [{card}]")
+    print(json.dumps({"phase": "29 sharded kernels", "shape": list(dims),
+                      "max_abs_err": {"b10": worst[0], "b11": worst[1]},
+                      "ms": {k: v[0] / 1e3 for k, v in times.items()},
+                      "plain_ms": {k: v[1] / 1e3 for k, v in times.items()},
+                      "bound_ms": {k: v[0] for k, v in bounds.items()}}))
+    return worst, times, bounds
+
+
+def phase_general_sharded(torch, mesh, card):
+    """The columns hall on 4 shards of one card, 1000 steps, against the
+    single-device B8 run on the same mesh."""
+    from wayverb_tpu_torch.parallel import general_sharded as gs
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    steps = COLUMNS_STEPS
+    dims = mesh.descriptor.dimensions
+    nodes = mesh.descriptor.num_nodes
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, COLUMNS_SRC, COLUMNS_RCV, (steps - 0.5) / COLUMNS_FS)
+    devmesh = _device_mesh()
+    run = lambda k: gs.run_waveguide_general_sharded(  # noqa: E731
+        devmesh, mesh.structure, dims, source, receiver, k)
+    run(min(16, n))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_shard_counts()
+    t0 = time.perf_counter()
+    out = run(n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**_shard_counts(), **_mesh_counts()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ref = wgrun.run_waveguide(mesh.structure, dims, source, receiver, n)
+    torch.cuda.synchronize()
+    wall_single = time.perf_counter() - t0
+    (ia, pa), (ib, pb) = out["outputs"], ref["outputs"]
+    peak = float(pb.abs().max())
+    err = max(float((pa - pb).abs().max()), float((ia - ib).abs().max()))
+    stable = bool(out["stable"])
+    print(f"[30 sharded general] {dims} on {SHARDS} x cuda:0, {n} steps: "
+          f"stable {stable}, launches {counts}; against the single-device "
+          f"B8 run: max |Δ| {err:.3e}, peak |p| {peak:.4f} (bound "
+          f"{SHARDED_GENERAL_REL:g} x peak)")
+    print(f"[30 sharded general] sharded wall {1e3 * wall / n:.4f} ms/step "
+          f"({nodes * n / wall:.4e} node-updates/s), single-device "
+          f"{1e3 * wall_single / n:.4f} ms/step; peak memory "
+          f"{peak_mem / 2**20:.1f} MiB [{card}]")
+    if not (stable and bool(ref["stable"]) and peak > 0
+            and err <= SHARDED_GENERAL_REL * peak
+            and counts["mesh_weighted_step_haloed"] == SHARDS * n
+            and counts["mesh_weighted_step"] == 0):
+        _fail("the sharded general run failed its checks")
+    prof = _profile_window(torch, "30 profile", lambda: run(min(32, n)),
+                           min(32, n), wall / n, card)
+    b10_us = None
+    if prof is not None:
+        b10_us = sum(t for key, t in prof[3].items()
+                     if "mesh_weighted_step_haloed_kernel" in key)
+        print(f"[30 profile] of the unprofiled {1e6 * wall / n:.1f} us/step: "
+              f"B10 {b10_us:.1f} us ({SHARDS} launches), the rest of the "
+              f"device {prof[0] - b10_us:.1f} us, device idle "
+              f"{1e6 * wall / n - prof[0]:.1f} us [{card}]")
+    result = {"dims": list(dims), "shards": SHARDS, "steps": n,
+              "wall_ms_per_step": 1e3 * wall / n,
+              "single_device_wall_ms_per_step": 1e3 * wall_single / n,
+              "max_abs_err_vs_single": err, "peak_memory_bytes": peak_mem,
+              "launches": counts,
+              "profile": None if prof is None else {
+                  "device_busy_us_per_step": prof[0],
+                  "b10_us_per_step": b10_us,
+                  "kernels_per_step": prof[1], "idle_share": prof[2]}}
+    print(json.dumps({"phase": "30 sharded general", **result}))
+    return result
+
+
+def phase_general_sharded_gradient(torch, mesh, card):
+    """d(Σ taps²)/d coef_b through 4 shards, 64 steps, the source 3 nodes
+    from a column, against the single-device gradient on the same mesh."""
+    import dataclasses
+    from wayverb_tpu_torch.parallel import general_sharded as gs
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    steps = 64
+    dims = mesh.descriptor.dimensions
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, _beside_column(mesh, 3), _beside_column(mesh, 5),
+        (steps - 0.5) / COLUMNS_FS)
+    receiver = _tap_receiver(receiver)
+    devmesh = _device_mesh()
+
+    def grads(run):
+        coef_b = mesh.structure.coef_b.detach().clone().requires_grad_(True)
+        structure = dataclasses.replace(mesh.structure, coef_b=coef_b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = torch.sum(run(structure)["outputs"] ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        return coef_b.grad, t1 - t0, time.perf_counter() - t1
+
+    sharded = lambda s: gs.run_waveguide_general_sharded(  # noqa: E731
+        devmesh, s, dims, source, receiver, n)
+    grads(lambda s: gs.run_waveguide_general_sharded(
+        devmesh, s, dims, source, receiver, 8))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_shard_counts()
+    g_sh, t_fwd, t_bwd = grads(sharded)
+    counts = {**_shard_counts(), **_mesh_counts()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    g_si, t_fwd1, t_bwd1 = grads(lambda s: wgrun.run_waveguide(
+        s, dims, source, receiver, n))
+    scale = float(g_si.abs().max())
+    err = float((g_sh - g_si).abs().max())
+    ok_elem = bool(((g_sh - g_si).abs()
+                    <= 1e-7 + 1e-4 * g_si.abs()).all())
+    print(f"[31 sharded grad] {dims} on {SHARDS} x cuda:0, {n} steps, "
+          f"source 3 nodes from a column: max |Δ d/dcoef_b| {err:.3e} = "
+          f"{err / scale:.3e} of the largest component {scale:.4e}; within "
+          f"rtol 1e-4, atol 1e-7: {ok_elem}; launches {counts}")
+    print(f"[31 sharded grad] forward {t_fwd:.4f} s, backward {t_bwd:.4f} s "
+          f"(single device {t_fwd1:.4f} s, {t_bwd1:.4f} s); peak memory "
+          f"{peak_mem / 2**20:.1f} MiB [{card}]")
+    if not (scale > 0 and ok_elem
+            and 0 < counts["mesh_weighted_step_haloed_bwd"]
+            <= SHARDS * (n - 1)
+            and counts["mesh_weighted_step_haloed"] == SHARDS * n):
+        _fail("the sharded general gradient failed its checks")
+    result = {"steps": n, "forward_s": t_fwd, "backward_s": t_bwd,
+              "single_device_forward_s": t_fwd1,
+              "single_device_backward_s": t_bwd1,
+              "max_rel_err_vs_single": err / scale,
+              "peak_memory_bytes": peak_mem, "launches": counts}
+    print(json.dumps({"phase": "31 sharded gradient", **result}))
+    return counts, result
+
+
+def phase_sharded_engine(torch, e, setup_s, card):
+    """``Engine(device_mesh=…)`` run + render on the columns hall against a
+    single-device engine on the same mesh (a copy of the engine without
+    its device mesh), same draws."""
+    import copy
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Null
+    single = copy.copy(e)
+    single.device_mesh = None
+    params = eng.RaytracerParameters()
+    steps = COLUMNS_STEPS
+    results, secs, launches, irs = [], [], [], []
+    for engine in (e, single):
+        marks = []
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        _reset_shard_counts()
+        mark("start")
+        res = engine.run(COLUMNS_SRC, COLUMNS_RCV,
+                         torch.Generator().manual_seed(SEED + 31), params,
+                         waveguide_time=steps / COLUMNS_FS,
+                         state_callback=mark)
+        mark("end")
+        launches.append({**_shard_counts(), **_mesh_counts()})
+        t0 = time.perf_counter()
+        irs.append(eng.render(res, Null(), 44100.0,
+                              torch.Generator().manual_seed(SEED + 32)))
+        torch.cuda.synchronize()
+        s = {marks[i][0]: marks[i + 1][1] - marks[i][1]
+             for i in range(len(marks) - 1)}
+        s["render"] = time.perf_counter() - t0
+        secs.append(s)
+        results.append(res)
+    ir1, ir0 = irs
+    peak = float(ir0.abs().max())
+    err = float((ir1 - ir0).abs().max()) if ir1.shape == ir0.shape \
+        else float("inf")
+    p1, p0 = (r.waveguide_bands[0].pressure for r in results)
+    p_err = float((p1 - p0).abs().max())
+    for tag, s, n in (("sharded", secs[0], launches[0]),
+                      ("single", secs[1], launches[1])):
+        print(f"[32 sharded engine] {tag}: trace "
+              f"{s['running_raytracer']:.3f} s, image sources "
+              f"{s['finding_image_sources']:.3f} s, waveguide "
+              f"{s['running_waveguide']:.3f} s, finish {s['finishing']:.3f} "
+              f"s, render {s['render']:.3f} s; launches {n} [{card}]")
+    print(f"[32 sharded engine] setup {setup_s:.2f} s; IR "
+          f"{tuple(ir1.shape)}: sharded vs single-device max |Δ| "
+          f"{err:.3e} = {err / peak:.3e} of peak (bound "
+          f"{ENGINE_SHARDED_REL:g}); waveguide band max |Δp| {p_err:.3e}")
+    if not (err <= ENGINE_SHARDED_REL * peak and peak > 0
+            and bool(torch.isfinite(ir1).all())
+            and launches[0]["mesh_weighted_step_haloed"] == SHARDS * steps
+            and launches[0]["mesh_weighted_step"] == 0
+            and launches[1]["mesh_weighted_step"] == steps
+            and launches[1]["mesh_weighted_step_haloed"] == 0):
+        _fail("the sharded engine failed its checks")
+    result = {"setup_s": setup_s, "sharded": secs[0],
+              "single_device": secs[1], "ir_rel_err": err / peak,
+              "launches": launches[0]}
+    print(json.dumps({"phase": "32 sharded engine", **result}))
+    return launches[0], result
+
+
+def phase_box_sharded(torch, card):
+    """The shoebox hall (224, 224, 256) on 4 shards of one card: 256 steps
+    against the single-device fused run (both inject before the step),
+    then a 16-step coef_b gradient beside a wall and a shard boundary."""
+    import dataclasses
+    from wayverb_tpu_torch.parallel import box_sharded as bsh
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import (fused_step,
+                                                       fused_step_bwd)
+    box, dx, mesh, setup_s = _hall_mesh(torch)
+    spec, desc = mesh.box_spec, mesh.descriptor
+    if spec.dims[0] % SHARDS:
+        _fail(f"the shoebox hall's x {spec.dims[0]} does not divide over "
+              f"{SHARDS} shards")
+    devmesh = _device_mesh()
+    steps = BOX_SHARDED_STEPS
+    src, rcv = _hall_positions(box, dx)
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, src, rcv, _hall_sim_time(mesh, steps))
+    bsh.run_waveguide_box_sharded(devmesh, mesh.structure, spec, source,
+                                  receiver, 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_grad_counts()
+    t0 = time.perf_counter()
+    out = bsh.run_waveguide_box_sharded(devmesh, mesh.structure, spec,
+                                        source, receiver, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _grad_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    ref = wgrun.run_waveguide_box(mesh.structure, spec, source, receiver, n,
+                                  kernel_inject=False)
+    (ia, pa), (ib, pb) = out["outputs"], ref["outputs"]
+    peak = float(pb.abs().max())
+    err = float((pa - pb).abs().max())
+    ierr = float((ia - ib).abs().max())
+    ipeak = float(ib.abs().max())
+    print(f"[33 box sharded] {spec.dims} on {SHARDS} x cuda:0 (mesh setup "
+          f"{setup_s:.2f} s), source at the centre (x {desc.locator(src)[0]}, "
+          f"a shard boundary), {n} steps: stable {bool(out['stable'])}, "
+          f"launches {counts}; against the single-device fused run: max "
+          f"|Δp| {err:.3e} = {err / peak:.3e} of peak, intensity "
+          f"{ierr / ipeak:.3e} of peak (bound {BOX_SHARDED_REL:g})")
+    print(f"[33 box sharded] sharded wall {1e3 * wall / n:.4f} ms/step, peak "
+          f"memory {peak_mem / 2**20:.1f} MiB [{card}]")
+    if not (bool(out["stable"]) and peak > 0
+            and err <= BOX_SHARDED_REL * peak
+            and ierr <= BOX_SHARDED_REL * ipeak
+            and counts["box_fused_step"] == SHARDS * n):
+        _fail("the sharded shoebox run failed its checks")
+
+    # the gradient: 3 nodes from the low y wall, one node from the first
+    # shard boundary in x, taps 2 nodes further from the wall
+    xb = spec.dims[0] // SHARDS
+    mid_z = (spec.ilo[2] + spec.ihi[2]) // 2
+    g_src = tuple(desc.position(np.array([xb - 1, spec.ilo[1] + 3, mid_z])))
+    g_rcv = tuple(desc.position(np.array([xb, spec.ilo[1] + 5, mid_z])))
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, g_src, g_rcv, _hall_sim_time(mesh, 16))
+    receiver = _tap_receiver(receiver)
+
+    def grad(run):
+        coef_b = mesh.structure.coef_b.detach().clone().requires_grad_(True)
+        loss = torch.sum(run(dataclasses.replace(
+            mesh.structure, coef_b=coef_b))["outputs"] ** 2)
+        loss.backward()
+        return coef_b.grad
+
+    _reset_grad_counts()
+    t0 = time.perf_counter()
+    g_sh = grad(lambda s: bsh.run_waveguide_box_sharded(
+        devmesh, s, spec, source, receiver, n))
+    torch.cuda.synchronize()
+    t_sh = time.perf_counter() - t0
+    grad_counts = _grad_counts()
+    g_si = grad(lambda s: wgrun.run_waveguide_box(
+        s, spec, source, receiver, n, kernel_inject=False))
+    scale = float(g_si.abs().max())
+    rel = float((g_sh - g_si).abs().max()) / scale if scale > 0 \
+        else float("inf")
+    print(f"[33 box sharded] {n}-step gradient, source 3 nodes from the low "
+          f"y wall beside the first shard boundary: max |Δ d/dcoef_b| "
+          f"{rel:.3e} of the largest component {scale:.4e} (bound "
+          f"{GRAD_REL:g}); value and gradient {t_sh:.3f} s; launches "
+          f"{grad_counts} [{card}]")
+    if not (rel <= GRAD_REL
+            and grad_counts["box_fused_step"] == SHARDS * n
+            and 0 < grad_counts["box_fused_step_bwd"] <= SHARDS * n):
+        _fail("the sharded shoebox gradient failed its checks")
+    result = {"dims": list(spec.dims), "shards": SHARDS, "steps": steps,
+              "wall_ms_per_step": 1e3 * wall / steps,
+              "rel_err_vs_single": err / peak, "grad_rel_err": rel,
+              "peak_memory_bytes": peak_mem,
+              "launches": counts, "grad_launches": grad_counts}
+    print(json.dumps({"phase": "33 box sharded", **result}))
+    return result
+
+
+def phase_sharded_trace(torch, card):
+    """``sharded_trace`` on 4 shards of the card: the box of
+    tests/test_sharding.py, absorbing walls, one bounce, 65,536 rays in all
+    as there (8 x 8192)."""
+    from wayverb_tpu_torch.core.geometry import Box, box_scene
+    from wayverb_tpu_torch.core.surfaces import Surface
+    from wayverb_tpu_torch.parallel.sharding import sharded_trace
+    box = Box((0.0, 0.0, 0.0), (5.56, 3.97, 2.81))
+    surf = Surface(absorption=torch.full((1, 8), 1.0),
+                   scattering=torch.full((1, 8), 0.0))
+    src, rcv = (2.09, 2.12, 2.12), (2.09, 3.08, 0.96)
+    t0 = time.perf_counter()
+    hist = sharded_trace(_device_mesh(), "x", box_scene(box), surf, src, rcv,
+                         torch.Generator(device="cuda").manual_seed(SEED),
+                         rays_per_device=RAYS // SHARDS, depth=1,
+                         max_time=0.2)
+    total = float(hist.sum())
+    dt = time.perf_counter() - t0
+    r = float(np.linalg.norm(np.subtract(src, rcv)))
+    want = 8 / (4 * np.pi * r * r)
+    print(f"[34 sharded trace] {SHARDS} x {RAYS // SHARDS} rays on cuda:0, "
+          f"histogram on "
+          f"{hist.device}: direct energy {total:.5f} against 8/(4πr²) = "
+          f"{want:.5f} ({total / want - 1:+.3%}, bound ±30%) in {dt:.2f} s "
+          f"[{card}]")
+    print(json.dumps({"phase": "34 sharded trace", "rays": RAYS,
+                      "direct_energy": total, "expected": want,
+                      "seconds": dt}))
+    if not (hist.is_cuda and abs(total - want) <= 0.3 * want):
+        _fail("sharded_trace's energy is off")
+
+
 def main():
     import torch
     card = phase_device(torch)
@@ -2578,6 +3085,25 @@ def main():
     dda = phase_dda_on_card(torch, model_soup, model_tris, card)
     torch.cuda.empty_cache()
     phase_hall_card_vs_cpu(torch, card)
+    del model_soup, large_soup, model_tris, large_tris, large_plain_tris
+    torch.cuda.empty_cache()
+
+    sharded_engine, sharded_setup = _sharded_columns_engine(torch, card)
+    shard_mesh = sharded_engine.mesh
+    shard_errs, shard_times, shard_bounds = phase_shard_kernels(
+        torch, shard_mesh.structure, card)
+    sharded_general = phase_general_sharded(torch, shard_mesh, card)
+    shard_grad_counts, sharded_grad = phase_general_sharded_gradient(
+        torch, shard_mesh, card)
+    torch.cuda.empty_cache()
+    shard_launches, sharded_engine_run = phase_sharded_engine(
+        torch, sharded_engine, sharded_setup, card)
+    shard_dims = [shard_mesh.descriptor.dimensions[0] // SHARDS,
+                  *shard_mesh.descriptor.dimensions[1:]]
+    del sharded_engine, shard_mesh
+    torch.cuda.empty_cache()
+    box_sharded = phase_box_sharded(torch, card)
+    phase_sharded_trace(torch, card)
     counted = {"box_fused_step": b1_launches,
                "box_mega_chunk": launches["box_mega_chunk"],
                "box_fused_step_bwd": route_counts["box_fused_step_bwd"],
@@ -2589,7 +3115,11 @@ def main():
                "mesh_interior_step": thin_launches,
                "ray_mt_closest": model_launches["ray_mt_closest"],
                "ray_mt_closest_culled":
-                   large_launches["ray_mt_closest_culled"]}
+                   large_launches["ray_mt_closest_culled"],
+               "mesh_weighted_step_haloed":
+                   shard_launches["mesh_weighted_step_haloed"],
+               "mesh_weighted_step_haloed_bwd":
+                   shard_grad_counts["mesh_weighted_step_haloed_bwd"]}
     if not all(counted.values()):
         _fail(f"a kernel of a path was not launched: {counted}")
 
@@ -2704,11 +3234,32 @@ def main():
          max(b4_err, mt_times["b4"]["max_abs_err"]),
          "trace on the large hall (two launches a bounce)",
          {"tile_pairs_run": mt_times["b4"]["tile_pairs_run"],
-          "all_pairs_kernel_ms": mt_times["b3_large"]["us"] / 1e3})))],
+          "all_pairs_kernel_ms": mt_times["b3_large"]["us"] / 1e3}))), *({
+        "name": name,
+        "route": "cuda",
+        "source": f"wayverb_tpu_torch/csrc/{name}.cu",
+        "replaces": f"wayverb_tpu/waveguide/stencil_pallas.py:{line}",
+        "shape": shard_dims,
+        "launches": counted[name],
+        "max_abs_err": err,
+        "ms": shard_times[key][0] / 1e3,
+        "plain_ms": shard_times[key][1] / 1e3,
+        "bound_ms": shard_bounds[key][0], "bound_by": shard_bounds[key][1],
+        "library_ms": None,
+        "ms_is_per": "launch (one shard's step)",
+        "launches_on": on,
+    } for name, key, line, err, on in (
+        ("mesh_weighted_step_haloed", "b10", 366, shard_errs[0],
+         f"Engine(device_mesh={SHARDS} x cuda:0).run on the columns hall"),
+        ("mesh_weighted_step_haloed_bwd", "b11", 396, shard_errs[1],
+         "the columns hall's 64-step gradient on 4 shards")))],
         "model_hall": model_hall, "large_hall": large_hall,
         "dda_on_card": dda, "columns_hall": columns,
         "hybrid_columns_hall": hybrid_columns,
-        "general_gradient": general_grad, "gradient_path": {
+        "general_gradient": general_grad,
+        "sharded_general": sharded_general, "sharded_gradient": sharded_grad,
+        "sharded_engine": sharded_engine_run, "box_sharded": box_sharded,
+        "gradient_path": {
         "shape": list(hall_dims), "steps": GRAD_STEPS, "chunk": CHUNK,
         "forward_s": grad_fwd_s, "backward_s": grad_bwd_s,
         "theta_grads_ms_per_chunk": theta_us / 1e3,

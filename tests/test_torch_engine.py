@@ -52,7 +52,8 @@ def engines():
                                 np.asarray(jsoup.surfaces)),
         convert.surface_from_numpy(np.full((1, 8), 0.1),
                                    np.full((1, 8), 0.1)),
-        teng.WaveguideParameters(**wparams), scene_box=TBox(*BOX))
+        teng.WaveguideParameters(**wparams), scene_box=TBox(*BOX),
+        device="cpu")
     key = jax.random.PRNGKey(0)
     jparams = jeng.RaytracerParameters(rays=RAYS, max_time=0.5)
     tparams = teng.RaytracerParameters(rays=RAYS, max_time=0.5)
@@ -136,13 +137,37 @@ def test_crossover_and_window_match(rng, lengths):
 
 
 def test_unported_branches_raise(engines):
+    """``bands > 1`` still raises; a ``device_mesh`` builds a mesh whose x
+    dim divides over it (the sharded runs are
+    ``tests/test_torch_sharding.py``'s)."""
     _, got = engines
     box = TBox(*BOX)
     from wayverb_tpu_torch.core.geometry import box_scene as t_box_scene
     from wayverb_tpu_torch.core.surfaces import Surface
-    surf = Surface.uniform(0.1, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.Engine(t_box_scene(box), surf, scene_box=box, device_mesh=object())
+    from wayverb_tpu_torch.parallel.sharding import make_device_mesh
+    surf = Surface(absorption=torch.full((1, 8), 0.1),
+                   scattering=torch.full((1, 8), 0.1))
+    e = teng.Engine(t_box_scene(box), surf, scene_box=box,
+                    device_mesh=make_device_mesh(3, devices=["cpu"] * 3),
+                    device="cpu")
+    assert e.mesh.descriptor.dimensions[0] % 3 == 0
+    assert e.mesh.box_spec is not None and e.device_mesh.size == 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.Engine(t_box_scene(box), surf, teng.WaveguideParameters(bands=2),
-                    scene_box=box)
+                    scene_box=box, device="cpu")
+
+
+def test_engine_runs_on_the_card_by_default():
+    """Without ``device=`` the engine is built on the card; on a machine
+    with no GPU that raises rather than falling back to the CPU."""
+    from wayverb_tpu_torch.core.geometry import box_scene as t_box_scene
+    from wayverb_tpu_torch.core.surfaces import Surface
+    box = TBox(*BOX)
+    surf = Surface(absorption=torch.full((1, 8), 0.1),
+                   scattering=torch.full((1, 8), 0.1))
+    if torch.cuda.is_available():
+        e = teng.Engine(t_box_scene(box), surf, scene_box=box)
+        assert e.device.type == "cuda" and e.mesh.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            teng.Engine(t_box_scene(box), surf, scene_box=box)

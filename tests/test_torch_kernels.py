@@ -671,6 +671,133 @@ def test_general_gradient_on_the_card_matches_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# one x-shard of the general mesh: B10, B11
+
+SHARD_DIMS = [(1, 7, 9), (2, 7, 9), (1, 139, 259), (2, 139, 259),
+              (5, 37, 53), (86, 139, 259)]
+
+
+def _shard_case(dims, device, seed):
+    cur, prev, code, _ = _mesh_case(dims, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 100)
+    halos = tuple(torch.randn(1, *dims[1:], generator=gen, device=device)
+                  for _ in range(2))
+    return cur, prev, code, halos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", SHARD_DIMS)
+def test_weighted_step_sharded_kernel_matches_plain(cuda_device, dims):
+    """B10 with random non-zero halos, one and two rows among the shapes;
+    to the bit, as the plain version sums in the kernel's order."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    cur, prev, code, halos = _shard_case(dims, cuda_device, 4)
+    before = tsk.weighted_step_sharded.launches
+    got = tsk.weighted_step_sharded(cur, prev, code, halos)
+    assert tsk.weighted_step_sharded.launches == before + 1
+    want = tsk._weighted_step_sharded_plain(cur, prev, code, halos)
+    buf = prev.clone()
+    assert tsk.weighted_step_sharded(cur, buf, code, halos, out=buf) is buf
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATOL
+    assert float((buf - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", SHARD_DIMS)
+def test_weighted_step_sharded_bwd_kernel_matches_plain(cuda_device, dims):
+    """B11: the cur cotangent and both halo cotangents, one and two rows
+    among the shapes (at one row a thread writes both halo rows)."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    g, _, code, _ = _shard_case(dims, cuda_device, 5)
+    before = tsk.weighted_step_sharded_bwd.launches
+    gcur, ghalos = tsk.weighted_step_sharded_bwd(g, code)
+    assert tsk.weighted_step_sharded_bwd.launches == before + 1
+    want_cur, want_halos = tsk._weighted_step_sharded_bwd_plain(g, code)
+    torch.cuda.synchronize()
+    assert float((gcur - want_cur).abs().max()) <= ATOL
+    for got, want in zip(ghalos, want_halos):
+        assert got.shape == (1, *dims[1:])
+        assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_weighted_step_sharded_function_and_checks_on_the_card(cuda_device):
+    """The Function's backward launches B11 once; its gradients equal plain
+    autograd's through the plain version; what the kernel cannot take
+    raises."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    cur, prev, code, halos = _shard_case((3, 10, 33), cuda_device, 6)
+    h = torch.randn_like(cur)
+    grads = []
+    for fn in (tsk.weighted_step_sharded, tsk._weighted_step_sharded_plain):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (cur, prev, *halos)]
+        before = tsk.weighted_step_sharded_bwd.launches
+        torch.sum(fn(leaves[0], leaves[1], code, tuple(leaves[2:])) * h) \
+            .backward()
+        grads.append(([t.grad for t in leaves],
+                      tsk.weighted_step_sharded_bwd.launches - before))
+    (got, n_kernel), (want, n_plain) = grads
+    assert (n_kernel, n_plain) == (1, 0)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= ATOL
+    with pytest.raises(ValueError):
+        tsk.weighted_step_sharded(cur, prev, code, (halos[0][:, :5], halos[1]))
+    with pytest.raises(ValueError):
+        tsk.weighted_step_sharded(cur, prev, code, halos, out=cur)
+    with pytest.raises(ValueError):
+        tsk.weighted_step_sharded(cur, prev, code, (halos[0].cpu(),
+                                                    halos[1]))
+
+
+@pytest.mark.cuda
+def test_general_sharded_on_the_card_equals_single(cuda_device):
+    """The small columns hall split into 4 x-shards on one card
+    (``["cuda:0"] * 4``): B10 per shard and step, and the outputs equal the
+    single-device B8 run's to the bit; its gradient within 1e-4 of the
+    largest component, B11 in the backward."""
+    from wayverb_tpu_torch.parallel import general_sharded as tgs
+    from wayverb_tpu_torch.parallel.sharding import make_device_mesh
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    fs = 400.0 / (0.25 * 0.6)
+    dx = grid_spacing(340.0, 1.0 / fs)
+    mesh = wgrun.compute_mesh(procedural_hall(2, 4, 1)[0],
+                              np.full((1, 8), 0.1), dx, fs, align=(4, 1, 1),
+                              device=cuda_device)
+    devmesh = make_device_mesh(4, devices=["cuda:0"] * 4)
+    dims = mesh.descriptor.dimensions
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, (6.4, 4.0, 8.97), (6.9, 4.0, 8.97), 63.5 / fs)
+    before = tsk.weighted_step_sharded.launches, tsk.weighted_step.launches
+    got = tgs.run_waveguide_general_sharded(devmesh, mesh.structure, dims,
+                                            source, receiver, n)
+    assert (tsk.weighted_step_sharded.launches - before[0],
+            tsk.weighted_step.launches - before[1]) == (4 * n, 0)
+    want = wgrun.run_waveguide(mesh.structure, dims, source, receiver, n)
+    assert bool(got["stable"]) and bool(want["stable"])
+    for a, b in zip(got["outputs"], want["outputs"]):
+        assert torch.equal(a, b)
+
+    def grad(run):
+        coef_b = mesh.structure.coef_b.clone().requires_grad_(True)
+        out = run(dataclasses.replace(mesh.structure, coef_b=coef_b))
+        torch.sum(out["outputs"][1] ** 2).backward()
+        return coef_b.grad
+
+    before = tsk.weighted_step_sharded_bwd.launches
+    g_sh = grad(lambda s: tgs.run_waveguide_general_sharded(
+        devmesh, s, dims, source, receiver, n))
+    # a shard's last steps reach no tap unless it holds the receiver
+    assert 0 < tsk.weighted_step_sharded_bwd.launches - before <= 4 * (n - 1)
+    g_si = grad(lambda s: wgrun.run_waveguide(s, dims, source, receiver, n))
+    scale = float(g_si.abs().max())
+    assert scale > 0
+    assert float((g_sh - g_si).abs().max()) <= GRAD_REL * scale
+
+
+# ---------------------------------------------------------------------------
 # the ray–triangle kernels (B3, B4)
 
 def _hall_soup(num_triangles):

@@ -223,7 +223,8 @@ def test_saved_hall_loads_back_simulation_ready(tmp_path):
     surfaces = back.with_surfaces(Surface.uniform(0.1, 0.1))
     e = teng.Engine(back.soup, surfaces,
                     teng.WaveguideParameters(cutoff=200.0,
-                                             usable_portion=0.6))
+                                             usable_portion=0.6),
+                    device="cpu")
     assert e.mesh.box_spec is None and isinstance(e.ray_grid, RayGrid)
     volume = float(np.prod((20.0, 8.0, 15.0)))
     assert e.mesh.room_volume == pytest.approx(volume, rel=0.05)

@@ -19,8 +19,11 @@ dirac draws can also be passed in, so a test can feed the reference's
 it, any closed triangle soup (``core.scene.load_scene`` reads one from a
 model file).  Above 100 triangles the ray tracer takes the backend
 ``raytracer.accel.auto_accel`` picks for the engine's device; image sources
-are validated on the dense broadcast whatever the backend.  Not ported yet:
-a ``device_mesh`` (ROADMAP A.7) and ``bands > 1`` (ROADMAP A.6); both raise
+are validated on the dense broadcast whatever the backend.  With a
+``device_mesh`` (``parallel.sharding.DeviceMesh``) the waveguide leg runs on
+x-shards of the grid (``parallel.box_sharded`` for a shoebox,
+``parallel.general_sharded`` for any other scene); the ray leg stays on the
+engine's device.  Not ported yet: ``bands > 1`` (ROADMAP A.6), which raises
 ``NotImplementedError``.
 """
 
@@ -44,6 +47,9 @@ from wayverb_tpu_torch.imagesource import exact
 from wayverb_tpu_torch.imagesource.postprocess import \
     postprocess as is_postprocess
 from wayverb_tpu_torch.imagesource.tree import find_image_source_impulses
+from wayverb_tpu_torch.parallel.box_sharded import canonical_sharded
+from wayverb_tpu_torch.parallel.general_sharded import \
+    canonical_general_sharded
 from wayverb_tpu_torch.raytracer import stochastic, tracer
 from wayverb_tpu_torch.raytracer.accel import auto_accel
 from wayverb_tpu_torch.waveguide import run as wgrun
@@ -109,25 +115,31 @@ class Engine:
                  waveguide_params: WaveguideParameters = WaveguideParameters(),
                  environment: Environment = Environment(),
                  scene_box: Optional[Box] = None, device_mesh=None, *,
-                 device="cpu"):
-        if device_mesh is not None:
-            raise NotImplementedError(
-                "the sharded waveguide is not ported yet: ROADMAP queue A, "
-                "item 7")
+                 device="cuda"):
+        """``device``: where the mesh, the ray leg and the results live (the
+        card unless the caller asks for the CPU).  ``device_mesh``: optional
+        ``DeviceMesh``; the waveguide leg then runs on its x-shards, with
+        the grid's x dim padded to divide over it."""
         if waveguide_params.bands > 1:
             raise NotImplementedError(
                 "the multiband waveguide is not ported yet: ROADMAP queue A, "
                 "item 6")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Engine: device {device!r} needs an NVIDIA GPU and none is "
+                "available; pass device='cpu' to run on the CPU")
         self.soup = soup.to(self.device)
         self.surfaces = surfaces.to(self.device)
         self.environment = environment
         self.waveguide_params = waveguide_params
+        self.device_mesh = device_mesh
         spacing = grid_spacing(environment.speed_of_sound,
                                1.0 / waveguide_params.sample_rate)
+        align = None if device_mesh is None else (device_mesh.size, 1, 1)
         self.mesh = wgrun.compute_mesh(
             soup.to("cpu"), surfaces.absorption.cpu().numpy(), spacing,
-            waveguide_params.sample_rate, scene_box=scene_box,
+            waveguide_params.sample_rate, scene_box=scene_box, align=align,
             device=self.device)
         self.ray_grid = auto_accel(soup, self.device)
 
@@ -180,8 +192,17 @@ class Engine:
                 trace_res.max_time() / time_quantum)
 
         phase("running_waveguide")
-        wg_out = wgrun.canonical(self.mesh, source, receiver,
-                                 max_stochastic_time, env)
+        if self.device_mesh is None:
+            wg_out = wgrun.canonical(self.mesh, source, receiver,
+                                     max_stochastic_time, env)
+        elif self.mesh.box_spec is not None:
+            wg_out = canonical_sharded(self.mesh, source, receiver,
+                                       max_stochastic_time, self.device_mesh,
+                                       env)
+        else:
+            wg_out = canonical_general_sharded(
+                self.mesh, source, receiver, max_stochastic_time,
+                self.device_mesh, env)
         bands = [BandpassBand(
             pressure=wg_out.pressure, intensity=wg_out.intensity,
             sample_rate=wg_out.sample_rate,

@@ -103,8 +103,8 @@ class Mesh:
 
 def compute_mesh(soup: TriangleSoup, surface_absorption, spacing: float,
                  sample_rate: float, scene_box: Optional[Box] = None,
-                 anchor=None, *, device, timings: Optional[dict] = None
-                 ) -> Mesh:
+                 anchor=None, align=None, *, device,
+                 timings: Optional[dict] = None) -> Mesh:
     """Build a mesh for a scene.
 
     ``surface_absorption``: (S, bands) per-material absorption →
@@ -114,7 +114,11 @@ def compute_mesh(soup: TriangleSoup, surface_absorption, spacing: float,
     classified by the 32-ray parity vote (``classify_inside_scene``: the
     native runtime, else ``points_inside`` on ``device``).  ``anchor``: the
     point that lands exactly on a node (default: the centre of the box or
-    of the scene's bounding box).
+    of the scene's bounding box).  ``align``: None keeps
+    ``default_alignment()`` (which pads nothing); an (ax, ay, az) tuple
+    rounds each grid dimension up to that multiple, with the extra nodes
+    outside the scene (a sharded run pads x to a multiple of its shard
+    count).
 
     ``timings``: optional dictionary that receives the seconds of the three
     setup stages (``classify_s``, ``fit_s``, ``structure_s``) and, for a
@@ -124,7 +128,9 @@ def compute_mesh(soup: TriangleSoup, surface_absorption, spacing: float,
     if anchor is None:
         anchor = tuple(np.asarray(aabb.centre()))
     adjusted = compute_adjusted_boundary(aabb, anchor, spacing)
-    desc = descriptor_for_box(adjusted, spacing, align=default_alignment())
+    desc = descriptor_for_box(
+        adjusted, spacing,
+        align=default_alignment() if align is None else tuple(align))
 
     t0 = time.perf_counter()
     if scene_box is not None:

@@ -32,8 +32,8 @@ import torch.nn.functional as F
 from wayverb_tpu_torch.waveguide.box_fused import requires_grad
 from wayverb_tpu_torch.waveguide.descriptor import COURANT, COURANT_SQ
 from wayverb_tpu_torch.waveguide.setup import MeshStructure
-from wayverb_tpu_torch.waveguide.stencil_kernels import (interior_step,
-                                                         weighted_step)
+from wayverb_tpu_torch.waveguide.stencil_kernels import (
+    interior_step, weighted_step, weighted_step_sharded)
 
 
 def expand_boundary_coefficients(s: MeshStructure):
@@ -165,7 +165,7 @@ def boundary_pressures(field, s: MeshStructure):
 
 def waveguide_step_carried(current, previous, prev_b, filter_state,
                            s: MeshStructure, expanded=None, tables=None,
-                           out=None):
+                           out=None, halos=None):
     """``waveguide_step`` with the boundary-node previous pressures carried
     compactly: ``prev_b`` is last step's returned ``bp`` (the values this
     step would otherwise re-gather from ``previous``), saving one sparse
@@ -176,12 +176,20 @@ def waveguide_step_carried(current, previous, prev_b, filter_state,
     ``out``: not ``current``, possibly ``previous``), for time loops that
     rotate two buffers; only when no gradient is required.
 
+    ``halos``: for one x-shard of a decomposed grid (``parallel/``), the
+    (hlo, hhi) neighbour rows; the dense pass is then
+    ``weighted_step_sharded`` and ``s`` holds the shard's tables.
+
     Returns (next_field, new_filter_state, bp) — carry ``bp`` forward.
     """
     if prev_b is None:
         # before the dense pass: ``out`` may be ``previous``
         prev_b = boundary_pressures(previous, s)
-    dense = weighted_step(current, previous, s.weight_code, out=out)
+    if halos is None:
+        dense = weighted_step(current, previous, s.weight_code, out=out)
+    else:
+        dense = weighted_step_sharded(current, previous, s.weight_code,
+                                      halos, out=out)
     dense_flat = dense.reshape(dense.numel())
     csw = dense_flat[s.b_node_idx]                              # (B,)
     bp, new_state = boundary_update(csw, prev_b, filter_state, s,

@@ -2,9 +2,9 @@
 
 Port of ``wayverb_tpu.waveguide.stencil_pallas`` (the reference names the
 module after its Pallas TPU kernels): the fused weighted step driven by the
-packed per-node bitfield ``MeshStructure.weight_code``, its adjoint, and the
-masked interior step.  The sharded (haloed) variants of that module are not
-ported yet.
+packed per-node bitfield ``MeshStructure.weight_code``, its adjoint, the
+masked interior step, and the weighted step of one x-shard of a decomposed
+grid with its adjoint (``weighted_step_sharded``, ``parallel/``).
 
     weighted_step:  out[x] = λ²·Σ_d w_d(x)·cur[x+e_d] − bit12(x)·prev[x]
                     w_d(x) = bit(d) + bit(6+d) of weight_code[x] ∈ {0, 1, 2}
@@ -18,14 +18,18 @@ boundary node's weighted neighbour sum.
 Each function has a hand-written CUDA kernel for Hopper and a plain torch
 version beside it.  CUDA tensors launch the kernel
 (``csrc/mesh_weighted_step.cu``, ``csrc/mesh_weighted_step_bwd.cu``,
-``csrc/mesh_interior_step.cu``; float32, any dims) or raise; CPU tensors run
-the plain version.  Launches are counted in ``weighted_step.launches``,
-``weighted_step_bwd.launches`` and ``interior_step.launches``.
+``csrc/mesh_interior_step.cu``, ``csrc/mesh_weighted_step_haloed.cu``,
+``csrc/mesh_weighted_step_haloed_bwd.cu``; float32, any dims) or raise; CPU
+tensors run the plain version.  Launches are counted in
+``weighted_step.launches``, ``weighted_step_bwd.launches``,
+``interior_step.launches``, ``weighted_step_sharded.launches`` and
+``weighted_step_sharded_bwd.launches``.
 
-``weighted_step`` is linear in (cur, prev).  When one of them requires grad
-it goes through a ``torch.autograd.Function`` whose backward is
-``weighted_step_bwd`` for ``cur`` and the elementwise ``−bit12·g`` for
-``prev``; it saves nothing but the weight code.
+``weighted_step`` is linear in (cur, prev), ``weighted_step_sharded`` in
+(cur, prev, halos).  When one of them requires grad the step goes through a
+``torch.autograd.Function`` whose backward is the adjoint kernel for ``cur``
+(and the halos) and the elementwise ``−bit12·g`` for ``prev``; it saves
+nothing but the weight code.
 """
 
 from __future__ import annotations
@@ -102,9 +106,10 @@ def _check(what: str, name: str, t, ref, dtype=torch.float32):
             f"(contiguous={t.is_contiguous()})")
 
 
-def _launch(what: str, name: str, entry: str, tensors, out):
-    """Launch ``entry`` of ``csrc/<name>.cu`` on the (X, Y, Z) tensors plus
-    ``out``, on the current stream of their device."""
+def _launch(what: str, name: str, entry: str, tensors):
+    """Launch ``entry`` of ``csrc/<name>.cu`` on ``tensors`` (inputs, then
+    outputs; the first is (X, Y, Z) and sets the grid), on the current
+    stream of their device."""
     ref = tensors[0]
     if ref.dim() != 3:
         raise ValueError(f"{what}: fields must be (X, Y, Z), got "
@@ -113,14 +118,13 @@ def _launch(what: str, name: str, entry: str, tensors, out):
     if X > 65535 or (Y + 1) // 2 > 65535 or X * Y * Z == 0:
         raise ValueError(f"{what}: grid {(X, Y, Z)} is outside what the "
                          "kernel's launch geometry covers")
-    lib = load_entry(name, entry, len(tensors) + 1)
+    lib = load_entry(name, entry, len(tensors))
     err = getattr(lib, entry)(
-        *(t.data_ptr() for t in tensors), out.data_ptr(), X, Y, Z,
+        *(t.data_ptr() for t in tensors), X, Y, Z,
         torch.cuda.current_stream(ref.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.wv_cuda_error_string(err).decode())
-    return out
 
 
 def _out_buffer(what: str, out, current):
@@ -141,10 +145,9 @@ def _weighted_step_forward(current, previous, weight_code, out):
         _check(what, "cur", current, current)
         _check(what, "prev", previous, current)
         _check(what, "weight_code", weight_code, current, torch.int32)
-        res = _launch(what, "mesh_weighted_step",
-                      "wv_mesh_weighted_step_f32",
-                      (current, previous, weight_code),
-                      _out_buffer(what, out, current))
+        res = _out_buffer(what, out, current)
+        _launch(what, "mesh_weighted_step", "wv_mesh_weighted_step_f32",
+                (current, previous, weight_code, res))
         weighted_step.launches += 1
         return res
     if current.device.type != "cpu":
@@ -192,9 +195,9 @@ def weighted_step_bwd(g, weight_code):
         g = g.contiguous()
         _check(what, "g", g, g)
         _check(what, "weight_code", weight_code, g, torch.int32)
-        res = _launch(what, "mesh_weighted_step_bwd",
-                      "wv_mesh_weighted_step_bwd_f32", (g, weight_code),
-                      torch.empty_like(g))
+        res = torch.empty_like(g)
+        _launch(what, "mesh_weighted_step_bwd",
+                "wv_mesh_weighted_step_bwd_f32", (g, weight_code, res))
         weighted_step_bwd.launches += 1
         return res
     if g.device.type != "cpu":
@@ -244,10 +247,9 @@ def interior_step(current, previous, interior_mask, out=None):
         _check(what, "cur", current, current)
         _check(what, "prev", previous, current)
         _check(what, "interior_mask", interior_mask, current)
-        res = _launch(what, "mesh_interior_step",
-                      "wv_mesh_interior_step_f32",
-                      (current, previous, interior_mask),
-                      _out_buffer(what, out, current))
+        res = _out_buffer(what, out, current)
+        _launch(what, "mesh_interior_step", "wv_mesh_interior_step_f32",
+                (current, previous, interior_mask, res))
         interior_step.launches += 1
         return res
     if current.device.type != "cpu":
@@ -258,3 +260,155 @@ def interior_step(current, previous, interior_mask, out=None):
 
 
 interior_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# one x-shard of a decomposed grid: explicit x-halo rows
+
+def _halo_shifted(field, d: int, halo):
+    """field[x + e_d] for d ∈ {0, 1} (the x directions), with ``halo``, a
+    (1, Y, Z) row, standing for the row beyond the shard."""
+    if d == 0:
+        return torch.cat([halo, field[:-1]])
+    return torch.cat([field[1:], halo])
+
+
+def _weighted_step_sharded_plain(current, previous, weight_code, halos):
+    """The plain torch version of the shard step.  The halo rows enter the
+    running sum as the d = 0 and d = 1 terms, in the order of
+    ``_weighted_step_plain``, so with the neighbours' edge rows as halos the
+    shards give the unsplit grid's step to the bit (the reference's
+    ``_weighted_sharded_jnp`` adds the halo terms after the sum)."""
+    acc = torch.zeros_like(current)
+    for d in range(6):
+        s = _halo_shifted(current, d, halos[d]) if d < 2 \
+            else _shifted(current, d)
+        acc = acc + _weight(weight_code, d, current.dtype) * s
+    return COURANT_SQ * acc \
+        - _is_interior(weight_code, current.dtype) * previous
+
+
+def _weighted_step_sharded_bwd_plain(g, weight_code):
+    """The plain torch version of the shard step's adjoint in (cur, halos):
+    ĝcur is the unsplit adjoint on the shard (ḡ = 0 beyond it), and the halo
+    rows feed only local row 0 through d = 0 and the last row through
+    d = 1."""
+    ghlo = COURANT_SQ * _weight(weight_code[:1], 0, g.dtype) * g[:1]
+    ghhi = COURANT_SQ * _weight(weight_code[-1:], 1, g.dtype) * g[-1:]
+    return _weighted_step_bwd_plain(g, weight_code), (ghlo, ghhi)
+
+
+def _check_halos(what: str, halos, current):
+    if len(halos) != 2:
+        raise ValueError(f"{what}: halos must be a pair (hlo, hhi)")
+    for name, h in zip(("hlo", "hhi"), halos):
+        _check(what, name, h, current[:1])
+
+
+def _weighted_step_sharded_forward(current, previous, weight_code, halos,
+                                   out):
+    """The shard step without autograd: kernel on CUDA tensors, plain on
+    CPU."""
+    if current.is_cuda:
+        what = "weighted_step_sharded"
+        _check(what, "cur", current, current)
+        _check(what, "prev", previous, current)
+        _check(what, "weight_code", weight_code, current, torch.int32)
+        _check_halos(what, halos, current)
+        res = _out_buffer(what, out, current)
+        if any(res.data_ptr() == h.data_ptr() for h in halos):
+            raise ValueError(f"{what}: out must not alias a halo row")
+        _launch(what, "mesh_weighted_step_haloed",
+                "wv_mesh_weighted_step_haloed_f32",
+                (current, previous, weight_code, *halos, res))
+        weighted_step_sharded.launches += 1
+        return res
+    if current.device.type != "cpu":
+        raise ValueError(f"weighted_step_sharded: no kernel for device "
+                         f"{current.device}")
+    res = _weighted_step_sharded_plain(current, previous, weight_code, halos)
+    return res if out is None else out.copy_(res)
+
+
+def weighted_step_sharded(current, previous, weight_code, halos, out=None):
+    """``weighted_step`` on one x-shard (xl, Y, Z) of a decomposed grid.
+
+    ``halos``: (hlo, hhi), the (1, Y, Z) ``current`` rows at local x = −1
+    and x = xl from the neighbouring shards (zeros at the global grid
+    ends, which reproduces ``weighted_step`` on the shard exactly).  ``out``
+    as for ``weighted_step`` (not ``current`` nor a halo row; it may be
+    ``previous``).
+
+    CPU tensors run ``_weighted_step_sharded_plain``; CUDA tensors launch
+    the kernel (counted in ``weighted_step_sharded.launches``) or raise.
+    When grad mode is on and ``current``, ``previous`` or a halo requires
+    grad, the step runs under a ``torch.autograd.Function`` whose backward
+    gives the halo cotangents too (``out`` must then be None), so autograd
+    routes them back through the exchange to the neighbours' edge rows.
+    """
+    hlo, hhi = halos
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (current, previous, hlo, hhi)):
+        if out is not None:
+            raise ValueError("weighted_step_sharded: out= cannot take the "
+                             "result when a gradient is required")
+        return _WeightedStepSharded.apply(current, previous, weight_code,
+                                          hlo, hhi)
+    return _weighted_step_sharded_forward(current, previous, weight_code,
+                                          (hlo, hhi), out)
+
+
+weighted_step_sharded.launches = 0
+
+
+def weighted_step_sharded_bwd(g, weight_code):
+    """(ĝcur, (ĝhlo, ĝhhi)): the transpose of ``weighted_step_sharded`` in
+    (cur, halos).  ĝcur = λ²·Σ_dd w_opp(dd)(y+e_dd)·g[y+e_dd] with g = 0
+    beyond the shard; ĝhlo = λ²·w₀(row 0)·g[0], ĝhhi = λ²·w₁(row xl−1)·
+    g[xl−1].
+
+    CPU tensors run ``_weighted_step_sharded_bwd_plain``; CUDA tensors
+    launch the kernel (counted in ``weighted_step_sharded_bwd.launches``)
+    or raise.
+    """
+    if g.is_cuda:
+        what = "weighted_step_sharded_bwd"
+        g = g.contiguous()
+        _check(what, "g", g, g)
+        _check(what, "weight_code", weight_code, g, torch.int32)
+        gcur = torch.empty_like(g)
+        ghlo, ghhi = torch.empty_like(g[:1]), torch.empty_like(g[:1])
+        _launch(what, "mesh_weighted_step_haloed_bwd",
+                "wv_mesh_weighted_step_haloed_bwd_f32",
+                (g, weight_code, gcur, ghlo, ghhi))
+        weighted_step_sharded_bwd.launches += 1
+        return gcur, (ghlo, ghhi)
+    if g.device.type != "cpu":
+        raise ValueError(f"weighted_step_sharded_bwd: no kernel for device "
+                         f"{g.device}")
+    return _weighted_step_sharded_bwd_plain(g, weight_code)
+
+
+weighted_step_sharded_bwd.launches = 0
+
+
+class _WeightedStepSharded(torch.autograd.Function):
+    """``weighted_step_sharded`` with its hand-written adjoint.  Linear in
+    (cur, prev, hlo, hhi), so only the weight code is kept."""
+
+    @staticmethod
+    def forward(ctx, current, previous, weight_code, hlo, hhi):
+        ctx.save_for_backward(weight_code)
+        return _weighted_step_sharded_forward(current, previous, weight_code,
+                                              (hlo, hhi), None)
+
+    @staticmethod
+    def backward(ctx, g):
+        weight_code, = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gcur = ghlo = ghhi = None
+        if need[0] or need[3] or need[4]:
+            gcur, (ghlo, ghhi) = weighted_step_sharded_bwd(g, weight_code)
+        gprev = -_is_interior(weight_code, g.dtype) * g if need[1] else None
+        return (gcur if need[0] else None, gprev, None,
+                ghlo if need[3] else None, ghhi if need[4] else None)
