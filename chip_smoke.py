@@ -106,7 +106,15 @@ Drives the port through its public entry points on the card and fails
     on four shards (B1 with real halos), 256 steps against the single-device
     fused run, then a 16-step gradient (B5 with halo cotangents);
 34. ``sharded_trace`` on four shards: the direct energy against 8/(4πr²);
-35. one JSON line of per-kernel results, then the last line,
+35. the residency probe: P1 (``tools.probe_resident``, K bare leapfrog
+    sub-steps in one cooperative launch) against its plain version in both
+    modes, fields in shared memory and in device memory, at X % 8 != 0 and
+    odd (Y, Z), at tiles cut in x, y and z, at the T30 box's grid, at
+    (64, 224, 256) in 128 tiles and at (128, 224, 256) in device memory; a
+    resident grid too large for shared memory refused before any launch;
+    then the sweep of ``python -m wayverb_tpu_torch.tools.probe_resident``
+    (µs a sub-step by shape, mode and K) with its launches counted;
+36. one JSON line of per-kernel results, then the last line,
     ``{"ok": true, "device": {...}}``.
 
 A kernel's ``bound_ms`` is the least time the card could take for the same
@@ -153,7 +161,7 @@ KERNELS = ("box_fused_step", "box_mega_chunk", "box_fused_step_bwd",
            "box_mega_chunk_bwd", "mesh_weighted_step",
            "mesh_weighted_step_bwd", "mesh_interior_step", "ray_mt_closest",
            "ray_mt_closest_culled", "mesh_weighted_step_haloed",
-           "mesh_weighted_step_haloed_bwd")
+           "mesh_weighted_step_haloed_bwd", "probe_resident")
 MESH_REL = 1e-5            # B8, B9, B12 vs plain, per unit of peak
 GENERAL_VS_MEGA_REL = 2e-5  # general path vs mega path on the T30 box
 WAVEGUIDE_REL = 1e-4       # waveguide card vs CPU, of peak
@@ -2989,6 +2997,124 @@ def phase_sharded_trace(torch, card):
         _fail("sharded_trace's energy is off")
 
 
+# ---------------------------------------------------------------------------
+# the residency probe: P1
+
+PROBE_REL = 1e-5           # P1 vs plain, per unit of peak (expected 0.0)
+PROBE_CASES = (            # (dims, K, resident, tile: None = plan_tiles')
+    ((12, 9, 7), 5, True, None), ((12, 9, 7), 5, False, None),
+    ((12, 9, 7), 6, True, (5, 4, 3)),
+    ((15, 19, 21), 7, True, None), ((15, 19, 21), 7, False, None),
+    ((64, 224, 256), 6, True, None), ((64, 224, 256), 6, False, None),
+    ((128, 224, 256), 3, False, None))
+PROBE_LINE = ((64, 224, 256), 64)   # the kernels line's shape and K
+PROBE_STREAMED = (128, 224, 256)    # its device-memory figure, above L2
+PROBE_PLAIN_K = 8
+
+
+def phase_probe(torch, card):
+    """P1 (the residency probe's kernel) against its plain version in both
+    modes, to the bit: X % 8 != 0 with odd (Y, Z), tiles cut in x, y and z,
+    the T30 box's grid, the worked placement (64, 224, 256) and a
+    device-memory shape above 50 MB; a resident grid that cannot be placed
+    raises before any launch.  Then the sweep of
+    ``python -m wayverb_tpu_torch.tools.probe_resident`` (the probe's main
+    path, its launches counted), its scalars against each other and against
+    the plain version, and the plain version's time."""
+    from wayverb_tpu_torch.tools import probe_resident as pr
+    cap = pr.resident_capacity("cuda")
+    print(f"[35 probe] {cap.sms} SMs, {cap.smem_per_cta} B of shared memory "
+          f"a CTA (opt-in), L2 {cap.l2_bytes} B [{card}]", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    err_abs = err_rel = 0.0
+    for dims, K, resident, tile in PROBE_CASES:
+        cur = torch.randn(dims, generator=gen, device="cuda")
+        prev = torch.randn(dims, generator=gen, device="cuda")
+        got = pr.resident_chunk(cur, prev, K, resident=resident, tile=tile)
+        want = pr.chunk_plain(cur, prev, K)
+        torch.cuda.synchronize()
+        e_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        e_rel = max(_rel_err(g, w) for g, w in zip(got, want))
+        place = pr.plan_tiles(dims, cap, tile).describe() if resident \
+            else f"{cap.sms} CTAs"
+        print(f"[35 probe] P1 vs plain {list(dims)} K={K} "
+              f"{'resident' if resident else 'device memory'} ({place}): "
+              f"max |err| {e_abs:.3e}, {e_rel:.3e} of peak "
+              f"(gate {PROBE_REL:g})", flush=True)
+        if not e_rel <= PROBE_REL:
+            _fail(f"P1 disagrees with its plain version at {dims}, K={K}, "
+                  f"resident={resident}")
+        err_abs, err_rel = max(err_abs, e_abs), max(err_rel, e_rel)
+    big = torch.zeros(PROBE_STREAMED, device="cuda")
+    before = pr.resident_chunk.launches
+    try:
+        pr.resident_chunk(big, big, 2)
+    except ValueError as e:   # plan_tiles' refusal, raised before a launch
+        refusal = str(e)
+    else:
+        _fail(f"a resident run of {PROBE_STREAMED} did not raise")
+    if pr.resident_chunk.launches != before:
+        _fail("the refused resident run launched")
+    print(f"[35 probe] resident {list(PROBE_STREAMED)} refused before any "
+          f"launch: {refusal}")
+    del big
+
+    pr.resident_chunk.launches = 0
+    t0 = time.perf_counter()
+    rows = pr.sweep("cuda")
+    sweep_s = time.perf_counter() - t0
+    launches = pr.resident_chunk.launches
+    for row in rows:
+        print("[35 probe] " + json.dumps(row))
+    print(f"[35 probe] sweep: {len(rows)} rows, {launches} P1 launches in "
+          f"{sweep_s:.2f} s [{card}]", flush=True)
+    ran = [r for r in rows if r.get("fits", True)]
+    if not launches or not all(r["ok"] for r in ran):
+        _fail("the probe's sweep did not run or gave a non-finite value")
+    if any(not r.get("fits", True) for r in rows
+           if tuple(r["shape"]) in ((64, 224, 256), (32, 224, 256),
+                                    (15, 19, 21))):
+        _fail("a resident shape that fits the card was not placed")
+    # each row runs 512 sub-steps from the same impulse: one value a shape
+    for dims in pr.SWEEP_SHAPES:
+        values = {r["value"] for r in ran if tuple(r["shape"]) == dims}
+        if len(values) != 1:
+            _fail(f"the sweep's rows at {dims} disagree: {values}")
+    for dims in (pr.T30_DIMS, PROBE_LINE[0]):
+        want = float(pr.chunk_plain(*pr.impulse_fields(dims, "cuda"),
+                                    512)[0][8, 8, :8].sum())
+        got = next(r["value"] for r in ran if tuple(r["shape"]) == dims)
+        print(f"[35 probe] Σ cur[8, 8, :8] after 512 sub-steps at "
+              f"{list(dims)}: sweep {got!r}, plain {want!r}")
+        if got != want:
+            _fail(f"the sweep's scalar at {dims} is not the plain version's")
+
+    dims, K = PROBE_LINE
+    cur = torch.randn(dims, generator=gen, device="cuda")
+    prev = torch.randn(dims, generator=gen, device="cuda")
+    pr.chunk_plain(cur, prev, PROBE_PLAIN_K)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    pr.chunk_plain(cur, prev, PROBE_PLAIN_K)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_us = 1e3 * start.elapsed_time(stop) / PROBE_PLAIN_K
+    row = next(r for r in rows if tuple(r["shape"]) == dims
+               and r["mode"] == "resident" and r["K"] == K)
+    streamed = next(r for r in rows if tuple(r["shape"]) == PROBE_STREAMED
+                    and r["mode"] == "device_memory" and r["K"] == K)
+    print(f"[35 probe] P1 at {list(dims)}, K={K}: resident "
+          f"{row['us_per_step']:.3f} us a sub-step (bound "
+          f"{row['bound_us']:.3f}, {row['bound_by']}), plain "
+          f"{plain_us:.1f}; device memory at {list(PROBE_STREAMED)} "
+          f"{streamed['us_per_step']:.3f} us (bound "
+          f"{streamed['bound_us']:.3f}) [{card}]", flush=True)
+    return {"launches": launches, "max_abs_err": err_abs,
+            "max_rel_err": err_rel, "row": row, "streamed": streamed,
+            "plain_us": plain_us, "sweep_s": sweep_s}
+
+
 def main():
     import torch
     card = phase_device(torch)
@@ -3104,6 +3230,8 @@ def main():
     torch.cuda.empty_cache()
     box_sharded = phase_box_sharded(torch, card)
     phase_sharded_trace(torch, card)
+    torch.cuda.empty_cache()
+    probe = phase_probe(torch, card)
     counted = {"box_fused_step": b1_launches,
                "box_mega_chunk": launches["box_mega_chunk"],
                "box_fused_step_bwd": route_counts["box_fused_step_bwd"],
@@ -3119,7 +3247,8 @@ def main():
                "mesh_weighted_step_haloed":
                    shard_launches["mesh_weighted_step_haloed"],
                "mesh_weighted_step_haloed_bwd":
-                   shard_grad_counts["mesh_weighted_step_haloed_bwd"]}
+                   shard_grad_counts["mesh_weighted_step_haloed_bwd"],
+               "probe_resident": probe["launches"]}
     if not all(counted.values()):
         _fail(f"a kernel of a path was not launched: {counted}")
 
@@ -3252,7 +3381,31 @@ def main():
         ("mesh_weighted_step_haloed", "b10", 366, shard_errs[0],
          f"Engine(device_mesh={SHARDS} x cuda:0).run on the columns hall"),
         ("mesh_weighted_step_haloed_bwd", "b11", 396, shard_errs[1],
-         "the columns hall's 64-step gradient on 4 shards")))],
+         "the columns hall's 64-step gradient on 4 shards"))), {
+        "name": f"probe_resident (K={PROBE_LINE[1]})",
+        "route": "cuda",
+        "source": "wayverb_tpu_torch/csrc/probe_resident.cu",
+        "replaces": "tools/bench/probe_vmem_resident.py:54",
+        "shape": list(PROBE_LINE[0]),
+        "mode": "resident",
+        "tiles": probe["row"]["tiles"],
+        "bytes_per_cta": probe["row"]["bytes_per_cta"],
+        "launches": counted["probe_resident"],
+        "max_abs_err": probe["max_abs_err"],
+        "ms": probe["row"]["us_per_step"] / 1e3,
+        "plain_ms": probe["plain_us"] / 1e3,
+        "bound_ms": probe["row"]["bound_us"] / 1e3,
+        "bound_by": probe["row"]["bound_by"],
+        "library_ms": None,
+        "library_none_because": "conv3d gives only the neighbour sum, not "
+                                "C2 * sum - dst",
+        "ms_is_per": "sub-step (a launch runs K of them)",
+        "launches_on": "the sweep of python -m "
+                       "wayverb_tpu_torch.tools.probe_resident",
+        "device_memory_shape": list(PROBE_STREAMED),
+        "device_memory_ms": probe["streamed"]["us_per_step"] / 1e3,
+        "device_memory_bound_ms": probe["streamed"]["bound_us"] / 1e3,
+        "sweep_s": probe["sweep_s"]}],
         "model_hall": model_hall, "large_hall": large_hall,
         "dda_on_card": dda, "columns_hall": columns,
         "hybrid_columns_hall": hybrid_columns,

@@ -940,3 +940,54 @@ def test_trace_on_the_card_matches_dda_on_cpu(cuda_device, cull):
     w = cpu.histogram.sum(dim=(0, 1, 2))
     assert float(w.min()) > 0
     np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the residency probe (P1)
+
+PROBE_CASES = [  # (dims, K, resident, tile): tile None is plan_tiles' choice
+    ((12, 9, 7), 5, True, None), ((12, 9, 7), 5, False, None),
+    ((12, 9, 7), 6, True, (5, 4, 3)), ((9, 10, 8), 1, True, (3, 3, 8)),
+    ((15, 19, 21), 7, True, None), ((15, 19, 21), 7, False, None),
+    ((64, 224, 256), 4, True, None), ((64, 224, 256), 3, False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,K,resident,tile", PROBE_CASES)
+def test_probe_resident_kernel_matches_plain(cuda_device, dims, K, resident,
+                                             tile):
+    """P1 in both modes against ``chunk_plain`` on the same tensors, to the
+    bit: X % 8 != 0, odd (Y, Z), odd K, tiles cut in x, y and z, the T30
+    box's grid and the worked placement (64, 224, 256)."""
+    from wayverb_tpu_torch.tools import probe_resident as pr
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    cur = torch.randn(dims, generator=gen, device=cuda_device)
+    prev = torch.randn(dims, generator=gen, device=cuda_device)
+    keep = cur.clone(), prev.clone()
+    before = pr.resident_chunk.launches
+    got = pr.resident_chunk(cur, prev, K, resident=resident, tile=tile)
+    assert pr.resident_chunk.launches == before + 1
+    want = pr.chunk_plain(cur, prev, K)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) == 0.0
+    assert torch.equal(cur, keep[0]) and torch.equal(prev, keep[1])
+
+
+@pytest.mark.cuda
+def test_probe_resident_unplaceable_raises_before_launch(cuda_device):
+    from wayverb_tpu_torch.tools import probe_resident as pr
+    cap = pr.resident_capacity(cuda_device)
+    assert cap.sms >= 1 and cap.smem_per_cta > 48 * 1024 \
+        and cap.l2_bytes > 0
+    cur = torch.zeros((96, 224, 256), device=cuda_device)
+    before = pr.resident_chunk.launches
+    with pytest.raises(ValueError, match=str(8 * cur.numel())):
+        pr.resident_chunk(cur, cur.clone(), 2)
+    with pytest.raises(ValueError):
+        pr.resident_chunk(cur[:8], cur[:8].clone(), 2, tile=(8, 224, 256))
+    assert pr.resident_chunk.launches == before
+    value = pr.make_run(15, 19, 21, 8, "cuda")(
+        *pr.impulse_fields((15, 19, 21), cuda_device), 2)
+    assert value.is_cuda and bool(torch.isfinite(value))
+    assert pr.resident_chunk.launches == before + 2
