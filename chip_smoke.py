@@ -78,7 +78,9 @@ Drives the port through its public entry points on the card and fails
     the large hall (``procedural_hall_large()``, 97,068 triangles), and the
     plain versions', whose results B3 and B4 must equal to the bit at these
     shapes, the main paths' own: on the rays just timed and on a later
-    bounce's visibility query, where some rays have left the scene;
+    bounce's visibility query, where some rays have left the scene; the
+    triangle tiles B4's gate lets through per 512-ray tile (the ``--kernel``
+    mode of ``python -m wayverb_tpu_torch.tools.rays_timing``);
 25. the model hall end to end: written with ``save_obj``, read back with
     ``load_scene``, ``Engine`` without ``scene_box`` (``auto_accel`` gives
     the MT kernels), ``run`` + ``render`` + ``render_all``, with the seconds
@@ -126,9 +128,12 @@ line and not as a bound, the same reckoning with the fields streamed through
 device memory every sub-step, which is what a field larger than the 50 MB L2
 forces.  B3's operations are those of the Möller–Trumbore arithmetic (its
 compares and selects not counted) on every (ray, real triangle) pair; B4's
-least work is the slab tests, since what the
-gate lets through depends on the data (phase 24 prints the all-pairs figure
-and the share of tile pairs that ran, not as a bound).
+are the slab tests and that arithmetic on every pair of the (ray tile,
+triangle tile) pairs that the plain version's sequential gate lets through
+on the timed rays.  Phase 24 also prints, not as a bound, an estimate of
+the time those pairs need at about 70 instructions each (with
+--fmad=false nothing contracts; the compares, selects and the IEEE
+reciprocal's sequence count too), and the all-pairs figure.
 """
 
 import functools
@@ -177,19 +182,9 @@ MT_T_RTOL = 1e-5           # the DDA's t against B3's, on ...
 MT_T_SHARE = 0.999         # ... this share of the rays (grazing rays: a
 #                            small determinant amplifies float32 rounding)
 MT_ID_SHARE = 0.98         # the share of equal triangle ids (shared edges)
-# float32 arithmetic of the Möller–Trumbore test on one (ray, triangle) pair:
-# 46 multiplies, adds, subtracts and the reciprocal (the two cross products
-# 9 each, the determinant 5, the reciprocal 1, o - v0 3, u, v and t 6 each,
-# u + v 1).  Its about 14 compares, selects and the running-minimum update are
-# not counted, so the bound is the arithmetic's alone.  One slab test: per
-# axis two subtracts, two multiplies, two minima and two maxima.
-MT_OPS_PER_PAIR = 46
-SLAB_OPS_PER_TILE = 24
 LATE_BOUNCE = 20           # a bounce by which some rays of a trace have died
 LARGE_SRC, LARGE_RCV = (2.0, 1.7, 3.0), (6.0, 1.9, 9.0)
 LARGE_BOUNCES = 40
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-F32_FLOP_PER_S = 67e12
 
 
 def _fail(msg: str):
@@ -880,10 +875,10 @@ def phase_hybrid_card_vs_cpu(torch, card):
 
 def _bound(n_bytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate."""
-    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / F32_FLOP_PER_S
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    operations over the float32 rate (``tools.roofline``)."""
+    from wayverb_tpu_torch.tools import roofline
+    us, by = roofline.bound_us(n_bytes, flops)
+    return us / 1e3, by
 
 
 def kernel_bounds(spec, order, k):
@@ -913,11 +908,10 @@ def kernel_bounds(spec, order, k):
                        9 * n + 60 * plane)
     # with the fields streamed through device memory every sub-step
     state = f * (2 * order + 5) * plane     # PL, INS, PRVP, st in; PL, INS, st out
-    out["b2_stream"] = 1e3 * (f * 3 * n + state) / HBM_BYTES_PER_S
-    out["b6_stream"] = 1e3 * (f * 3 * n + state + f * 4 * plane) \
-        / HBM_BYTES_PER_S
-    out["b7_stream"] = 1e3 * (f * 4 * n + f * (2 * order + 4 + 1 + order)
-                              * plane) / HBM_BYTES_PER_S
+    out["b2_stream"] = _bound(f * 3 * n + state, 0)[0]
+    out["b6_stream"] = _bound(f * 3 * n + state + f * 4 * plane, 0)[0]
+    out["b7_stream"] = _bound(f * 4 * n + f * (2 * order + 4 + 1 + order)
+                              * plane, 0)[0]
     return out
 
 
@@ -1965,24 +1959,16 @@ def _random_rays(torch, n, gen, num_triangles=None, outside=False):
     return o, d, ex
 
 
-def _mt_compare(torch, tag, what, rays, tris, got, want):
-    """A launch's (t, id) against the plain version's on the same rays;
-    returns (max |t - t_plain|, share of rays that hit).  Equality to the
-    bit is the gate."""
-    from wayverb_tpu_torch.raytracer import mt_kernels as mk
-    (t, i), (t_want, i_want) = got, want
-    err = float((t - t_want).abs().max())
-    ids_differ = int((i != i_want).sum())
-    hits = float((t_want < mk.BIG).float().mean())
-    name = "B4" if tris.culled else "B3"
-    print(f"[{tag}] {name} {rays} rays x {tris.num} triangles (Tpad "
-          f"{tris.packed.shape[1]}; {what}): max |t - t_plain| = {err:.3e}, "
-          f"{ids_differ} ids differ, {100 * hits:.1f}% of rays hit (gate: "
-          "equal to the bit)", flush=True)
-    if not (err == 0.0 and ids_differ == 0 and torch.equal(t, t_want)
-            and torch.equal(i, i_want)):
-        _fail(f"{name} disagrees with its plain version: {what}")
-    return err, hits
+def _mt_compare(torch, tag, what, tris, got, want):
+    """A launch's (t, id) against the plain version's on the same rays
+    (``rays_timing.compare``); returns (max |t - t_plain|, share of rays
+    that hit).  Equality to the bit is the gate."""
+    from wayverb_tpu_torch.tools import rays_timing as rt
+    try:
+        return rt.compare(tag, what, tris, got, want,
+                          log=functools.partial(print, flush=True))
+    except rt.Mismatch as e:
+        _fail(str(e))
 
 
 def _mt_case(torch, tag, what, o, d, ex, tris):
@@ -1993,8 +1979,7 @@ def _mt_case(torch, tag, what, o, d, ex, tris):
     got = mk.mt_closest(o, d, ex, tris)
     torch.cuda.synchronize()
     plain = mk._closest_culled_plain if tris.culled else mk._closest_plain
-    return _mt_compare(torch, tag, what, o.shape[0], tris, got,
-                       plain(o, d, ex, tris))
+    return _mt_compare(torch, tag, what, tris, got, plain(o, d, ex, tris))
 
 
 def phase_mt_vs_plain(torch, model_tris, large_tris, card):
@@ -2062,92 +2047,37 @@ def phase_mt_vs_plain(torch, model_tris, large_tris, card):
 
 def _recorded_queries(torch, soup, tris, src, rcv, keep):
     """The rays of a trace (65,536 rays from ``src``) exactly as ``mt_closest``
-    gets them (``_kernel_rays``' output: excludes int32, and sorted rays and
-    sorted ids for culled ``tris``).  A bounce makes two queries, the closest
-    hit (number 2 * bounce) and the visibility of the receiver from the hit
-    point (2 * bounce + 1), where a ray that has left the scene has a
-    non-finite origin.  ``keep``: the numbers of the queries wanted; returns
-    {number: (origin, direction, exclude)}."""
-    from wayverb_tpu_torch.raytracer import mt_kernels as mk
-    from wayverb_tpu_torch.raytracer import tracer
-    kept, count = {}, [0]
-    real = mk._kernel_rays
-
-    def recording(*args):
-        out = real(*args)
-        if count[0] in keep:
-            kept[count[0]] = out[:3]
-        count[0] += 1
-        return out
-
-    bounces = max(keep) // 2 + 1
-    mk._kernel_rays = recording
-    try:
-        tracer.trace(soup, _ray_surfaces(torch, "cuda"), src, rcv,
-                     torch.Generator(device="cuda").manual_seed(SEED + 21),
-                     num_rays=RAYS, depth=bounces, max_time=1.0, accel=tris)
-    finally:
-        mk._kernel_rays = real
-    if count[0] != 2 * bounces or set(kept) != set(keep):
-        _fail(f"recorded {count[0]} ray queries, expected {2 * bounces}")
-    return kept
+    gets them (``rays_timing.record_queries``): {number: (origin, direction,
+    exclude)} for each query number in ``keep``, 2 * bounce for the closest
+    hit and 2 * bounce + 1 for the receiver's visibility."""
+    from wayverb_tpu_torch.tools import rays_timing as rt
+    return rt.record_queries(soup, tris, src, rcv, keep, seed=SEED + 21,
+                             num_rays=RAYS)
 
 
-def _cuda_time_once_us(torch, fn):
-    """(microseconds by CUDA events, result) of one call."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return 1e3 * start.elapsed_time(stop), out
-
-
-def _plain_with_tile_count(tris, o, d, ex):
-    """The plain version's result, and the number of (ray tile, triangle
-    tile) pairs whose arithmetic it ran (for the culled one: the pairs the
-    gate let through)."""
-    from wayverb_tpu_torch.raytracer import mt_kernels as mk
-    scanned, real = [0], mk._mt_tile
-
-    def counting(*args):
-        scanned[0] += 1
-        return real(*args)
-
-    plain = mk._closest_culled_plain if tris.culled else mk._closest_plain
-    mk._mt_tile = counting
-    try:
-        out = plain(o, d, ex, tris)
-    finally:
-        mk._mt_tile = real
-    return out, scanned[0]
-
-
-def mt_bounds(rays, tris):
-    """Bounds of one launch.  Bytes: origin, direction, exclude in (28 B a
-    ray), packed (and tile boxes) in, t and id out (8 B a ray).  B3's
-    operations: MT_OPS_PER_PAIR on every (ray, real triangle) pair.  B4's
-    least operations: one slab test per (ray, triangle tile); the scans the
-    gate lets through depend on the data."""
-    n_bytes = 36 * rays + 4 * tris.packed.numel()
-    if not tris.culled:
-        return _bound(n_bytes, MT_OPS_PER_PAIR * rays * tris.num)
-    tiles = tris.tile_boxes.shape[0]
-    return _bound(n_bytes + 4 * tris.tile_boxes.numel(),
-                  SLAB_OPS_PER_TILE * rays * tiles)
+def mt_bounds(rays, tris, tile_pairs=None):
+    """Bounds of one launch (``rays_timing.bound_us``).  Bytes: origin,
+    direction, exclude in (28 B a ray), packed (and tile boxes) in, t and id
+    out (8 B a ray).  B3's operations: 46 a (ray, real triangle) pair.  B4's:
+    a slab test per (ray, triangle tile), and 46 a pair on the ``tile_pairs``
+    (512-ray tile, 1024-triangle tile) pairs that the plain version's
+    sequential gate lets through on these rays."""
+    from wayverb_tpu_torch.tools import rays_timing as rt
+    us, by = rt.bound_us(rays, tris, tile_pairs)
+    return us / 1e3, by
 
 
 def phase_mt_times(torch, model_soup, model_tris, large_soup, large_tris,
                    large_plain_tris, card):
     """B3 and B4 alone at 65,536 rays of the third bounce of their traces
-    (CUDA events), and their plain versions (one run each), whose results
-    the kernels must equal to the bit at this, the main paths' shape; then
-    the same on a later bounce's visibility query, dead rays among it."""
-    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    (CUDA events, the stream held while the host enqueues), and their plain
+    versions (one run each, the gate's work counted per ray tile), whose
+    results the kernels must equal to the bit at this, the main paths'
+    shape; then the same on a later bounce's visibility query, dead rays
+    among it (``rays_timing.kernel_case``, the ``--kernel`` mode of
+    ``python -m wayverb_tpu_torch.tools.rays_timing``)."""
+    from wayverb_tpu_torch.tools import rays_timing as rt
     out = {}
-    timed, late = 2 * 2, 2 * LATE_BOUNCE + 1
     cases = (
         ("b3", "model hall", model_soup, model_tris, COLUMNS_SRC,
          COLUMNS_RCV, 50, True),
@@ -2155,56 +2085,22 @@ def phase_mt_times(torch, model_soup, model_tris, large_soup, large_tris,
          20, True),
         ("b3_large", "large hall, cull=False", large_soup, large_plain_tris,
          LARGE_SRC, LARGE_RCV, 5, False))
-    for key, what, soup, tris, src, rcv, reps, time_plain in cases:
-        queries = _recorded_queries(
-            torch, soup, tris, src, rcv,
-            {timed, late} if time_plain else {timed})
-        o, d, ex = queries[timed]
-        k_us = _cuda_time_us(torch, lambda: mk.mt_closest(o, d, ex, tris),
-                             reps)
-        bound = mt_bounds(RAYS, tris)
-        pairs = RAYS * tris.num
-        line = (f"[24 mt] {key.upper()} alone, {RAYS} rays of bounce 2 x "
-                f"{tris.num} triangles (Tpad {tris.packed.shape[1]}; {what}): "
-                f"kernel {k_us:.1f} us/launch ({RAYS / k_us:.4e} rays/us, "
-                f"{MT_OPS_PER_PAIR * pairs / k_us / 1e6:.2f} TFLOP/s counted "
-                f"over all pairs), bound {1e3 * bound[0]:.2f} us by "
-                f"{bound[1]}")
-        p_us = ran = err = None
-        if time_plain:
-            p_us, (want, scanned) = _cuda_time_once_us(
-                torch, lambda: _plain_with_tile_count(tris, o, d, ex))
-            line += f", plain version {p_us:.0f} us (one run)"
-            if tris.culled:
-                tile_pairs = (RAYS // mk.RB) * tris.tile_boxes.shape[0]
-                ran = scanned / tile_pairs
-                all_pairs_us = 1e9 * MT_OPS_PER_PAIR * pairs / F32_FLOP_PER_S
-                line += (f"; the gate let {100 * ran:.2f}% of "
-                         f"{tile_pairs} (ray tile, triangle tile) "
-                         f"pairs through; all pairs at the float32 rate "
-                         f"would take {all_pairs_us:.1f} us (not the bound)")
-        print(line + f" [{card}]", flush=True)
-        if time_plain:
-            err, hits = _mt_compare(
-                torch, "24 mt", f"{what}: the closest-hit query of bounce 2, "
-                "the rays just timed", RAYS, tris,
-                mk.mt_closest(o, d, ex, tris), want)
-            lo, ld, lex = queries[late]
-            dead = int((~torch.isfinite(lo).all(dim=1)).sum())
-            plain = mk._closest_culled_plain if tris.culled \
-                else mk._closest_plain
-            err_late, hits_late = _mt_compare(
-                torch, "24 mt", f"{what}: the visibility query of bounce "
-                f"{LATE_BOUNCE}, {dead} origins not finite", RAYS, tris,
-                mk.mt_closest(lo, ld, lex, tris), plain(lo, ld, lex, tris))
-            err = max(err, err_late)
-            if not (hits > 0.99 and dead > 0 and hits_late < 1.0):
-                _fail(f"{what}: the recorded rays are not a trace's "
-                      f"({100 * hits:.2f}% hit at bounce 2; {dead} dead rays "
-                      f"at bounce {LATE_BOUNCE})")
-        out[key] = {"us": k_us, "plain_us": p_us, "bound": bound,
-                    "tile_pairs_run": ran, "max_abs_err": err,
-                    "shape": [RAYS, tris.packed.shape[1]]}
+    for key, what, soup, tris, src, rcv, reps, plain in cases:
+        try:
+            row = rt.kernel_case(
+                key, what, soup, tris, src, rcv, reps=reps, plain=plain,
+                seed=SEED + 21, num_rays=RAYS, late_bounce=LATE_BOUNCE,
+                tag="24 mt", card=card,
+                log=functools.partial(print, flush=True))
+        except rt.Mismatch as e:
+            _fail(str(e))
+        if plain and not (row["hits"] > 0.99 and row["dead"] > 0
+                          and row["hits_late"] < 1.0):
+            _fail(f"{what}: the recorded rays are not a trace's "
+                  f"({100 * row['hits']:.2f}% hit at bounce 2; "
+                  f"{row['dead']} dead rays at bounce {LATE_BOUNCE})")
+        row["bound"] = mt_bounds(RAYS, tris, row.get("scanned_tile_pairs"))
+        out[key] = row
     print(f"[24 mt] at the large hall the gate saves "
           f"{out['b3_large']['us'] / out['b4']['us']:.2f}x (B3 "
           f"{out['b3_large']['us']:.1f} us against B4 {out['b4']['us']:.1f} "
@@ -3363,6 +3259,11 @@ def main():
          max(b4_err, mt_times["b4"]["max_abs_err"]),
          "trace on the large hall (two launches a bounce)",
          {"tile_pairs_run": mt_times["b4"]["tile_pairs_run"],
+          "tiles_per_ray_tile": {
+              k: mt_times["b4"]["tile_stats"][k]
+              for k in ("max", "mean", "min")},
+          "registers": mt_times["b4"]["occupancy"]["registers"],
+          "ctas_per_sm": mt_times["b4"]["occupancy"]["ctas_per_sm"],
           "all_pairs_kernel_ms": mt_times["b3_large"]["us"] / 1e3}))), *({
         "name": name,
         "route": "cuda",

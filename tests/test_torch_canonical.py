@@ -232,8 +232,10 @@ def test_port_never_imports_jax():
     for name in ("combined.engine", "core.geometry", "core.scene", "convert",
                  "raytracer.accel", "raytracer.mt_kernels",
                  "raytracer.scenes", "waveguide.box_boundary",
-                 "tools.probe_resident", "waveguide.run", "waveguide.setup",
-                 "waveguide.stencil", "waveguide.stencil_kernels"):
+                 "tools.probe_resident", "tools.rays_timing",
+                 "tools.roofline", "waveguide.run",
+                 "waveguide.setup", "waveguide.stencil",
+                 "waveguide.stencil_kernels"):
         assert f"wayverb_tpu_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)

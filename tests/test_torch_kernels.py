@@ -19,6 +19,9 @@ from wayverb_tpu_torch.waveguide import box_mega as tbm
 from wayverb_tpu_torch.waveguide import run as wgrun
 from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
 
+# the scenes of B4's cluster split, shared with its CPU test
+from test_torch_mt_cluster import SCENES, _scene  # noqa: E402
+
 ATOL = 1e-5          # the bound tests/test_box_fused.py holds Pallas to
 MEGA_REL = 1e-5      # B2 against its plain version, per unit of peak
 BWD_REL = 1e-5       # B5, B6's residuals and B7 against plain, of the largest
@@ -940,6 +943,62 @@ def test_trace_on_the_card_matches_dda_on_cpu(cuda_device, cull):
     w = cpu.histogram.sum(dim=(0, 1, 2))
     assert float(w.min()) > 0
     np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# B4 spread over a thread-block cluster of mt_kernels.CLUSTER CTAs
+
+B4_CASES = SCENES + ("hall of 20,000, 1000 rays", "hall of 20,000, 300 rays",
+                     "hall of 20,000, a quarter of the origins not finite")
+
+
+def _b4_case(case, device):
+    """(culled tables, origin, direction, exclude) on ``device``, the rays
+    sorted for the gate: the CPU file's scenes (ties between the cluster's
+    shares, a hit found only through a vote) or the trimmed hall."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    if case in SCENES:
+        tris, o, d, ex = _scene(case)
+        return (tris.to(device), *(x.to(device) for x in (o, d, ex)))
+    tris = mk.build_mt_triangles(_hall_soup(20000), cull=True).to(device)
+    rays = 300 if "300" in case else (4096 if "finite" in case else 1000)
+    o, d, ex = _hall_rays(rays, device, seed=rays, num_triangles=20000)
+    if "finite" in case:
+        o[0::8] = float("nan")
+        o[1::8, 0] = float("inf")
+    order = torch.argsort(mk._ray_sort_keys(o, d, tris), stable=True)
+    return (tris, *(x[order].contiguous() for x in (o, d, ex)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B4_CASES)
+def test_b4_cluster_matches_plain(cuda_device, case):
+    """B4 against ``_closest_culled_plain`` to the bit: ragged ray counts,
+    rays below one gate tile, dead rays, equal t in two CTAs' shares (the
+    lowest id wins), a slack hit that only the gate tile's one voter lets
+    through."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    tris, o, d, ex = _b4_case(case, cuda_device)
+    before = mk.mt_closest.culled_launches
+    t, i = mk.mt_closest(o, d, ex, tris)
+    torch.cuda.synchronize()
+    assert mk.mt_closest.culled_launches == before + 1
+    t_want, i_want = mk._closest_culled_plain(o, d, ex, tris)
+    assert torch.equal(t, t_want), (case, float((t - t_want).abs().max()))
+    assert torch.equal(i, i_want), case
+    if case == "ties":
+        assert torch.equal(i.cpu(), torch.where(ex.cpu() == 127, 128, 127)
+                           .to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_b4_cluster_residency(cuda_device):
+    """The kernel spills nothing, two CTAs of 512 threads fit an SM, and the
+    card holds clusters of ``CLUSTER`` CTAs."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    occ = mk.culled_occupancy(cuda_device)
+    assert occ["local_bytes"] == 0 and occ["ctas_per_sm"] >= 2, occ
+    assert occ["clusters"] >= 1 and occ["registers"] <= 64, occ
 
 
 # ---------------------------------------------------------------------------

@@ -17,31 +17,61 @@
 //   tfar   = min over axes of max(t0, t1), from 3.4e38
 //   possible = tnear <= tfar and tfar > 0 and tnear < best_t
 //
-// and the Möller–Trumbore scan of the tile (ray_mt.cuh, as in
-// ray_mt_closest.cu) runs for ALL rays of the ray tile if `possible` holds
-// for ANY of them.  The vote over exactly those 512 rays is part of the
-// function: a hit found only through the barycentric slack can lie just
-// outside its tile's box, so whether it is found depends on which rays share
-// the gate.  min and max propagate NaN as torch.minimum/maximum do.  Kernel
-// and plain version agree to the bit.
+// and the Möller–Trumbore scan of the tile runs for ALL rays of the ray tile
+// if `possible` holds for ANY of them.  The vote over exactly those 512 rays
+// is part of the function: a hit found only through the barycentric slack
+// can lie just outside its tile's box, so whether it is found depends on
+// which rays share the gate.  min and max propagate NaN as
+// torch.minimum/maximum do.  Kernel and plain version agree to the bit.
 //
-// One block owns one ray tile, one thread one ray: the vote is a
-// __syncthreads_or, which is also the barrier between one tile's readers and
-// the next tile's staging.  A ragged last ray tile is padded with zero rays,
-// which vote like any other (as the reference's zero padding does).
+// What bounds it on the card: float32 operations, and the work depends on
+// the data.  The slab tests are 24 operations per (ray, triangle tile); each
+// (ray, triangle) pair the gate lets through adds the 46 of the Möller–
+// Trumbore arithmetic, and about 24 more instructions that are not counted
+// as operations: 14 compares and selects, the IEEE reciprocal's sequence,
+// three shared-memory loads.  With --fmad=false nothing contracts, so a pair
+// takes about 70 instructions where it is computed in full; the scan below
+// computes in full only the pairs of warps where some lane may hit.
 //
-// What bounds it on the card: float32 operations.  The least work is the
-// slab tests, 24 operations of arithmetic per (ray, triangle tile); the scans
-// the gate lets through add 46 (and about 14 compares and selects) per (ray,
-// triangle) and depend on the data.
+// Design.  A gate tile's triangle tiles are sequential (each vote reads the
+// running best after all earlier tiles), and gate tiles do unequal work: one
+// block per gate tile left the heaviest one alone on an SM, 128 blocks of 16
+// warps on 132 SMs.  Here a thread-block cluster of kCluster = 8 CTAs
+// (`__cluster_dims__`) owns one gate tile.  Every CTA of the cluster holds
+// all 512 rays, one per thread.  For each triangle tile the gate lets
+// through, CTA c stages and scans only triangles [c*128, (c+1)*128) of it,
+// starting from the ray's merged best, and writes its partial (t, id) to its
+// shared memory.  After a cluster barrier every CTA reads the 8 partials of
+// its rays through distributed shared memory and takes their lexicographic
+// minimum of (t, id).  The scan's result is the closest hit, the lowest id
+// among equal t (each partial starts from the merged best and updates on
+// strictly less, and the tile's ids exceed every earlier one), so this
+// minimum is what the sequential scan of the whole tile gives, in any order
+// of the shares.  Every CTA then holds the same merged best, computes the
+// same vote for the next tile, and the cluster walks the triangle tiles in
+// lockstep, deciding exactly as the sequential gate does.  The partials are
+// double-buffered by the parity of the scanned tile, so one cluster barrier
+// a scanned tile suffices; a last barrier keeps each CTA's shared memory
+// alive until the others have read it.  The per-pair arithmetic is
+// `mt_scan_tile`'s (ray_mt.cuh), operation for operation, where it runs;
+// `scan_share` skips it for a warp none of whose rays can hit the triangle
+// (see there).  Measured (PERF.md §6): clusters of 8 beat 1, 2 and 4; two
+// CTAs of 64 registers an SM.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "ray_mt.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kRayTile = 512;  // RB of mt_kernels.py: the gate's ray tile
+constexpr int kRayTile = 512;   // RB of mt_kernels.py: the gate's ray tile
+constexpr int kCluster = 8;     // CTAs of the cluster that owns a gate tile
+// a CTA's share of one tile in shared memory, in bytes
+constexpr size_t kShareBytes =
+    (wv::kMtTile / kCluster) * (2 * sizeof(float4) + sizeof(float));
 
 // min/max that return a NaN operand, as torch.minimum/maximum do (fminf and
 // fmaxf drop it).
@@ -57,23 +87,123 @@ __device__ inline float slab_reciprocal(float d) {
   return 1.0f / safe;
 }
 
-__global__ void __launch_bounds__(kRayTile)
-ray_mt_closest_culled_kernel(const float* __restrict__ origin,
-                             const float* __restrict__ direction,
-                             const int* __restrict__ exclude,
-                             const float* __restrict__ packed,
-                             const float* __restrict__ boxes,
-                             float* __restrict__ t_out,
-                             int* __restrict__ id_out, int R, int Tpad,
-                             int num) {
-  __shared__ wv::MtTileSmem tile;
-  const int r = blockIdx.x * kRayTile + threadIdx.x;
+// A CTA's share of one tile in dynamic shared memory, laid out as
+// wv::MtTileSmem with `share` triangles: v0.xyz e1.x | e1.yz e2.xy | e2.z.
+struct Share {
+  float4* a;
+  float4* b;
+  float* c;
+};
+
+__device__ inline Share share_layout(float4* smem, int share) {
+  return {smem, smem + share, reinterpret_cast<float*>(smem + 2 * share)};
+}
+
+// Copy triangles first .. first+n-1 of packed (9, Tpad) into the share.
+__device__ inline void stage_share(const float* __restrict__ packed, int Tpad,
+                                   int first, int n, const Share& s) {
+  for (int j = threadIdx.x; j < n; j += kRayTile) {
+    const float* p = packed + first + j;
+    s.a[j] = make_float4(p[0], p[Tpad], p[2 * Tpad], p[3 * Tpad]);
+    s.b[j] = make_float4(p[4 * Tpad], p[5 * Tpad], p[6 * Tpad], p[7 * Tpad]);
+    s.c[j] = p[8 * Tpad];
+  }
+}
+
+// wv::mt_scan_tile on a share: triangles first .. first+n-1, the same
+// operations in the same order, the same strictly-less update, so the same
+// bits.  Two warp-wide tests, taken before the IEEE reciprocal, skip a
+// triangle that no lane of the warp can hit.  A hit has u >= -1e-4, v >=
+// -1e-4 and u + v <= 1 + 1e-4, with u = du * (1 / det) and v = dv * (1 /
+// det) each rounded twice (relative error below 2.4e-7); so its lane has
+//
+//   sdu >= -2e-4 * |det|,  sdu <= 1.0006 * |det|                  (test 1)
+//   sdv >= -2e-4 * |det|,  sdu + sdv <= 1.0006 * |det|            (test 2)
+//
+// with sdu, sdv = du, dv times the sign of det: the margins exceed every
+// rounding of the products and of the sum, as long as 1 / det is a normal
+// float, and |det| >= 2^100 passes both tests.  A warp whose lanes all fail
+// a test cannot change any lane's best, so it skips the rest of the pair.
+__device__ inline void scan_share(const wv::MtRay& ray, const Share& s,
+                                  int first, int n, float& best_t,
+                                  int& best_id) {
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+    const float4 a = s.a[j];
+    const float4 b = s.b[j];
+    const float v0x = a.x, v0y = a.y, v0z = a.z;
+    const float e1x = a.w, e1y = b.x, e1z = b.y;
+    const float e2x = b.z, e2y = b.w, e2z = s.c[j];
+
+    // pvec = d x e2
+    const float px = ray.dy * e2z - ray.dz * e2y;
+    const float py = ray.dz * e2x - ray.dx * e2z;
+    const float pz = ray.dx * e2y - ray.dy * e2x;
+    const float det = e1x * px + e1y * py + e1z * pz;
+    const bool ok = fabsf(det) > wv::kMtEpsilon;
+    // tvec = o - v0
+    const float tx = ray.ox - v0x, ty = ray.oy - v0y, tz = ray.oz - v0z;
+    const float du = tx * px + ty * py + tz * pz;
+    const float adet = fabsf(det);
+    const float sdu = det < 0.0f ? -du : du;
+    const bool big = adet >= 1.2676506e30f;  // 2^100
+    const bool near_u = sdu >= -2e-4f * adet && sdu <= 1.0006f * adet;
+    if (!__any_sync(0xffffffffu, ok && (big || near_u))) continue;
+    // qvec = tvec x e1
+    const float qx = ty * e1z - tz * e1y;
+    const float qy = tz * e1x - tx * e1z;
+    const float qz = tx * e1y - ty * e1x;
+    const float dv = ray.dx * qx + ray.dy * qy + ray.dz * qz;
+    const float sdv = det < 0.0f ? -dv : dv;
+    if (!__any_sync(0xffffffffu,
+                    ok && (big || (near_u && sdv >= -2e-4f * adet &&
+                                   sdu + sdv <= 1.0006f * adet))))
+      continue;
+    const float inv_det = ok ? 1.0f / det : 0.0f;
+    const float u = du * inv_det;
+    const float v = dv * inv_det;
+    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+
+    const int id = first + j;
+    const bool hit = ok && u >= -wv::kMtSlack && v >= -wv::kMtSlack &&
+                     u + v <= wv::kMtOnePlusSlack && t > wv::kMtEpsilon &&
+                     id != ray.exclude;
+    if (hit && t < best_t) {
+      best_t = t;
+      best_id = id;
+    }
+  }
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kRayTile, 2)
+    ray_mt_closest_culled_kernel(const float* __restrict__ origin,
+                                 const float* __restrict__ direction,
+                                 const int* __restrict__ exclude,
+                                 const float* __restrict__ packed,
+                                 const float* __restrict__ boxes,
+                                 float* __restrict__ t_out,
+                                 int* __restrict__ id_out, int R, int Tpad,
+                                 int num) {
+  extern __shared__ float4 smem[];
+  __shared__ float part_t[2][kRayTile];
+  __shared__ int part_id[2][kRayTile];
+  cg::cluster_group cluster = cg::this_cluster();
+  // kCluster, read from the cluster: with the constant folded in, the
+  // kernel spilled 32 B a thread under the 64-register cap
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int share = wv::kMtTile / C;
+  const Share tile = share_layout(smem, share);
+
+  const int r = (blockIdx.x / C) * kRayTile + threadIdx.x;
   const wv::MtRay ray = wv::mt_load_ray(origin, direction, exclude, r, R);
   const float o[3] = {ray.ox, ray.oy, ray.oz};
   const float rd[3] = {slab_reciprocal(ray.dx), slab_reciprocal(ray.dy),
                        slab_reciprocal(ray.dz)};
-  float best_t = wv::kMtBig;
+  float best_t = wv::kMtBig;  // the merged best: equal in every CTA
   int best_id = 0;
+  int parity = 0;
   for (int base = 0; base < num; base += wv::kMtTile) {
     const float* box = boxes + 8 * (base / wv::kMtTile);
     float tnear = -wv::kMtBig, tfar = wv::kMtBig;
@@ -85,14 +215,34 @@ ray_mt_closest_culled_kernel(const float* __restrict__ origin,
       tfar = nan_min(tfar, nan_max(t0, t1));
     }
     const bool possible = tnear <= tfar && tfar > 0.0f && tnear < best_t;
-    // the vote doubles as the barrier after the previous tile's scan
+    // the vote doubles as the barrier after the previous share's scan
     if (!__syncthreads_or(possible)) continue;
     const int n = min(wv::kMtTile, num - base);
-    wv::mt_stage_tile<kRayTile>(packed, Tpad, base, n, tile);
+    const int lo = min(rank * share, n);
+    const int hi = min(lo + share, n);
+    stage_share(packed, Tpad, base + lo, hi - lo, tile);
     __syncthreads();
-    wv::mt_scan_tile(ray, tile, base, n, best_t, best_id);
+    float t = best_t;
+    int id = best_id;
+    scan_share(ray, tile, base + lo, hi - lo, t, id);
+    part_t[parity][threadIdx.x] = t;
+    part_id[parity][threadIdx.x] = id;
+    cluster.sync();
+    for (int q = 0; q < C; ++q) {
+      const float tq = *cluster.map_shared_rank(&part_t[parity][threadIdx.x],
+                                                q);
+      const int iq = *cluster.map_shared_rank(&part_id[parity][threadIdx.x],
+                                              q);
+      if (tq < best_t || (tq == best_t && iq < best_id)) {
+        best_t = tq;
+        best_id = iq;
+      }
+    }
+    parity ^= 1;
   }
-  if (r < R) {
+  // no CTA leaves while another may still read its partials
+  cluster.sync();
+  if (rank == 0 && r < R) {
     t_out[r] = best_t;
     id_out[r] = best_id;
   }
@@ -102,18 +252,41 @@ ray_mt_closest_culled_kernel(const float* __restrict__ origin,
 
 extern "C" {
 
-// Returns the CUDA error code of the launch (0 on success).  Launches on
-// `stream` and does not synchronise; allocates nothing.
+// Returns the CUDA error code of the launch (0 on success): one cluster of
+// kCluster CTAs of 512 threads per 512 rays.  Launches on `stream` and does
+// not synchronise; allocates nothing.  A launch the card cannot take returns
+// its error.
 int wv_ray_mt_closest_culled_f32(const float* origin, const float* direction,
                                  const int* exclude, const float* packed,
                                  const float* boxes, float* t_out,
                                  int* id_out, int R, int Tpad, int num,
                                  void* stream) {
-  const int blocks = (R + kRayTile - 1) / kRayTile;
-  ray_mt_closest_culled_kernel<<<blocks, kRayTile, 0,
+  const int blocks = (R + kRayTile - 1) / kRayTile * kCluster;
+  ray_mt_closest_culled_kernel<<<blocks, kRayTile, kShareBytes,
                                  static_cast<cudaStream_t>(stream)>>>(
       origin, direction, exclude, packed, boxes, t_out, id_out, R, Tpad, num);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card makes of the kernel: its registers a thread, local memory
+// (spills) a thread, the CTAs resident on one SM, and the clusters resident
+// on the whole card.  Returns the CUDA error code (0 on success).
+int wv_ray_mt_closest_culled_occupancy(int* registers, int* local_bytes,
+                                       int* ctas_per_sm, int* clusters) {
+  cudaFuncAttributes attrs;
+  cudaError_t e = cudaFuncGetAttributes(&attrs, ray_mt_closest_culled_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *registers = attrs.numRegs;
+  *local_bytes = static_cast<int>(attrs.localSizeBytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, ray_mt_closest_culled_kernel, kRayTile, kShareBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(128 * kCluster);
+  config.blockDim = dim3(kRayTile);
+  config.dynamicSmemBytes = kShareBytes;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, ray_mt_closest_culled_kernel, &config));
 }
 
 const char* wv_cuda_error_string(int code) {

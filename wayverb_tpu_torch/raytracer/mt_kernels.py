@@ -22,7 +22,11 @@ Each has a hand-written CUDA kernel for Hopper (``csrc/ray_mt_closest.cu``,
 operations, tiles, padding and tie rules.  ``mt_closest`` launches the kernel
 on CUDA tensors (or raises) and runs the plain version on CPU tensors;
 launches are counted in ``mt_closest.launches`` (all-pairs kernel) and
-``mt_closest.culled_launches``.
+``mt_closest.culled_launches``.  The culled kernel spreads each gate tile
+over a thread-block cluster of ``CLUSTER`` CTAs (fixed when it is compiled),
+each scanning a share of every triangle tile the gate lets through; the
+partial hits are merged before the next vote, so the result is the
+sequential gate's to the bit.
 
 No gradient: hit indices and parameters are piecewise constant in the
 geometry, and the tracer's differentiable quantities (band energies) flow
@@ -34,6 +38,7 @@ EPSILON, barycentric slack 1e-4).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -41,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from wayverb_tpu_torch._build import load_entry
+from wayverb_tpu_torch._build import load, load_entry
 from wayverb_tpu_torch.core.geometry import EPSILON, TriangleSoup
 
 SLACK = 1e-4          # barycentric edge slack (geometry.ray_triangle_…)
@@ -49,6 +54,8 @@ RB = 512              # rays per gate tile of the culled kernel
 TB = 1024             # triangles per tile: padding of ``packed``, tile boxes
 BIG = 3.4e38
 CULL_MIN_TRIS = 8192   # below this the all-pairs kernel wins outright
+CLUSTER = 8            # CTAs of the cluster that owns one gate tile (B4's
+#                        kCluster, fixed in csrc/ray_mt_closest_culled.cu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,6 +343,25 @@ def mt_closest(origin, direction, exclude, tris: MtTriangles):
 
 mt_closest.launches = 0
 mt_closest.culled_launches = 0
+
+
+def culled_occupancy(device="cuda") -> dict:
+    """What the card makes of the culled kernel: registers a thread, local
+    memory (spills) a thread in bytes, CTAs resident on one SM, clusters of
+    ``CLUSTER`` CTAs resident on the card."""
+    lib = load("ray_mt_closest_culled")
+    fn = lib.wv_ray_mt_closest_culled_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    lib.wv_cuda_error_string.restype = ctypes.c_char_p
+    out = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device):
+        err = fn(*(ctypes.byref(x) for x in out))
+    if err != 0:
+        raise RuntimeError("ray_mt_closest_culled occupancy query failed: "
+                           + lib.wv_cuda_error_string(err).decode())
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "clusters"),
+                    (x.value for x in out)))
 
 
 # ---------------------------------------------------------------------------

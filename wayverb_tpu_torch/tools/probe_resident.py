@@ -45,10 +45,10 @@ import time
 
 import torch
 
+from wayverb_tpu_torch.tools import roofline
+
 C2 = 1.0 / 3.0
 BYTES_PER_NODE = 8             # both float32 fields
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
-F32_FLOP_PER_S = 67e12
 OPS_PER_NODE = 7               # 5 adds, a multiply, a subtract a sub-step
 
 # the sweep: the reference's shapes, two that fit shared memory, one under
@@ -323,9 +323,7 @@ def bound_us(dims, K: int, resident: bool):
     12 B a node a sub-step (src read, dst read and written)."""
     n = math.prod(dims)
     moved = 2 * BYTES_PER_NODE * n / K if resident else 12 * n
-    t_bytes = 1e6 * moved / HBM_BYTES_PER_S
-    t_ops = 1e6 * OPS_PER_NODE * n / F32_FLOP_PER_S
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline.bound_us(moved, OPS_PER_NODE * n)
 
 
 def impulse_fields(dims, device):
