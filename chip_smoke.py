@@ -69,18 +69,25 @@ Drives the port through its public entry points on the card and fails
     breakdown of a forward + backward step; then card against CPU on the
     small columns hall;
 23. B3 and B4 (the closest ray–triangle hit over all triangles, and behind
-    the Morton-tile gate) against their plain versions, to the bit: 100, 512
-    and 4,096 rays on 12 to 20,000 triangles, with and without excludes, rays
-    that all miss, a triangle list held three times, then the model hall's
-    and the large hall's own tables, also with origins that are not finite;
+    the Morton-tile gate) against their plain versions, to the bit: 100, 512,
+    700 and 4,096 rays on 3 (fewer than B3's cluster has shares) to 20,000
+    triangles, with and without excludes, rays that all miss, a triangle
+    list held three times (equal t, and excludes, in other CTAs' shares of
+    B3's cluster; the lowest id wins wherever the plain version says so),
+    then the model hall's and the large hall's own tables, also with
+    origins that are not finite; then B3 on 1,500 rays (a ragged second
+    block) and on rays on the slack's edges of the model hall;
 24. their times at 65,536 rays of a real bounce: B3 at the model hall
     (``raytracer.scenes.procedural_hall()``, 5,448 triangles), B4 and B3 at
     the large hall (``procedural_hall_large()``, 97,068 triangles), and the
     plain versions', whose results B3 and B4 must equal to the bit at these
     shapes, the main paths' own: on the rays just timed and on a later
     bounce's visibility query, where some rays have left the scene; the
-    triangle tiles B4's gate lets through per 512-ray tile (the ``--kernel``
-    mode of ``python -m wayverb_tpu_torch.tools.rays_timing``);
+    triangle tiles B4's gate lets through per 512-ray tile; B3's and B4's
+    registers, spills and residency, and for B3 the share of (warp,
+    triangle) pairs its skip tests drop, with the rays in the tracer's order
+    (the ``--kernel`` mode of ``python -m
+    wayverb_tpu_torch.tools.rays_timing``);
 25. the model hall end to end: written with ``save_obj``, read back with
     ``load_scene``, ``Engine`` without ``scene_box`` (``auto_accel`` gives
     the MT kernels), ``run`` + ``render`` + ``render_all``, with the seconds
@@ -1929,12 +1936,16 @@ def _reset_ray_counts():
 
 def _triangles_soup(torch, num_triangles):
     """The first ``num_triangles`` triangles of a procedural hall (the
-    kernels need no closed scene); 12 is the hall's bare shoebox."""
+    kernels need no closed scene); 12 is the hall's bare shoebox, 3 the
+    first three of its triangles."""
     import dataclasses
     from wayverb_tpu_torch.core.geometry import Box, box_scene
     from wayverb_tpu_torch.raytracer.scenes import procedural_hall
-    if num_triangles == 12:
-        return box_scene(Box((0.0, 0.0, 0.0), (20.0, 8.0, 15.0)))
+    if num_triangles in (3, 12):
+        box = box_scene(Box((0.0, 0.0, 0.0), (20.0, 8.0, 15.0)))
+        return dataclasses.replace(
+            box, triangles=box.triangles[:num_triangles],
+            surfaces=box.surfaces[:num_triangles])
     args = {1000: (10, 0, 1), 5448: (20, 6, 3), 20000: (40, 10, 4)}
     soup, n = procedural_hall(*args[num_triangles])
     if n < num_triangles:
@@ -1982,18 +1993,32 @@ def _mt_case(torch, tag, what, o, d, ex, tris):
     return _mt_compare(torch, tag, what, tris, got, plain(o, d, ex, tris))
 
 
+def _intersection_plain(torch, o, d, tris, exclude=None):
+    """``mt_intersection`` with the plain version in the kernel's place."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    o, d, ex, order = mk._kernel_rays(o, d, exclude, tris)
+    plain = mk._closest_culled_plain if tris.culled else mk._closest_plain
+    t, idx = plain(o, d, ex, tris)
+    if order is not None:
+        t = torch.empty_like(t).index_copy_(0, order, t)
+        idx = torch.empty_like(idx).index_copy_(0, order, idx)
+        idx = tris.perm[torch.clamp(idx, 0, tris.perm.shape[0] - 1).long()]
+    hit = t < mk.BIG
+    return torch.where(hit, t, torch.full_like(t, float("inf"))), idx, hit
+
+
 def phase_mt_vs_plain(torch, model_tris, large_tris, card):
     """B3 and B4 against their plain versions; returns their worst errors."""
     from wayverb_tpu_torch.core.geometry import TriangleSoup
     from wayverb_tpu_torch.raytracer import mt_kernels as mk
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     worst = {False: 0.0, True: 0.0}
-    for num_triangles, cull in ((12, False), (1000, False), (5448, False),
-                                (20000, False), (12, True), (1000, True),
-                                (20000, True)):
+    for num_triangles, cull in ((3, False), (12, False), (1000, False),
+                                (5448, False), (20000, False), (12, True),
+                                (1000, True), (20000, True)):
         tris = mk.build_mt_triangles(_triangles_soup(torch, num_triangles),
                                      cull=cull).to("cuda")
-        for rays in (100, 512, 4096):
+        for rays in (100, 512, 700, 4096):
             for what in ("no excludes", "random excludes", "all miss"):
                 o, d, ex = _random_rays(
                     torch, rays, gen,
@@ -2003,26 +2028,48 @@ def phase_mt_vs_plain(torch, model_tris, large_tris, card):
                 worst[cull] = max(worst[cull], err)
                 if (hits == 0.0) != (what == "all miss"):
                     _fail(f"{what}: {100 * hits:.1f}% of the rays hit")
-    # equal t in two triangle tiles: the lowest id wins, then the next copy
+    # equal t in two triangle tiles, and in other CTAs' shares of B3's
+    # cluster: the lowest id wins, then, once it is excluded, the next copy,
+    # unless a neighbour of the first copy (an edge shared at equal t) comes
+    # first.  The premise holds only where the plain version meets it, and
+    # the kernel must break it on exactly the rays where the plain version
+    # does, since both queries equal the plain version to the bit.
     soup = _triangles_soup(torch, 1000)
     dup = TriangleSoup(soup.vertices, torch.cat([soup.triangles] * 3),
                        torch.cat([soup.surfaces] * 3))
     o, d, _ = _random_rays(torch, 4096, gen)
     for cull in (False, True):
         tris = mk.build_mt_triangles(dup, cull=cull).to("cuda")
+        name = "B4" if cull else "B3"
+        what = "a triangle list held three times (3000 triangles, equal t)"
         t, i, hit = mk.mt_intersection(o, d, tris)
         t1, i1, hit1 = mk.mt_intersection(o, d, tris, exclude_triangle=i)
-        ok = bool(hit.any()) and int(i[hit].max()) < 1000 \
-            and torch.equal(hit1, hit) and torch.equal(t1[hit], t[hit]) \
-            and torch.equal(i1[hit], i[hit] + 1000)
-        print(f"[23 mt] {'B4' if cull else 'B3'} on a triangle list held "
-              f"three times (3000 triangles, equal t): lowest id wins, then "
-              f"the next copy once it is excluded: {ok}")
+        pt, pi, phit = _intersection_plain(torch, o, d, tris)
+        pt1, pi1, phit1 = _intersection_plain(torch, o, d, tris, exclude=pi)
+        same = all(torch.equal(x, y) for x, y in (
+            (t, pt), (i, pi), (hit, phit), (t1, pt1), (i1, pi1),
+            (hit1, phit1)))
+        premise = hit & hit1 & (t1 == t) & (i1 == i + 1000)
+        plain_premise = phit & phit1 & (pt1 == pt) & (pi1 == pi + 1000)
+        broken = hit & ~premise
+        neighbour = broken & hit1 & (t1 == t) & (i1 < 1000) & (i1 != i)
+        ok = bool(hit.any()) and int(i[hit].max()) < 1000 and same \
+            and torch.equal(premise, plain_premise) \
+            and torch.equal(neighbour, broken) \
+            and int(broken.sum()) <= int(hit.sum()) // 100
+        print(f"[23 mt] {name} on {what}: of {int(hit.sum())} rays that hit, "
+              f"the next copy wins once the first is excluded on "
+              f"{int(premise.sum())} (plain version {int(plain_premise.sum())}"
+              f"), an equal-t neighbour of the first copy on "
+              f"{int(neighbour.sum())}, at rays "
+              f"{torch.nonzero(broken).flatten().tolist()[:16]}; both "
+              f"queries equal to the plain version to the bit: {same}; "
+              f"lowest id wins: {ok}")
         if not ok:
             _fail("equal t did not resolve to the lowest triangle id")
         worst[cull] = max(worst[cull], _mt_case(
-            torch, "23 mt", "a triangle list held three times, excludes from "
-            "the first hit", o, d, i, tris)[0])
+            torch, "23 mt", f"{what}, excludes from the first hit", o, d, i,
+            tris)[0])
     # the tables the main paths use
     o, d, _ = _random_rays(torch, 4096, gen)
     _, first, _ = mk.mt_intersection(o, d, model_tris)
@@ -2042,6 +2089,27 @@ def phase_mt_vs_plain(torch, model_tris, large_tris, card):
         worst[cull] = max(worst[cull], _mt_case(
             torch, "23 mt", "a quarter of the origins NaN or infinite", o, d,
             first, tris)[0])
+    # B3's split: 1500 rays (a ragged second block; the 3 triangles above
+    # are fewer than the cluster's shares), and rays aimed at the
+    # barycentric slack's edges of the model hall's triangles, where the
+    # skip tests are closest to dropping a hit
+    tris = mk.build_mt_triangles(_triangles_soup(torch, 5448),
+                                 cull=False).to("cuda")
+    for what in ("no excludes", "random excludes"):
+        o, d, ex = _random_rays(torch, 1500, gen,
+                                5448 if what == "random excludes" else None)
+        err, hits = _mt_case(torch, "23 mt", what, o, d, ex, tris)
+        worst[False] = max(worst[False], err)
+        if hits == 0.0:
+            _fail(f"{what}: no ray hit 5448 triangles")
+    from wayverb_tpu_torch.tools.rays_timing import edge_rays
+    o, d = edge_rays(model_tris.packed[:, :model_tris.num], 4096,
+                     np.random.default_rng(SEED + 20))
+    err, hits = _mt_case(torch, "23 mt", "rays on the slack's edges", o, d,
+                         None, model_tris)
+    worst[False] = max(worst[False], err)
+    if hits < 0.5:
+        _fail(f"only {100 * hits:.1f}% of the slack-edge rays hit")
     return worst[False], worst[True]
 
 
@@ -2084,7 +2152,7 @@ def phase_mt_times(torch, model_soup, model_tris, large_soup, large_tris,
         ("b4", "large hall", large_soup, large_tris, LARGE_SRC, LARGE_RCV,
          20, True),
         ("b3_large", "large hall, cull=False", large_soup, large_plain_tris,
-         LARGE_SRC, LARGE_RCV, 5, False))
+         LARGE_SRC, LARGE_RCV, 5, True))
     for key, what, soup, tris, src, rcv, reps, plain in cases:
         try:
             row = rt.kernel_case(
@@ -2105,6 +2173,10 @@ def phase_mt_times(torch, model_soup, model_tris, large_soup, large_tris,
           f"{out['b3_large']['us'] / out['b4']['us']:.2f}x (B3 "
           f"{out['b3_large']['us']:.1f} us against B4 {out['b4']['us']:.1f} "
           f"us per launch, the ray sort not counted) [{card}]")
+    for key in ("b3", "b4"):
+        occ = out[key]["occupancy"]
+        if occ["local_bytes"] or occ["registers"] > 64:
+            _fail(f"{key.upper()} spills or exceeds 64 registers: {occ}")
     return out
 
 
@@ -3253,8 +3325,21 @@ def main():
         **extra,
     } for name, key, line, err, on, extra in (
         ("ray_mt_closest", "b3", 192,
-         max(b3_err, mt_times["b3"]["max_abs_err"]),
-         "Engine.run on the model hall (two launches a bounce)", {}),
+         max(b3_err, mt_times["b3"]["max_abs_err"],
+             mt_times["b3_large"]["max_abs_err"]),
+         "Engine.run on the model hall (two launches a bounce)",
+         {"late_ms": mt_times["b3"]["late_us"] / 1e3,
+          **{k: mt_times["b3"]["occupancy"][k]
+             for k in ("registers", "local_bytes", "ctas_per_sm",
+                       "clusters")},
+          "skip_shares": mt_times["b3"]["skip_shares"],
+          "large_hall": {
+              "shape": mt_times["b3_large"]["shape"],
+              "ms": mt_times["b3_large"]["us"] / 1e3,
+              "late_ms": mt_times["b3_large"]["late_us"] / 1e3,
+              "plain_ms": mt_times["b3_large"]["plain_us"] / 1e3,
+              "bound_ms": mt_times["b3_large"]["bound"][0],
+              "skip_shares": mt_times["b3_large"]["skip_shares"]}}),
         ("ray_mt_closest_culled", "b4", 203,
          max(b4_err, mt_times["b4"]["max_abs_err"]),
          "trace on the large hall (two launches a bounce)",

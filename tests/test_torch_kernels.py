@@ -19,8 +19,10 @@ from wayverb_tpu_torch.waveguide import box_mega as tbm
 from wayverb_tpu_torch.waveguide import run as wgrun
 from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
 
-# the scenes of B4's cluster split, shared with its CPU test
+# the scenes of B4's cluster split and of B3's split, shared with their CPU
+# tests
 from test_torch_mt_cluster import SCENES, _scene  # noqa: E402
+from test_torch_mt_split import B3_SCENES, _b3_scene  # noqa: E402
 
 ATOL = 1e-5          # the bound tests/test_box_fused.py holds Pallas to
 MEGA_REL = 1e-5      # B2 against its plain version, per unit of peak
@@ -999,6 +1001,60 @@ def test_b4_cluster_residency(cuda_device):
     occ = mk.culled_occupancy(cuda_device)
     assert occ["local_bytes"] == 0 and occ["ctas_per_sm"] >= 2, occ
     assert occ["clusters"] >= 1 and occ["registers"] <= 64, occ
+
+
+# ---------------------------------------------------------------------------
+# B3: the triangle axis split over a thread-block cluster of B3_CLUSTER CTAs
+
+B3_CASES = B3_SCENES + ("the model hall's bounce-2 query, 8192 rays",)
+
+
+def _b3_case(case, device):
+    """(all-pairs table, origin, direction, exclude) on ``device``: the CPU
+    file's scenes (ragged and short ray counts, dead rays, equal t in
+    several shares, an exclude in another share, fewer triangles than
+    shares, slack edges) or the rays a trace gives B3."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    from wayverb_tpu_torch.tools import rays_timing as rt
+    if case in B3_SCENES:
+        tris, o, d, ex = _b3_scene(case)
+        return (tris.to(device), *(x.to(device) for x in (o, d, ex)))
+    soup = procedural_hall()[0].to(device)
+    tris = mk.build_mt_triangles(soup, cull=False).to(device)
+    return (tris, *rt.record_queries(soup, tris, rt.MODEL_SRC, rt.MODEL_RCV,
+                                     {4}, num_rays=8192)[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B3_CASES)
+def test_b3_split_matches_plain(cuda_device, case):
+    """B3 against ``_closest_plain`` to the bit: R below one block (100,
+    700) and ragged over two (1500), dead rays, equal t in several CTAs'
+    shares (the lowest id wins), an exclude in another CTA's share, 3 and 12
+    triangles, rays on the slack's edges, and a trace's query."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    tris, o, d, ex = _b3_case(case, cuda_device)
+    before = mk.mt_closest.launches
+    t, i = mk.mt_closest(o, d, ex, tris)
+    torch.cuda.synchronize()
+    assert mk.mt_closest.launches == before + 1
+    t_want, i_want = mk._closest_plain(o, d, ex, tris)
+    assert torch.equal(t, t_want), (case, float((t - t_want).abs().max()))
+    assert torch.equal(i, i_want), case
+    assert float((t < mk.BIG).float().mean()) > 0.0, case
+
+
+@pytest.mark.cuda
+def test_b3_residency(cuda_device):
+    """B3 spills nothing and keeps to 64 registers, so that the register
+    file holds its CTA of 32 warps on every SM, and the card holds at once
+    the 64 clusters that 65,536 rays make: one wave."""
+    from wayverb_tpu_torch.raytracer import mt_kernels as mk
+    occ = mk.closest_occupancy(cuda_device)
+    assert occ["local_bytes"] == 0 and occ["registers"] <= 64, occ
+    assert occ["ctas_per_sm"] == 1, occ
+    assert occ["clusters"] >= 64, occ
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import torch
 
 from wayverb_tpu_torch.raytracer import mt_kernels as mk
 from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+from wayverb_tpu_torch.tools.rays_timing import edge_rays
 
 
 def _cluster_scan(origin, direction, exclude, tris, C, reverse=False):
@@ -186,85 +187,35 @@ def test_the_scenes_test_what_they_claim():
 
 
 
-def _hits_and_skip_tests(o, d, ex, tile, base, best_t):
-    """(hit, maybe_u, maybe_uv) over (rays, triangles): ``hit`` as
-    ``_mt_tile`` decides it, and the tests B4's scan takes before the IEEE
-    reciprocal, in the kernel's float32 operations: a warp skips a triangle
-    when no lane passes them, so every hit must pass both."""
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    v0x, v0y, v0z = tile[0:1], tile[1:2], tile[2:3]
-    e1x, e1y, e1z = tile[3:4], tile[4:5], tile[5:6]
-    e2x, e2y, e2z = tile[6:7], tile[7:8], tile[8:9]
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    ok = torch.abs(det) > mk.EPSILON
-    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)),
-                          torch.zeros_like(det))
-    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
-    du = tx * px + ty * py + tz * pz
-    qx = ty * e1z - tz * e1y
-    qy = tz * e1x - tx * e1z
-    qz = tx * e1y - ty * e1x
-    dv = dx * qx + dy * qy + dz * qz
-    dt = e2x * qx + e2y * qy + e2z * qz
-    u, v, t = du * inv_det, dv * inv_det, dt * inv_det
-    ids = base + torch.arange(tile.shape[1], dtype=torch.int32)[None, :]
-    hit = ok & (u >= -mk.SLACK) & (v >= -mk.SLACK) \
-        & (u + v <= 1.0 + mk.SLACK) & (t > mk.EPSILON) \
-        & (ids != ex[:, None]) & (t < best_t[:, None])
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
-    sdu = torch.where(det < 0, -du, du)
-    sdv = torch.where(det < 0, -dv, dv)
-    adet = torch.abs(det)
-    big = adet >= f32(1.2676506e30)
-    maybe_u = (sdu >= f32(-2e-4) * adet) & (sdu <= f32(1.0006) * adet)
-    maybe_uv = maybe_u & (sdv >= f32(-2e-4) * adet) \
-        & (sdu + sdv <= f32(1.0006) * adet)
-    return hit, ok & (big | maybe_u), ok & (big | maybe_uv)
-
-
-def _edge_rays(tile, n, rng):
-    """Rays aimed at points of the tile's triangles whose barycentrics lie on
-    or just beyond the slack's edges (u or v = -1e-4, u + v = 1 + 1e-4, and
-    one float either side), from random directions at random distances."""
-    k = rng.integers(0, tile.shape[1], n)
-    edge = np.array([-1e-4, 0.0, 1.0, 1.0 + 1e-4])
-    u = rng.choice(edge, n) + rng.choice([-1, 0, 1], n) * 1e-7
-    v = np.where(rng.random(n) < 0.5, rng.choice(edge, n),
-                 1.0 + 1e-4 - u) + rng.choice([-1, 0, 1], n) * 1e-7
-    c = tile.numpy().astype(np.float64)
-    point = c[0:3, k].T + u[:, None] * c[3:6, k].T + v[:, None] * c[6:9, k].T
-    d = rng.normal(size=(n, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    o = point - rng.uniform(0.01, 30.0, (n, 1)) * d
-    return (torch.tensor(o, dtype=torch.float32),
-            torch.tensor(d, dtype=torch.float32))
-
-
-@pytest.mark.parametrize("rays", ["hall", "edges"])
+@pytest.mark.parametrize("rays", ["hall", "edges", "all-pairs hall",
+                                  "all-pairs edges"])
 def test_the_skip_tests_never_drop_a_hit(rays):
     """Every (ray, triangle) hit, with its running best at BIG or at a
-    nearer hit, passes both tests that B4's scan takes before the reciprocal
-    (u, then u, v and u + v, widened by more than the roundings of the
-    reciprocal and of the products): so skipping a triangle for a warp whose
-    lanes all fail them leaves every result's bits as they are."""
+    nearer hit, passes both tests that the scan of B3 and B4 takes before
+    the reciprocal (``_skip_tests_plain``: u, then u, v and u + v, widened
+    by more than the roundings of the reciprocal and of the products): so
+    skipping a triangle for a warp whose lanes all fail them leaves every
+    result's bits as they are.  On the culled table with the rays sorted,
+    and on the all-pairs table (B3's) with the rays in their own order."""
     tris, o, d, ex = _scene("hall")
+    if rays.startswith("all-pairs"):
+        rng = np.random.default_rng(11)
+        tris = mk.build_mt_triangles(procedural_hall()[0], cull=False)
+        ex = torch.tensor(rng.integers(-1, tris.num, o.shape[0]),
+                          dtype=torch.int32)
     rng = np.random.default_rng(3)
     hits = 0
     for ti, base in enumerate(range(0, tris.packed.shape[1], mk.TB)):
         tile = tris.packed[:, base:base + mk.TB]
-        if rays == "edges":
-            o, d = _edge_rays(tile[:, :min(mk.TB, tris.num - base)], 2048,
-                              rng)
+        if rays.endswith("edges"):
+            o, d = edge_rays(tile[:, :min(mk.TB, tris.num - base)], 2048,
+                             rng)
             ex = torch.full((o.shape[0],), -1, dtype=torch.int32)
+        pass_u, pass_uv = mk._skip_tests_plain(o, d, tile)
+        hit_any, t = mk._mt_hits(o, d, ex, tile, base, tris.num)
         for best in (mk.BIG, 10.0, 1.0):
-            best_t = torch.full((o.shape[0],), best, dtype=torch.float32)
-            hit, maybe_u, maybe_uv = _hits_and_skip_tests(o, d, ex, tile,
-                                                          base, best_t)
-            assert not bool((hit & ~maybe_u).any()), (ti, best)
-            assert not bool((hit & ~maybe_uv).any()), (ti, best)
+            hit = hit_any & (t < best)
+            assert not bool((hit & ~pass_u).any()), (ti, best)
+            assert not bool((hit & ~pass_uv).any()), (ti, best)
             hits += int(hit.sum())
     assert hits > 1000

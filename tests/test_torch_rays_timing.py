@@ -105,3 +105,33 @@ def test_bounds_share_one_rule():
     ops = rt.SLAB_OPS_PER_TILE * rays * tris.tile_boxes.shape[0] \
         + rt.MT_OPS_PER_PAIR * mk.RB * mk.TB * pairs
     assert rt.bound_us(rays, tris, pairs) == roofline.bound_us(n_bytes, ops)
+
+
+def test_kernel_mode_b3_reads_the_skip_tests():
+    """``--kernel b3``'s plain path on both halls: bit-equal on both
+    queries, and the skip tests' shares, in the tracer's order, equal to a
+    recount per warp over the whole table."""
+    rows = rt.main(["--device", "cpu", "--kernel", "b3", "--rays", "128",
+                    "--late-bounce", "2", "--reps", "1"])
+    assert [r["key"] for r in rows] == ["b3", "b3_large"]
+    for row in rows:
+        assert row["max_abs_err"] == 0.0 and row["plain_us"] > 0
+        for query in ("closest", "visibility"):
+            sh = row["skip_shares"][query]
+            assert sh["warp_triangle_pairs"] == 4 * (
+                5448 if row["key"] == "b3" else 13392)
+            assert 0.0 <= sh["test1_drops"] <= sh["test1_or_2_drops"] <= 1.0
+
+    soup = rt.procedural_hall()[0]
+    tris = mk.build_mt_triangles(soup, cull=False)
+    o, d, _ = rt.record_queries(soup, tris, rt.MODEL_SRC, rt.MODEL_RCV, {4},
+                                num_rays=100)[4]
+    got = rt.skip_shares(o, d, tris, chunk=64)
+    pad = torch.nn.functional.pad
+    pass_u, pass_uv = mk._skip_tests_plain(pad(o, (0, 0, 0, 28)),
+                                           pad(d, (0, 0, 0, 28)),
+                                           tris.packed[:, :tris.num])
+    for key, passed in (("test1_drops", pass_u),
+                        ("test1_or_2_drops", pass_uv)):
+        kept = passed.view(4, 32, tris.num).any(1)
+        assert got[key] == pytest.approx(1.0 - float(kept.float().mean()))

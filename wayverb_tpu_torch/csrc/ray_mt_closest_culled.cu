@@ -52,11 +52,10 @@
 // lockstep, deciding exactly as the sequential gate does.  The partials are
 // double-buffered by the parity of the scanned tile, so one cluster barrier
 // a scanned tile suffices; a last barrier keeps each CTA's shared memory
-// alive until the others have read it.  The per-pair arithmetic is
-// `mt_scan_tile`'s (ray_mt.cuh), operation for operation, where it runs;
-// `scan_share` skips it for a warp none of whose rays can hit the triangle
-// (see there).  Measured (PERF.md §6): clusters of 8 beat 1, 2 and 4; two
-// CTAs of 64 registers an SM.
+// alive until the others have read it.  The per-pair arithmetic and the
+// warp-wide skip tests are `wv::mt_scan_tile`'s (ray_mt.cuh), which B3
+// shares.  Measured (PERF.md §6): clusters of 8 beat 1, 2 and 4; two CTAs
+// of 64 registers an SM.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -88,7 +87,8 @@ __device__ inline float slab_reciprocal(float d) {
 }
 
 // A CTA's share of one tile in dynamic shared memory, laid out as
-// wv::MtTileSmem with `share` triangles: v0.xyz e1.x | e1.yz e2.xy | e2.z.
+// wv::mt_stage writes it, `share` triangles: v0.xyz e1.x | e1.yz e2.xy |
+// e2.z.
 struct Share {
   float4* a;
   float4* b;
@@ -97,82 +97,6 @@ struct Share {
 
 __device__ inline Share share_layout(float4* smem, int share) {
   return {smem, smem + share, reinterpret_cast<float*>(smem + 2 * share)};
-}
-
-// Copy triangles first .. first+n-1 of packed (9, Tpad) into the share.
-__device__ inline void stage_share(const float* __restrict__ packed, int Tpad,
-                                   int first, int n, const Share& s) {
-  for (int j = threadIdx.x; j < n; j += kRayTile) {
-    const float* p = packed + first + j;
-    s.a[j] = make_float4(p[0], p[Tpad], p[2 * Tpad], p[3 * Tpad]);
-    s.b[j] = make_float4(p[4 * Tpad], p[5 * Tpad], p[6 * Tpad], p[7 * Tpad]);
-    s.c[j] = p[8 * Tpad];
-  }
-}
-
-// wv::mt_scan_tile on a share: triangles first .. first+n-1, the same
-// operations in the same order, the same strictly-less update, so the same
-// bits.  Two warp-wide tests, taken before the IEEE reciprocal, skip a
-// triangle that no lane of the warp can hit.  A hit has u >= -1e-4, v >=
-// -1e-4 and u + v <= 1 + 1e-4, with u = du * (1 / det) and v = dv * (1 /
-// det) each rounded twice (relative error below 2.4e-7); so its lane has
-//
-//   sdu >= -2e-4 * |det|,  sdu <= 1.0006 * |det|                  (test 1)
-//   sdv >= -2e-4 * |det|,  sdu + sdv <= 1.0006 * |det|            (test 2)
-//
-// with sdu, sdv = du, dv times the sign of det: the margins exceed every
-// rounding of the products and of the sum, as long as 1 / det is a normal
-// float, and |det| >= 2^100 passes both tests.  A warp whose lanes all fail
-// a test cannot change any lane's best, so it skips the rest of the pair.
-__device__ inline void scan_share(const wv::MtRay& ray, const Share& s,
-                                  int first, int n, float& best_t,
-                                  int& best_id) {
-#pragma unroll 8
-  for (int j = 0; j < n; ++j) {
-    const float4 a = s.a[j];
-    const float4 b = s.b[j];
-    const float v0x = a.x, v0y = a.y, v0z = a.z;
-    const float e1x = a.w, e1y = b.x, e1z = b.y;
-    const float e2x = b.z, e2y = b.w, e2z = s.c[j];
-
-    // pvec = d x e2
-    const float px = ray.dy * e2z - ray.dz * e2y;
-    const float py = ray.dz * e2x - ray.dx * e2z;
-    const float pz = ray.dx * e2y - ray.dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const bool ok = fabsf(det) > wv::kMtEpsilon;
-    // tvec = o - v0
-    const float tx = ray.ox - v0x, ty = ray.oy - v0y, tz = ray.oz - v0z;
-    const float du = tx * px + ty * py + tz * pz;
-    const float adet = fabsf(det);
-    const float sdu = det < 0.0f ? -du : du;
-    const bool big = adet >= 1.2676506e30f;  // 2^100
-    const bool near_u = sdu >= -2e-4f * adet && sdu <= 1.0006f * adet;
-    if (!__any_sync(0xffffffffu, ok && (big || near_u))) continue;
-    // qvec = tvec x e1
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float dv = ray.dx * qx + ray.dy * qy + ray.dz * qz;
-    const float sdv = det < 0.0f ? -dv : dv;
-    if (!__any_sync(0xffffffffu,
-                    ok && (big || (near_u && sdv >= -2e-4f * adet &&
-                                   sdu + sdv <= 1.0006f * adet))))
-      continue;
-    const float inv_det = ok ? 1.0f / det : 0.0f;
-    const float u = du * inv_det;
-    const float v = dv * inv_det;
-    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-
-    const int id = first + j;
-    const bool hit = ok && u >= -wv::kMtSlack && v >= -wv::kMtSlack &&
-                     u + v <= wv::kMtOnePlusSlack && t > wv::kMtEpsilon &&
-                     id != ray.exclude;
-    if (hit && t < best_t) {
-      best_t = t;
-      best_id = id;
-    }
-  }
 }
 
 __global__ void __cluster_dims__(kCluster, 1, 1)
@@ -220,11 +144,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     const int n = min(wv::kMtTile, num - base);
     const int lo = min(rank * share, n);
     const int hi = min(lo + share, n);
-    stage_share(packed, Tpad, base + lo, hi - lo, tile);
+    wv::mt_stage<kRayTile>(packed, Tpad, base + lo, hi - lo, tile.a, tile.b,
+                           tile.c);
     __syncthreads();
     float t = best_t;
     int id = best_id;
-    scan_share(ray, tile, base + lo, hi - lo, t, id);
+    wv::mt_scan_tile<8>(
+        ray, [&] { return ray.exclude; }, tile.a, tile.b, tile.c, base + lo,
+        hi - lo, t, id);
     part_t[parity][threadIdx.x] = t;
     part_id[parity][threadIdx.x] = id;
     cluster.sync();

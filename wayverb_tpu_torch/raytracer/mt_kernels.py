@@ -26,7 +26,11 @@ launches are counted in ``mt_closest.launches`` (all-pairs kernel) and
 over a thread-block cluster of ``CLUSTER`` CTAs (fixed when it is compiled),
 each scanning a share of every triangle tile the gate lets through; the
 partial hits are merged before the next vote, so the result is the
-sequential gate's to the bit.
+sequential gate's to the bit.  The all-pairs kernel gives each block of
+rays a cluster of ``B3_CLUSTER`` CTAs, each scanning one of
+``b3_shares(num)`` from "no hit yet", and merges the partial hits once.
+Both skip, warp by warp, the triangles that ``_skip_tests_plain`` shows no
+ray of the warp can hit.
 
 No gradient: hit indices and parameters are piecewise constant in the
 geometry, and the tracer's differentiable quantities (band energies) flow
@@ -56,6 +60,10 @@ BIG = 3.4e38
 CULL_MIN_TRIS = 8192   # below this the all-pairs kernel wins outright
 CLUSTER = 8            # CTAs of the cluster that owns one gate tile (B4's
 #                        kCluster, fixed in csrc/ray_mt_closest_culled.cu)
+B3_CLUSTER = 2         # CTAs of the cluster that owns one block of rays
+#                        in the all-pairs kernel, CTA c scanning the
+#                        triangles b3_shares(num)[c] (B3's kCluster, fixed
+#                        in csrc/ray_mt_closest.cu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,11 +168,11 @@ def build_mt_triangles(soup: TriangleSoup,
 # ---------------------------------------------------------------------------
 # the plain versions
 
-def _mt_tile(o, d, exclude, tile, base: int, num: int, best_t, best_i):
-    """One (ray block, triangle tile) of the closest-hit scan: the
-    Möller–Trumbore arithmetic component by component, every product and sum
-    on its own and left to right as the kernels do them, then the running
-    minimum (strictly-less update; the first id among equal t of a tile)."""
+def _mt_terms(o, d, tile):
+    """The Möller–Trumbore terms of every (ray, triangle) pair of a tile,
+    component by component, every product and sum on its own and left to
+    right as the kernels compute them: (det, ok = |det| > EPSILON, 1 / det
+    where ok and 0 elsewhere, and the dividends du, dv, dt of u, v, t)."""
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]               # (rows, 1)
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     v0x, v0y, v0z = tile[0:1], tile[1:2], tile[2:3]            # (1, TB)
@@ -182,18 +190,33 @@ def _mt_tile(o, d, exclude, tile, base: int, num: int, best_t, best_i):
                           torch.zeros_like(det))
     # tvec = o − v0
     tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
-    u = (tx * px + ty * py + tz * pz) * inv_det
+    du = tx * px + ty * py + tz * pz
     # qvec = tvec × e1
     qx = ty * e1z - tz * e1y
     qy = tz * e1x - tx * e1z
     qz = tx * e1y - ty * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv_det
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    dv = dx * qx + dy * qy + dz * qz
+    dt = e2x * qx + e2y * qy + e2z * qz
+    return det, ok, inv_det, du, dv, dt
 
+
+def _mt_hits(o, d, exclude, tile, base: int, num: int):
+    """(hit, t) over (rays, triangles of the tile): the Möller–Trumbore
+    test with the slack, the padding and the excludes."""
+    _, ok, inv_det, du, dv, dt = _mt_terms(o, d, tile)
+    u, v, t = du * inv_det, dv * inv_det, dt * inv_det
     ids = base + torch.arange(tile.shape[1], dtype=torch.int32,
                               device=tile.device)[None, :]     # (1, TB)
     hit = ok & (u >= -SLACK) & (v >= -SLACK) & (u + v <= 1.0 + SLACK) \
         & (t > EPSILON) & (ids < num) & (ids != exclude[:, None])
+    return hit, t
+
+
+def _mt_tile(o, d, exclude, tile, base: int, num: int, best_t, best_i):
+    """One (ray block, triangle tile) of the closest-hit scan: ``_mt_hits``,
+    then the running minimum (strictly-less update; the first id among
+    equal t of a tile)."""
+    hit, t = _mt_hits(o, d, exclude, tile, base, num)
     t_masked = torch.where(hit, t, torch.full_like(t, BIG))
     # argmin takes the first of equal minima, as the kernels' scan does
     k = torch.argmin(t_masked, dim=1, keepdim=True)            # (rows, 1)
@@ -202,6 +225,39 @@ def _mt_tile(o, d, exclude, tile, base: int, num: int, best_t, best_i):
     better = t_best < best_t
     return (torch.where(better, t_best, best_t),
             torch.where(better, i_best, best_i))
+
+
+# 2**100: at or above it |det| passes both skip tests (1 / det could be
+# subnormal, and the margins' argument would not hold)
+SKIP_BIG_DET = 1.2676506e30
+
+
+def _skip_tests_plain(o, d, tile):
+    """(pass_u, pass_uv) over (rays, triangles of the tile): the tests the
+    kernels' scan (``wv::mt_scan_tile``, csrc/ray_mt.cuh) takes before the
+    IEEE reciprocal, in its float32 operations.  A warp skips a triangle
+    when none of its lanes passes test 1 (u), or none passes test 2 (u, v
+    and u + v).  A hit has u >= -1e-4, v >= -1e-4 and u + v <= 1 + 1e-4
+    with u = du * (1 / det) and v = dv * (1 / det) each rounded twice, so
+    with sdu, sdv = du, dv times the sign of det its lane has
+
+        sdu >= -2e-4 * |det|,  sdu <= 1.0006 * |det|              (test 1)
+        sdv >= -2e-4 * |det|,  sdu + sdv <= 1.0006 * |det|        (test 2)
+
+    (the margins exceed every rounding while 1 / det is a normal float;
+    |det| >= SKIP_BIG_DET passes both).  Every hit passes both tests, so
+    skipping changes no bit of the result."""
+    det, ok, _, du, dv, _ = _mt_terms(o, d, tile)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32,  # noqa: E731
+                                 device=det.device)
+    sdu = torch.where(det < 0, -du, du)
+    sdv = torch.where(det < 0, -dv, dv)
+    adet = torch.abs(det)
+    big = adet >= f32(SKIP_BIG_DET)
+    near_u = (sdu >= f32(-2e-4) * adet) & (sdu <= f32(1.0006) * adet)
+    near_uv = near_u & (sdv >= f32(-2e-4) * adet) \
+        & (sdu + sdv <= f32(1.0006) * adet)
+    return ok & (big | near_u), ok & (big | near_uv)
 
 
 def _ray_blocks(origin, direction, exclude):
@@ -253,6 +309,14 @@ def _scan_plain(origin, direction, exclude, tris: MtTriangles, gated: bool):
         t_out[r0:r0 + rows] = best_t[:rows]
         i_out[r0:r0 + rows] = best_i[:rows]
     return t_out, i_out
+
+
+def b3_shares(num: int, clusters: int = B3_CLUSTER):
+    """The contiguous triangle ranges [lo, hi) that B3's CTAs scan, one a
+    CTA of a cluster: a balanced split of the ``num`` real triangles (some
+    empty when ``num`` < ``clusters``)."""
+    return [(num * c // clusters, num * (c + 1) // clusters)
+            for c in range(clusters)]
 
 
 def _closest_plain(origin, direction, exclude, tris: MtTriangles):
@@ -345,12 +409,9 @@ mt_closest.launches = 0
 mt_closest.culled_launches = 0
 
 
-def culled_occupancy(device="cuda") -> dict:
-    """What the card makes of the culled kernel: registers a thread, local
-    memory (spills) a thread in bytes, CTAs resident on one SM, clusters of
-    ``CLUSTER`` CTAs resident on the card."""
-    lib = load("ray_mt_closest_culled")
-    fn = lib.wv_ray_mt_closest_culled_occupancy
+def _occupancy(name: str, device) -> dict:
+    lib = load(name)
+    fn = getattr(lib, f"wv_{name}_occupancy")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
     lib.wv_cuda_error_string.restype = ctypes.c_char_p
@@ -358,10 +419,24 @@ def culled_occupancy(device="cuda") -> dict:
     with torch.cuda.device(device):
         err = fn(*(ctypes.byref(x) for x in out))
     if err != 0:
-        raise RuntimeError("ray_mt_closest_culled occupancy query failed: "
+        raise RuntimeError(f"{name} occupancy query failed: "
                            + lib.wv_cuda_error_string(err).decode())
     return dict(zip(("registers", "local_bytes", "ctas_per_sm", "clusters"),
                     (x.value for x in out)))
+
+
+def closest_occupancy(device="cuda") -> dict:
+    """What the card makes of the all-pairs kernel: registers a thread,
+    local memory (spills) a thread in bytes, CTAs resident on one SM,
+    clusters of ``B3_CLUSTER`` CTAs resident on the card."""
+    return _occupancy("ray_mt_closest", device)
+
+
+def culled_occupancy(device="cuda") -> dict:
+    """What the card makes of the culled kernel: registers a thread, local
+    memory (spills) a thread in bytes, CTAs resident on one SM, clusters of
+    ``CLUSTER`` CTAs resident on the card."""
+    return _occupancy("ray_mt_closest_culled", device)
 
 
 # ---------------------------------------------------------------------------

@@ -20,11 +20,13 @@ Port of ``tools/bench/rays_timing.py``, with the large hall of
   version to the bit on both queries.  For B4 the plain version's gate is
   read per 512-ray tile: how many triangle tiles each ray tile let through
   (max, mean, percentiles, a histogram by tenths of the tile count), and the
-  kernel's time over the most any ray tile scanned, and the card's
-  residency of B4's clusters.
+  kernel's time over the most any ray tile scanned.  For B3, on both
+  queries: the share of (warp, triangle) pairs that the scan's skip tests
+  drop, with the rays in the tracer's order, the order the kernel takes
+  them in.  The card's residency of either kernel.
 
     python -m wayverb_tpu_torch.tools.rays_timing [mt dense grid large_b4 large_all_pairs]
-    python -m wayverb_tpu_torch.tools.rays_timing --kernel b4
+    python -m wayverb_tpu_torch.tools.rays_timing --kernel b3
 
 It runs on the card unless given ``--device cpu``; there every ray query runs
 the plain versions, the large hall is cut as ``bench.py`` cuts it for the
@@ -305,6 +307,52 @@ def compare(tag, what, tris, got, want, log=print):
     return err, hits
 
 
+def edge_rays(tile, n, rng):
+    """(origin, direction) of ``n`` rays on ``tile``'s device, aimed at
+    points of the packed triangles ``tile`` (9, T) whose barycentrics lie on
+    or just beyond the slack's edges (u or v = -1e-4, u + v = 1 + 1e-4, and
+    one float either side), from random directions at random distances
+    (``rng``: a numpy Generator)."""
+    k = rng.integers(0, tile.shape[1], n)
+    edge = np.array([-1e-4, 0.0, 1.0, 1.0 + 1e-4])
+    u = rng.choice(edge, n) + rng.choice([-1, 0, 1], n) * 1e-7
+    v = np.where(rng.random(n) < 0.5, rng.choice(edge, n),
+                 1.0 + 1e-4 - u) + rng.choice([-1, 0, 1], n) * 1e-7
+    c = tile.cpu().numpy().astype(np.float64)
+    point = c[0:3, k].T + u[:, None] * c[3:6, k].T + v[:, None] * c[6:9, k].T
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = point - rng.uniform(0.01, 30.0, (n, 1)) * d
+    return (torch.tensor(o, dtype=torch.float32, device=tile.device),
+            torch.tensor(d, dtype=torch.float32, device=tile.device))
+
+
+def skip_shares(o, d, tris, warp=32, chunk=4096):
+    """What the scan's two warp-wide tests drop on these rays, in this order
+    (``mt_kernels._skip_tests_plain``): of the (warp of ``warp`` consecutive
+    rays, real triangle) pairs, the share in which no lane passes test 1,
+    and the share in which no lane passes test 1 or none passes test 2 (the
+    pairs that never reach the reciprocal).  Rays are padded to whole warps
+    with zero rays, which pass neither test, as the kernels pad a block."""
+    R = o.shape[0]
+    pad = -R % warp
+    o = torch.nn.functional.pad(o, (0, 0, 0, pad))
+    d = torch.nn.functional.pad(d, (0, 0, 0, pad))
+    kept_u = torch.zeros((), dtype=torch.int64, device=o.device)
+    kept_uv = torch.zeros_like(kept_u)
+    for r0 in range(0, o.shape[0], chunk):
+        oc, dc = o[r0:r0 + chunk], d[r0:r0 + chunk]
+        for base in range(0, tris.num, mk.TB):
+            tile = tris.packed[:, base:min(base + mk.TB, tris.num)]
+            pass_u, pass_uv = mk._skip_tests_plain(oc, dc, tile)
+            kept_u += pass_u.view(-1, warp, tile.shape[1]).any(1).sum()
+            kept_uv += pass_uv.view(-1, warp, tile.shape[1]).any(1).sum()
+    pairs = o.shape[0] // warp * tris.num
+    return {"warp_triangle_pairs": pairs,
+            "test1_drops": 1.0 - int(kept_u) / pairs,
+            "test1_or_2_drops": 1.0 - int(kept_uv) / pairs}
+
+
 def kernel_case(key, what, soup, tris, src, rcv, *, reps, plain=True,
                 seed=KERNEL_SEED, num_rays=RAYS, timed_bounce=TIMED_BOUNCE,
                 late_bounce=LATE_BOUNCE, tag="rays_timing", card="",
@@ -316,7 +364,8 @@ def kernel_case(key, what, soup, tris, src, rcv, *, reps, plain=True,
     tiles each ray tile scanned), holds the kernel to it to the bit on that
     query and on the visibility query of ``late_bounce``, and returns their
     numbers beside the time, and for B4 the card's residency of its
-    clusters."""
+    clusters; for B3 the skip tests' shares on both queries
+    (``skip_shares``)."""
     device = soup.vertices.device
     timed, late = 2 * timed_bounce, 2 * late_bounce + 1
     queries = record_queries(soup, tris, src, rcv,
@@ -391,10 +440,22 @@ def kernel_case(key, what, soup, tris, src, rcv, *, reps, plain=True,
                                     reps, device)
     log(f"[{tag}] {key.upper()} alone on the visibility query of bounce "
         f"{late_bounce}: kernel {out['late_us']:.1f} us/launch [{card}]")
-    if tris.culled and device.type == "cuda":
-        occ = out["occupancy"] = mk.culled_occupancy(device)
-        log(f"[{tag}] {key.upper()} launches clusters of {mk.CLUSTER} CTAs "
-            f"of {mk.RB} threads: {occ['registers']} registers, "
+    if not tris.culled:
+        out["skip_shares"] = {}
+        for query, (qo, qd), name in (
+                ("closest", (o, d), f"closest-hit query of bounce "
+                 f"{timed_bounce}"),
+                ("visibility", (lo, ld), f"visibility query of bounce "
+                 f"{late_bounce}")):
+            sh = out["skip_shares"][query] = skip_shares(qo, qd, tris)
+            log(f"[{tag}] {key.upper()} {name}: of "
+                f"{sh['warp_triangle_pairs']} (warp, triangle) pairs test 1 "
+                f"drops {100 * sh['test1_drops']:.2f}%, test 1 or 2 "
+                f"{100 * sh['test1_or_2_drops']:.2f}% [{card}]")
+    if device.type == "cuda":
+        occ = out["occupancy"] = (mk.culled_occupancy if tris.culled
+                                  else mk.closest_occupancy)(device)
+        log(f"[{tag}] {key.upper()}: {occ['registers']} registers, "
             f"{occ['local_bytes']} B of local memory a thread, "
             f"{occ['ctas_per_sm']} CTAs an SM, {occ['clusters']} clusters "
             f"on the card at once [{card}]")
@@ -405,8 +466,7 @@ def kernel_cases(which: str, device, *, reps=None, num_rays=RAYS,
                  late_bounce=LATE_BOUNCE, small=False,
                  tag="rays_timing", card="", log=print):
     """The cases of ``--kernel b3`` (the model hall, and the large hall with
-    ``cull=False`` without its plain run) or ``--kernel b4`` (the large
-    hall, culled)."""
+    ``cull=False``) or ``--kernel b4`` (the large hall, culled)."""
     model = procedural_hall()[0]
     large = (procedural_hall_large(shell_div=30, n_columns=6) if small
              else procedural_hall_large())[0]
@@ -414,15 +474,14 @@ def kernel_cases(which: str, device, *, reps=None, num_rays=RAYS,
         cases = (("b3", "model hall", model, False, MODEL_SRC, MODEL_RCV,
                   reps or 50, True),
                  ("b3_large", "large hall, cull=False", large, False, SRC,
-                  RCV, reps or 5, False))
+                  RCV, reps or 5, True))
     else:
         cases = (("b4", "large hall", large, True, SRC, RCV, reps or 20,
                   True),)
     return [kernel_case(key, what, soup.to(device),
                         mk.build_mt_triangles(soup, cull=cull).to(device),
                         src, rcv, reps=n, plain=plain, num_rays=num_rays,
-                        late_bounce=late_bounce, tag=tag,
-                        card=card, log=log)
+                        late_bounce=late_bounce, tag=tag, card=card, log=log)
             for key, what, soup, cull, src, rcv, n, plain in cases]
 
 
@@ -450,8 +509,7 @@ def main(argv=None):
     if args.kernel:
         rows = kernel_cases(args.kernel, device, reps=args.reps,
                             num_rays=num_rays, late_bounce=args.late_bounce,
-                            small=not on_card,
-                            card=card)
+                            small=not on_card, card=card)
         for row in rows:
             print(json.dumps({**row, "device": card}), flush=True)
         return rows
