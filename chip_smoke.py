@@ -17,28 +17,31 @@ Drives the port through its public entry points on the card and fails
    (``run_waveguide_box``), with the launch count, step time, node-update
    rate, kernel time and peak memory, and a profiler breakdown of a step;
 6. B2 (the mega chunk, K = 128) against its plain version at three shapes,
-   the hall one with the hall's source and receiver taps;
+   the hall one with the hall's source and receiver taps, to the bit;
 7. the mega path (``canonical``) against the fused path on the hall, with
-   B2's time per sub-step and the launch counts of both kernels;
+   B2's time per sub-step, its registers, spills and CTAs an SM, one
+   profiled chunk (one kernel launch), the launch counts of both kernels
+   and the phase's wall;
 8. T30 through the mega path;
 9. the hybrid engine end to end: ``Engine.run`` + ``render`` and
    ``render_all`` on a hybrid hall, with the seconds of each phase; then B2
    against its plain version on the engine's own mesh, filter coefficients,
-   source and receiver taps;
+   source and receiver taps, to the bit; the phase's wall;
 10. the hybrid engine on the card against the same run on the CPU, with the
     same random draws;
 11. B5 (the fused step's adjoint) against its plain version at the seven
     shapes of phase 3, and its time at the hall shape;
-12. B6 (the grad-mode chunk: B2's outputs plus the residual block) and B7
-    (the chunk's adjoint, K = 128) against their plain versions at three
-    shapes, the hall from random state among them, the error per output and
-    per plane, and their times per sub-step;
+12. B6 (the grad-mode chunk: B2's outputs plus the residual block, to the
+    bit) and B7 (the chunk's adjoint, K = 128) against their plain versions
+    at three shapes, the hall from random state among them, the error per
+    output and per plane, and their times per sub-step with B6's registers,
+    spills and CTAs an SM;
 13. the gradient path at full width: the hall, 640 steps, value and gradient
     of Σ taps² with respect to the filter coefficients and the source
     signal through ``mega_canonical_loss_fn``, with the seconds of the
     forward and of the backward, the peak memory and the launch counts;
     then the same run again (warm allocator) and with only the signal
-    requiring grad, for their seconds;
+    requiring grad, for their seconds; the phase's wall;
 14. the two gradient routes on the card: the mega route (B6, B7) against
     ``run_waveguide_box(kernel_inject=False)`` (B1, B5) on the hall, 16
     steps, with the source beside a wall so the boundary filters matter;
@@ -162,7 +165,6 @@ FS = 500.0 / (0.25 * 0.6)
 ABSORPTION = 0.1
 SEED = 20261016
 KERNEL_ATOL = 1e-5          # test_box_fused.py bound on the Pallas kernel
-MEGA_REL = 1e-5             # B2 vs plain, per unit of peak
 MEGA_VS_FUSED_REL = 1e-4    # mega vs fused path over 1024 steps, of peak
 HYBRID_REL = 1e-3           # hybrid IR card vs CPU, of peak
 BWD_REL = 1e-5             # B5, B6 residuals, B7 vs plain, of the largest
@@ -230,13 +232,16 @@ def phase_build(card):
         results = list(pool.map(lambda n: _build.build(n, force=True),
                                 KERNELS))
     dt = time.perf_counter() - t0
+    reports = {}
     for name, (lib, log) in zip(KERNELS, results):
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
+        reports[name] = " | ".join(ptxas)
         print(f"[2 build] {name}.cu → {os.path.relpath(lib, ROOT)} "
-              f"(nvcc, sm_90a); ptxas: {' | '.join(ptxas)}")
+              f"(nvcc, sm_90a); ptxas: {reports[name]}")
     print(f"[2 build] {len(KERNELS)} kernels built in parallel in "
           f"{dt:.2f} s [{card}]")
+    return reports
 
 
 def _random_step_inputs(torch, spec, x_offset, gen, halos=True):
@@ -577,13 +582,12 @@ def _chunk_case(torch, spec, fb, fa, src, taps, gen, scale=1.0):
 
 
 def _report_chunk(tag, what, err, peak, bad_k, bad_p):
-    """Print one B2-vs-plain case and fail past the bound; returns err."""
-    rel = err / max(peak, 1e-30)
+    """Print one B2-vs-plain case and fail unless the two agree to the bit;
+    returns err."""
     print(f"[{tag}] {what}: max |kernel - plain| = {err:.3e} over taps, "
-          f"fields, state and planes, peak {peak:.3e}, {rel:.3e} of peak "
-          f"(bound {MEGA_REL:g}); bad count kernel {bad_k:g}, plain "
-          f"{bad_p:g}")
-    if not (rel <= MEGA_REL and bad_k == bad_p):
+          f"fields, state and planes, peak {peak:.3e} (bound 0: bit-equal); "
+          f"bad count kernel {bad_k:g}, plain {bad_p:g}")
+    if not (err == 0.0 and bad_k == bad_p):
         _fail(f"B2 disagrees with its plain version: {what}")
     return err
 
@@ -658,9 +662,13 @@ def phase_mega_vs_plain(torch, hall_mesh, box, dx, card):
     return worst, (spec, fb, fa, src, taps)
 
 
-def phase_mega_time(torch, case, card):
-    """B2 alone at the hall shape, and its plain version (CUDA events)."""
+def phase_mega_time(torch, case, ptxas, card):
+    """B2 alone at the hall shape, and its plain version (CUDA events); what
+    the card makes of the kernel; one chunk under the profiler.  Returns
+    (kernel µs, plain µs, occupancy)."""
+    from wayverb_tpu_torch.tools.mega_timing import profile_chunk
     from wayverb_tpu_torch.waveguide.box_mega import (_mega_chunk_plain,
+                                                      chunk_occupancy,
                                                       mega_chunk)
     spec, fb, fa, src, taps = case
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -670,10 +678,21 @@ def phase_mega_time(torch, case, card):
         spec, sig, fb, fa, *state, src, taps), 5)
     p_us = _cuda_time_us(torch, lambda: _mega_chunk_plain(
         spec, sig, fb, fa, *state, src, taps), 1)
+    occ = chunk_occupancy()
     print(f"[7 mega] B2 alone at {spec.dims}: kernel {k_us / CHUNK:.2f} "
           f"us/sub-step ({k_us / 1e3:.3f} ms per K = {CHUNK} chunk), plain "
-          f"version {p_us / CHUNK:.2f} us/sub-step [{card}]")
-    return k_us, p_us
+          f"version {p_us / CHUNK:.2f} us/sub-step; {occ['registers']} "
+          f"registers, {occ['local_bytes']} B local, {occ['ctas_per_sm']} "
+          f"CTAs an SM, a cooperative grid of {occ['grid']} CTAs; ptxas: "
+          f"{ptxas.get('box_mega_chunk', '')} [{card}]")
+    prof = profile_chunk(case, gen)
+    print(f"[7 mega] one profiled chunk: {prof['chunk_launches']} launch(es) "
+          f"of the chunk kernel; every kernel {prof['kernels']}, span "
+          f"{prof['span_us']:.1f} us, gaps {prof['gaps_us']} us [{card}]")
+    if prof["gaps_us"] is not None and prof["chunk_launches"] != 1:
+        _fail(f"a B2 chunk launched {prof['chunk_launches']} kernels, not "
+              "one")
+    return k_us, p_us, occ
 
 
 def phase_mega_hall(torch, box, dx, mesh, fused_out, fused_step_s, card):
@@ -1016,9 +1035,9 @@ def _grad_chunk_case(torch, tag, what, spec, fb, fa, src, taps, gen):
     res_abs = float((got[6] - want[6]).abs().max())
     print(f"[{tag}] B6 {what}: forward outputs equal B2's: {same}; max "
           f"|forward - plain| = {fwd_err:.3e}; residuals "
-          f"{tuple(got[6].shape)}: {res_err:.3e} of the largest (bound "
-          f"{BWD_REL:g})")
-    if not (same and res_err <= BWD_REL):
+          f"{tuple(got[6].shape)}: max |kernel - plain| {res_abs:.3e}, "
+          f"{res_err:.3e} of the largest (bound 0: bit-equal)")
+    if not (same and fwd_err == 0.0 and res_abs == 0.0):
         _fail(f"B6 disagrees: {what}")
     del want, b2, got
 
@@ -1129,6 +1148,11 @@ def phase_grad_chunk_time(torch, case, card):
     streams = mega_chunk_bwd(spec, fb, fa, gtaps, *carry, src, taps)[4:]
     theta_us = _cuda_time_us(torch, lambda: _chunk_theta_grads(
         spec, fb, fa, res, *streams), 3)
+    from wayverb_tpu_torch.waveguide.box_mega import chunk_occupancy
+    occ = chunk_occupancy()
+    print(f"[12 grad] B6 is the chunk kernel of phase 7 with a residual "
+          f"block: {occ['registers']} registers, {occ['local_bytes']} B "
+          f"local, {occ['ctas_per_sm']} CTAs an SM [{card}]")
     print(f"[12 grad] alone at {spec.dims}, K = {CHUNK}: B6 "
           f"{b6_us / CHUNK:.2f} us/sub-step (plain {b6_plain_us / CHUNK:.2f})"
           f", B7 {b7_us / CHUNK:.2f} us/sub-step (plain "
@@ -3086,7 +3110,7 @@ def phase_probe(torch, card):
 def main():
     import torch
     card = phase_device(torch)
-    phase_build(card)
+    ptxas = phase_build(card)
     box, dx, mesh, setup_s = _hall_mesh(torch)
     b1_err = phase_kernel_vs_plain(torch, mesh.box_spec, card)
     t30_mesh, t30_fused, sabine, t30_src, t30_rcv = phase_t30(torch, card)
@@ -3095,8 +3119,11 @@ def main():
     b1_us, b1_plain_us = phase_kernel_time(torch, mesh.box_spec, card)
     phase_profile(torch, mesh, box, dx, step_s, card)
     b2_err, hall_case = phase_mega_vs_plain(torch, mesh, box, dx, card)
-    b2_us, b2_plain_us = phase_mega_time(torch, hall_case, card)
+    t0 = time.perf_counter()
+    b2_us, b2_plain_us, b2_occ = phase_mega_time(torch, hall_case, ptxas,
+                                                 card)
     phase_mega_hall(torch, box, dx, mesh, fused_out, step_s, card)
+    print(f"[7 mega] phase wall {time.perf_counter() - t0:.2f} s [{card}]")
     del fused_out
     torch.cuda.empty_cache()
 
@@ -3107,8 +3134,11 @@ def main():
     b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us = phase_grad_chunk_time(
         torch, grad_case, card)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     grad_counts, grad_fwd_s, grad_bwd_s, grad_peak, grad_more = \
         phase_grad_hall(torch, box, dx, mesh, card)
+    print(f"[13 grad hall] phase wall {time.perf_counter() - t0:.2f} s "
+          f"[{card}]")
     route_counts, _ = phase_grad_routes(torch, mesh, card)
     hall_spec, hall_dims = mesh.box_spec, mesh.box_spec.dims
     bounds = kernel_bounds(hall_spec, hall_case[1].shape[1] - 1,
@@ -3123,8 +3153,10 @@ def main():
     torch.cuda.empty_cache()
 
     phase_t30_mega(torch, t30_mesh, t30_fused, sabine, t30_src, t30_rcv, card)
+    t0 = time.perf_counter()
     launches, engine_dims, b2_engine_err = phase_hybrid_hall(torch, hall_spec,
                                                              card)
+    print(f"[9 hybrid] phase wall {time.perf_counter() - t0:.2f} s [{card}]")
     phase_hybrid_card_vs_cpu(torch, card)
     phase_grad_card_vs_cpu(torch, card)
     phase_descent(torch, card)
@@ -3251,6 +3283,7 @@ def main():
         "launches": counted["box_mega_chunk"],
         "max_abs_err": max(b2_err, b2_engine_err),
         **per_substep("b2", b2_us, b2_plain_us),
+        **{k: b2_occ[k] for k in ("registers", "local_bytes", "ctas_per_sm")},
     }, {
         "name": "box_fused_step_bwd",
         "route": "cuda",
@@ -3275,6 +3308,7 @@ def main():
         "err_is": "residuals; the forward outputs equal the plain chunk "
                   "kernel's to the bit",
         **per_substep("b6", b6_us, b6_plain_us),
+        **{k: b2_occ[k] for k in ("registers", "local_bytes", "ctas_per_sm")},
     }, {
         "name": f"box_mega_chunk_bwd (K={CHUNK})",
         "route": "cuda",

@@ -180,6 +180,35 @@ def test_source_on_inner_plane(meshes, axis, side):
     _assert_outputs_close(got["outputs"], want["outputs"])
 
 
+@pytest.mark.parametrize("where,sides", [
+    ("edge", (0, 1, None)),       # on the inner x-lo and y-hi planes
+    ("corner", (1, 0, 1)),        # on the inner x-hi, y-lo and z-hi planes
+])
+def test_source_on_inner_edge_and_corner(meshes, where, sides):
+    """A soft source on an edge (two inner planes patched at once) and on a
+    corner (three) of the inner box, against JAX's fused path; atol 2e-5,
+    as ``test_source_on_inner_plane``."""
+    jm, tm = meshes
+    spec = tm.box_spec
+    steps = 10
+    loc = [(spec.ilo[a] + spec.ihi[a]) // 2 if side is None
+           else (spec.ilo[a] if side == 0 else spec.ihi[a])
+           for a, side in enumerate(sides)]
+    rcv = [(spec.ilo[a] + spec.ihi[a]) // 2 for a in range(3)]
+    rcv[2] += 2
+    js, jr, ts, tr = _problem(jm, tm, steps, tuple(loc), tuple(rcv), "soft",
+                              "node")
+    planes = [pi for pi, _, _ in tbm._inner_plane_source(
+        spec, ts.kernel_injection(spec.dims, 0)[0])]
+    assert planes == [2 * a + side for a, side in enumerate(sides)
+                      if side is not None]
+    want = j_run._run_waveguide_box_jit(jm.structure, jm.box_spec, js, jr,
+                                        steps)
+    got = tbm.run_waveguide_box_mega(tm.structure, spec, ts, tr, steps,
+                                     chunk=4)
+    _assert_outputs_close(got["outputs"], want["outputs"])
+
+
 def test_chunks_chain(meshes):
     """Two chunks of 4 equal one chunk of 8, state and taps alike (the
     plain chunk returns (cur, prev) in the reference's order)."""

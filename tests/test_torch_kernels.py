@@ -351,6 +351,142 @@ def test_mega_chunk_bwd_kernel_matches_plain(cuda_device, mode, on_plane, K,
             assert err <= BWD_REL * scale, (name, q)
 
 
+# the persistent chunk kernel (B2, and B6 in grad mode): one cooperative
+# launch a chunk, held to the bit
+SMALL_BOX = ((21, 17, 26), (2, 3, 2), (18, 13, 23))
+LARGE_BOX = ((40, 60, 100), (2, 3, 2), (37, 56, 97))  # more nodes than threads
+
+
+def _nan_equal(a, b):
+    """torch.equal, with NaN equal to NaN at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, zero, a),
+                                               torch.where(nb, zero, b))
+
+
+def _persistent_case(device, box, where, mode, K, order, scale, seed=5):
+    """A chunk problem on ``box`` (dims, ilo, ihi) with random fields, state
+    and planes (zero in the planes' padding) times ``scale``; the source in
+    the middle (``where`` None), on inner plane ``where`` (an int), on the
+    x-lo/y-hi edge ("edge") or the x-hi/y-lo/z-hi corner ("corner"), with
+    taps at the source, beside it and at two far nodes."""
+    dims, ilo, ihi = box
+    spec = tbf.BoxSpec(dims=dims, ilo=ilo, ihi=ihi, face_surface=(0,) * 6)
+    Umax, Vmax = tbf.stacked_plane_shape(spec)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    mask = torch.zeros((6, Umax, Vmax), device=device)
+    for p in range(6):
+        U, V = spec.plane_shape(p)
+        mask[p, :U, :V] = 1.0
+    sides = {None: (None,) * 3, "edge": (0, 1, None),
+             "corner": (1, 0, 1)}.get(where)
+    if sides is None:
+        sides = tuple(where % 2 if a == where // 2 else None
+                      for a in range(3))
+    src = tuple((ilo[a] + ihi[a]) // 2 if side is None
+                else (ilo[a] if side == 0 else ihi[a])
+                for a, side in enumerate(sides))
+    X, Y, Z = dims
+    flat = (src[0] * Y + src[1]) * Z + src[2]
+    taps = torch.tensor([flat, flat + 1, (1 * Y + 5) * Z + 7,
+                         X * Y * Z - 1], device=device)
+    fb = torch.tensor([[1.0, 0.1, 0.05, 0.02, 0.0, 0.01, 0.0]] * 6,
+                      device=device) * 2.0
+    fa = torch.tensor([[1.0, -0.2, 0.01, 0.0, 0.03, 0.0, 0.0]] * 6,
+                      device=device)
+    fb = (fb + 0.01 * torch.arange(6, device=device)[:, None])
+    state = tuple((t * scale).contiguous() for t in (
+        rnd(*dims), rnd(*dims), rnd(order, 6, Umax, Vmax) * mask,
+        rnd(3, 6, Umax, Vmax) * mask))
+    return (spec, rnd(K), fb[:, :order + 1].contiguous(),
+            fa[:, :order + 1].contiguous()), state, (src + (mode,), taps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box,where,mode,K,order,scale", [
+    (SMALL_BOX, None, 0, 8, 6, 1.0),
+    (SMALL_BOX, None, 1, 8, 6, 1.0),
+    (SMALL_BOX, None, 2, 8, 6, 1.0),
+    *((SMALL_BOX, p, 1 + p % 2, 8, 6, 1.0) for p in range(6)),
+    (SMALL_BOX, "edge", 2, 8, 6, 1.0),
+    (SMALL_BOX, "corner", 1, 8, 6, 1.0),
+    (SMALL_BOX, "corner", 2, 2, 6, 1.0),
+    (SMALL_BOX, 3, 2, 8, 1, 1.0),
+    (SMALL_BOX, None, 1, 2, 1, 1.0),
+    (LARGE_BOX, None, 1, 8, 6, 1.0),
+    (LARGE_BOX, "edge", 2, 2, 6, 1.0),
+    (SMALL_BOX, None, 2, 8, 6, 1e38),     # sums overflow: bad counts agree
+    (LARGE_BOX, 0, 1, 8, 3, 1e38),
+])
+def test_mega_chunk_persistent_bit_equal(cuda_device, box, where, mode, K,
+                                         order, scale):
+    """B2 and B6 against ``_mega_chunk_plain``, to the bit (NaN where the
+    plain version has NaN): the fields, state, planes, taps and non-finite
+    count; B6's six outputs equal B2's and its residual block the plain
+    version's.  One launch each, in its own counter."""
+    args, state, tail = _persistent_case(cuda_device, box, where, mode, K,
+                                         order, scale)
+    want = tbm._mega_chunk_plain(*args, *state, *tail, grad=True)
+    before = tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches
+    b2 = tbm.mega_chunk(*args, *(t.clone() for t in state), *tail)
+    torch.cuda.synchronize()
+    assert (tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches) == \
+        (before[0] + 1, before[1])
+    b6 = tbm.mega_chunk(*args, *(t.clone() for t in state), *tail,
+                        grad=True)
+    torch.cuda.synchronize()
+    assert (tbm.mega_chunk.launches, tbm.mega_chunk.grad_launches) == \
+        (before[0] + 1, before[1] + 1)
+    names = ("cur", "prev", "st", "pln", "taps", "bad")
+    for name, g, w in zip(names, b2, want):
+        assert _nan_equal(g, w), name
+    for name, g, w in zip(names, b6, b2):
+        assert _nan_equal(g, w), name
+    assert _nan_equal(b6[6], want[6]), "residuals"
+    if scale > 1.0:
+        assert float(want[5]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", [False, True])
+def test_mega_chunk_persistent_chunks_chain(cuda_device, grad):
+    """Two K = 4 chunks of the kernel equal one K = 8 chunk to the bit:
+    fields, state, planes, taps, the non-finite count and (grad mode) the
+    residuals."""
+    args, state, tail = _persistent_case(cuda_device, LARGE_BOX, "corner", 2,
+                                         8, 6, 1.0)
+    spec, sig, fb, fa = args
+    whole = tbm.mega_chunk(*args, *(t.clone() for t in state), *tail,
+                           grad=grad)
+    half = tbm.mega_chunk(spec, sig[:4].contiguous(), fb, fa,
+                          *(t.clone() for t in state), *tail, grad=grad)
+    half = tuple(t.clone() for t in half)
+    half2 = tbm.mega_chunk(spec, sig[4:].contiguous(), fb, fa, *half[:4],
+                           *tail, grad=grad)
+    torch.cuda.synchronize()
+    for g, w in zip(half2[:4], whole[:4]):
+        assert torch.equal(g, w)
+    assert torch.equal(torch.cat([half[4], half2[4]]), whole[4])
+    assert torch.equal(half[5] + half2[5], whole[5])
+    if grad:
+        assert torch.equal(torch.cat([half[6], half2[6]]), whole[6])
+
+
+@pytest.mark.cuda
+def test_mega_chunk_residency(cuda_device):
+    """What the card makes of the chunk kernel: no local memory, at most 64
+    registers (its launch bounds), and a cooperative grid of every CTA the
+    card holds at once, CTAs an SM x SMs."""
+    occ = tbm.chunk_occupancy(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert occ["local_bytes"] == 0, occ
+    assert 0 < occ["registers"] <= 64, occ
+    assert occ["ctas_per_sm"] >= 1, occ
+    assert occ["grid"] == occ["ctas_per_sm"] * sms, occ
+
+
 def _grad_problem(device, steps):
     fs = 3333.33
     dx = grid_spacing(340.0, 1.0 / fs)

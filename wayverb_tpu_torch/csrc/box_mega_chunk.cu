@@ -1,91 +1,139 @@
-// Mega chunk of the shoebox waveguide: K leapfrog sub-steps in one call,
-// CUDA C++ for Hopper (sm_90a).
+// Mega chunk of the shoebox waveguide: K leapfrog sub-steps in one
+// persistent cooperative launch, CUDA C++ for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_MegaKernel.kernel` of
-// wayverb_tpu/waveguide/box_mega.py, with grad=False and, when the caller
-// passes a residual block, with grad=True.  It computes what the port's
-// plain version `_mega_chunk_plain` (wayverb_tpu_torch/waveguide/
-// box_mega.py) computes.  Each sub-step t, on the current field A and the
-// previous field B:
+// wayverb_tpu/waveguide/box_mega.py, with grad=False (B2) and, when the
+// caller passes a residual block, with grad=True (B6).  It computes what the
+// port's plain version `_mega_chunk_plain` (wayverb_tpu_torch/waveguide/
+// box_mega.py) computes, to the bit.  Each sub-step t, on the current field
+// A and the previous field B:
 //
-//   plane kernel, one thread per (plane, u, v) of (6, Umax, Vmax):
+//   plane pass, the grid striding over the (6, Umax, Vmax) plane elements:
 //     - one thread injects the source into A (1 set, 2 add) and writes the
 //       receiver taps of the post-injection field into row t of the (K, k)
 //       tap block;
 //     - the injection mirrored onto the carried inner planes (a source on
-//       an inner plane): the owning thread substitutes the patched value;
+//       an inner plane, an edge or a corner patches one, two or three of
+//       them): the owning thread substitutes the patched value;
 //     - the six DF2T boundary-plane updates with edge/corner coupling
 //       (reference program.cpp:331-388 + filters.cpp), new <- f(PL, INS,
 //       PRVP, state);
-//     - each plane's sum, for the non-finite count;
+//     - each plane's sum, for the non-finite count: warp shuffles, a row of
+//       shared memory a warp, one atomic add a plane a CTA;
 //     - in grad mode, the element's four residuals into row t of the
 //       (K, 4, 6, Umax, Vmax) block: PL, INS after the injection patch, PRVP
-//       and the OLD first state slot, exactly the values this update read
-//       (the coefficient gradients are taken from them afterwards).  The
-//       other outputs do not depend on the mode.
-//   stencil kernel, one thread per node: B <- the masked 7-point stencil
-//     of A minus B (in place over B), the splices of the new boundary
-//     planes and the inner-plane extraction into INS (box_stencil.cuh, the
-//     same code as the fused step B1); one thread adds the number of
-//     planes whose sum was not finite to `bad` and clears the sums.
+//       and the OLD first state slot, exactly the values this update read.
+//       The other outputs do not depend on the mode.
+//   grid barrier;
+//   stencil pass: one thread counts the planes whose sum was not finite into
+//     `bad` and clears the sums; every node gets B <- the masked 7-point
+//     stencil of A minus B (in place over B), the splice of the new boundary
+//     planes and the inner-plane extraction into INS (`wv::stencil_finish`,
+//     the code the fused step B1 runs);
+//   grid barrier; A and B swap.
 //
-// Then A and B swap by pointer.  The TPU kernel keeps both fields resident
-// in VMEM for the whole chunk; on the H100 2 x 49 MiB at 224 x 224 x 256
-// does not fit the 50 MB L2, so each sub-step streams the field through
-// device memory like the fused step, and the chunk saves the host's eager
-// plane-step launches (about 240 a step) rather than field traffic.  What
-// bounds a sub-step: the stencil kernel's 12 B/node of device traffic.
+// The stencil pass runs one thread a node: warps stride over the (x, y)
+// rows, lanes along z.  A warp-wide z block whose 32 nodes are strictly
+// inside the box on every axis (at the hall 75 % of them) runs the bare
+// leapfrog, kGroup blocks at a time so that their loads are in flight
+// together; the other blocks run `node`, which reads its splice's plane
+// value before the sum so that the two loads overlap.  What bounds the pass
+// is the latency of those loads, not their bytes: a warp has at most
+// kGroup blocks of loads in flight.
 //
-// Read-before-write hazards inside one launch are designed out:
+// Launch: one cudaLaunchCooperativeKernel a chunk, of a grid that is
+// resident at once (CTAs an SM from the occupancy calculator x SMs).  The
+// ordering rules of a launch a pass become barrier points:
 //   - plane p's coupling reads its neighbours' OLD first state slot, which
-//     other blocks of the same launch rewrite: the state ping-pongs (read
-//     st_in, write st_out, swap by pointer);
+//     other threads rewrite: the state ping-pongs (read st_in, write st_out);
 //   - the in-plane shifts read PL while the new planes are written: three
-//     plane buffers rotate by pointer (new is written into the spare, then
-//     PRVP <- PL and PL <- new), nothing is written in place;
+//     plane buffers rotate (new is written into the spare, then PRVP <- PL
+//     and PL <- new);
+//   - every thread derives the roles of a sub-step (A, B, the state's two
+//     copies, the three plane buffers) from t alone;
 //   - the injection and the taps are done by one thread, and a tap at the
-//     source node takes the injected value, so no read depends on the order
-//     of writes by other threads.
-// Padding of the stacked (Umax, Vmax) planes is written as zero, so a
-// shifted read never picks up garbage.
+//     source node takes the injected value;
+//   - every value one thread writes and another reads (fields, planes,
+//     state, sums) is read after a grid barrier, with plain loads: nothing
+//     goes through the non-coherent path (no __ldg, no const __restrict__).
+// After the last sub-step the grid moves the rotated plane buffers back to
+// their slots of `pln` (each element read before it is written, by one
+// thread).  Padding of the stacked (Umax, Vmax) planes is written as zero.
+//
+// What bounds a sub-step on the card: the two fields (2 x 49 MiB at 224 x
+// 224 x 256) fit neither L2 (50 MB) nor shared memory, so every sub-step
+// streams them, 12 B a node, plus the plane state.
 //
 // The file is compiled with --fmad=false: each product and sum rounds on
 // its own, in the plain version's order, as torch's separate kernels do.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "box_stencil.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kPlaneBlock = 256;  // threads per plane-kernel block
-constexpr int kBlockZ = 128;      // stencil threads along z (contiguous axis)
-constexpr int kBlockY = 2;        // stencil threads along y
+constexpr int kThreads = 1024; // threads a CTA
+constexpr int kMinCtas = 1;    // CTAs an SM the launch bounds ask for
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroup = 3;      // bare z blocks a warp loads at once
 
-struct PlaneArgs {
-  float* field;               // A: the current field; the injection lands here
-  const float* sig;           // this sub-step's signal value (device)
+struct ChunkArgs {
+  float* cur;
+  float* prev;
+  float* st;                  // (order, 6, Umax, Vmax) DF2T state
+  float* st_spare;
+  float* pln;                 // (3, 6, Umax, Vmax) PL, INS, PRVP
+  float* pln_spare;           // (6, Umax, Vmax)
+  const float* sig;           // (K,)
+  const long long* tap_idx;   // (k,)
+  float* taps;                // (K, k)
+  float* bad;                 // (1,)
+  float* sums;                // (6,) zero on entry and on return
+  float* res;                 // (K, 4, 6, Umax, Vmax), or null
+  const float* fb;            // (6, order + 1)
+  const float* fa;
   long long src;              // flat index of the source node, or -1
   int mode;                   // 1 set, 2 add
-  const long long* tap_idx;   // (k,) flat node indices, in receiver read order
-  int k;
-  float* tap_row;             // (k,) row t of the tap block
-  const float* pl;            // (6, Umax, Vmax) boundary planes of A
-  const float* ins;           // (6, Umax, Vmax) first-inside planes of A
-  const float* prvp;          // (6, Umax, Vmax) boundary planes of B
-  float* out_p;               // (6, Umax, Vmax) new boundary planes
-  float* res;                 // (4, 6, Umax, Vmax) residual row t, or null
-  const float* st_in;         // (order, 6, Umax, Vmax) DF2T state
-  float* st_out;
-  const float* fb;            // (6, order + 1) per-face filter numerator
-  const float* fa;            // (6, order + 1) denominator
-  float* sums;                // (6,) per-plane sums of the new planes
+  int k, K;
   int dims[3];
   int blo[3], bhi[3];         // boundary-plane coordinates per axis
   int Umax, Vmax, order;
   int ins_u[6], ins_v[6];     // source on inner plane p at (u, v), or -1
   float courant, courant_sq;
+  wv::StencilArgs geo;        // the stencil's geometry (pointers unused)
 };
+
+// a0 / b0 of each face's filter, computed once a CTA (the same IEEE
+// division the plane update would repeat for every element).
+__shared__ float face_ratio[6];
+
+// v[i] of a three- or six-element parameter array, by selects: a dynamic
+// index into the kernel's parameters could be copied to local memory.
+__device__ __forceinline__ int pick3(const int (&v)[3], int i) {
+  return i == 0 ? v[0] : (i == 1 ? v[1] : v[2]);
+}
+__device__ __forceinline__ int pick6(const int (&v)[6], int i) {
+  return i < 3 ? (i == 0 ? v[0] : (i == 1 ? v[1] : v[2]))
+               : (i == 3 ? v[3] : (i == 4 ? v[4] : v[5]));
+}
+
+// threadIdx.x and blockIdx.x, read afresh at each use: a value derived from
+// them and kept live from one pass to the other would cost a register the
+// plane pass needs.
+__device__ __forceinline__ int thread_x() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ int block_x() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  return v;
+}
 
 __device__ __forceinline__ void other_axes(int a, int* a1, int* a2) {
   *a1 = a == 0 ? 1 : 0;
@@ -94,147 +142,346 @@ __device__ __forceinline__ void other_axes(int a, int* a1, int* a2) {
 
 // One plane element's boundary update; returns the new pressure (0 in the
 // padding).  Arithmetic in the order of box_mega.plane_step_one.
-__device__ float plane_update(const PlaneArgs& a, int p, int u, int v) {
-  const long long uv = (long long)a.Umax * a.Vmax;
-  const long long stack = 6 * uv;
-  const long long idx = p * uv + (long long)u * a.Vmax + v;
+__device__ __forceinline__ float plane_update(
+    const ChunkArgs& a, const float* pl, const float* ins, const float* prvp,
+    float* out_p, const float* st_in, float* st_out, int t, float sig, int p,
+    int u, int v) {
+  const int uv = a.Umax * a.Vmax;
+  const int stack = 6 * uv;
+  const int idx = p * uv + u * a.Vmax + v;
+  // in grad mode, row t of the residual block
+  float* const res = a.res ? a.res + (long long)t * 4 * stack : nullptr;
   const int ax = p >> 1, side = p & 1;
   int a1, a2;
   other_axes(ax, &a1, &a2);
-  const int U = a.dims[a1], V = a.dims[a2];
+  const int U = pick3(a.dims, a1), V = pick3(a.dims, a2);
   if (u >= U || v >= V) {
-    a.out_p[idx] = 0.f;
-    for (int j = 0; j < a.order; ++j) a.st_out[j * stack + idx] = 0.f;
-    if (a.res)
-      for (int r = 0; r < 4; ++r) a.res[r * stack + idx] = 0.f;
+    out_p[idx] = 0.f;
+    for (int j = 0; j < a.order; ++j) st_out[j * stack + idx] = 0.f;
+    if (res)
+      for (int r = 0; r < 4; ++r) res[r * stack + idx] = 0.f;
     return 0.f;
   }
+  const int blo1 = pick3(a.blo, a1), bhi1 = pick3(a.bhi, a1);
+  const int blo2 = pick3(a.blo, a2), bhi2 = pick3(a.bhi, a2);
   const int stride = a.Vmax;
-  const float s_um = u > 0 ? a.pl[idx - stride] : 0.f;
-  const float s_up = u + 1 < U ? a.pl[idx + stride] : 0.f;
-  const float s_vm = v > 0 ? a.pl[idx - 1] : 0.f;
-  const float s_vp = v + 1 < V ? a.pl[idx + 1] : 0.f;
-  const float w_um = u == a.blo[a1] ? 0.f : (u == a.bhi[a1] ? 2.f : 1.f);
-  const float w_up = u == a.blo[a1] ? 2.f : (u == a.bhi[a1] ? 0.f : 1.f);
-  const float w_vm = v == a.blo[a2] ? 0.f : (v == a.bhi[a2] ? 2.f : 1.f);
-  const float w_vp = v == a.blo[a2] ? 2.f : (v == a.bhi[a2] ? 0.f : 1.f);
+  const float s_um = u > 0 ? pl[idx - stride] : 0.f;
+  const float s_up = u + 1 < U ? pl[idx + stride] : 0.f;
+  const float s_vm = v > 0 ? pl[idx - 1] : 0.f;
+  const float s_vp = v + 1 < V ? pl[idx + 1] : 0.f;
+  const float w_um = u == blo1 ? 0.f : (u == bhi1 ? 2.f : 1.f);
+  const float w_up = u == blo1 ? 2.f : (u == bhi1 ? 0.f : 1.f);
+  const float w_vm = v == blo2 ? 0.f : (v == bhi2 ? 2.f : 1.f);
+  const float w_vp = v == blo2 ? 2.f : (v == bhi2 ? 0.f : 1.f);
 
-  float in = a.ins[idx];
-  if (u == a.ins_u[p] && v == a.ins_v[p])
-    in = a.mode == 1 ? a.sig[0] : in + a.sig[0];
+  float in = ins[idx];
+  if (u == pick6(a.ins_u, p) && v == pick6(a.ins_v, p))
+    in = a.mode == 1 ? sig : in + sig;
+  // the 0/1/2 weights and the mask multiply as the plain version does
+  // (__fmul_rn: 0 * inf is NaN, never folded into a select of 0)
   float csw = 2.f * in;
-  csw = csw + w_um * s_um;
-  csw = csw + w_up * s_up;
-  csw = csw + w_vm * s_vm;
-  csw = csw + w_vp * s_vp;
+  csw = csw + __fmul_rn(w_um, s_um);
+  csw = csw + __fmul_rn(w_up, s_up);
+  csw = csw + __fmul_rn(w_vm, s_vm);
+  csw = csw + __fmul_rn(w_vp, s_vp);
   csw = a.courant_sq * csw;
 
   const int nc = a.order + 1;
   const float b0 = a.fb[p * nc], a0 = a.fa[p * nc];
-  const float m0 = a.st_in[idx];
+  const float m0 = st_in[idx];
   float fw = m0 / b0;
-  float cw = a0 / b0;
+  float cw = face_ratio[p];
   // edge/corner coupling: a node on this plane's in-plane box edge also
   // belongs to the neighbouring plane q; add q's OLD first state slot at
-  // the same global point
-  int g[3];
-  g[ax] = side == 0 ? a.blo[ax] : a.bhi[ax];
-  g[a1] = u;
-  g[a2] = v;
+  // the same global point g (g[ax] the plane's coordinate, g[a1] = u,
+  // g[a2] = v).  As in the plain version every element adds the masked
+  // term of all four neighbours, 0 * (line / b0q) off the edge, so a
+  // non-finite line gives the same NaN; the line's point does not depend
+  // on g[e].
+  const int gax = side == 0 ? pick3(a.blo, ax) : pick3(a.bhi, ax);
+  auto g = [&](int i) { return i == ax ? gax : (i == a1 ? u : v); };
+  // kept rolled: unrolled, its loads and divisions spill (PERF.md §6)
+#pragma unroll 1
   for (int ei = 0; ei < 2; ++ei) {
     const int e = ei == 0 ? a1 : a2;
     int qa0, qa1;
     other_axes(e, &qa0, &qa1);
     for (int s2 = 0; s2 < 2; ++s2) {
-      if (g[e] != (s2 == 0 ? a.blo[e] : a.bhi[e])) continue;
+      const float mask =
+          g(e) == (s2 == 0 ? pick3(a.blo, e) : pick3(a.bhi, e)) ? 1.f : 0.f;
       const int q = 2 * e + s2;
-      const float line = a.st_in[q * uv + (long long)g[qa0] * a.Vmax + g[qa1]];
-      const float b0q = a.fb[q * nc], a0q = a.fa[q * nc];
-      fw = fw + line / b0q;
-      cw = cw + a0q / b0q;
+      const float line = st_in[q * uv + g(qa0) * a.Vmax + g(qa1)];
+      fw = fw + __fmul_rn(mask, line / a.fb[q * nc]);
+      cw = cw + __fmul_rn(mask, face_ratio[q]);
     }
   }
   cw = a.courant * cw;
 
-  const float act = (u >= a.blo[a1] && u <= a.bhi[a1] && v >= a.blo[a2] &&
-                     v <= a.bhi[a2]) ? 1.f : 0.f;
-  const float prev = a.prvp[idx];
-  if (a.res) {
-    a.res[idx] = a.pl[idx];
-    a.res[stack + idx] = in;
-    a.res[2 * stack + idx] = prev;
-    a.res[3 * stack + idx] = m0;
+  const float act = (u >= blo1 && u <= bhi1 && v >= blo2 && v <= bhi2)
+                        ? 1.f : 0.f;
+  const float prev = prvp[idx];
+  if (res) {
+    res[idx] = pl[idx];
+    res[stack + idx] = in;
+    res[2 * stack + idx] = prev;
+    res[3 * stack + idx] = m0;
   }
   float x = csw + a.courant_sq * fw;
   x = x + (cw - 1.f) * prev;
-  const float new_p = (act * x) / (1.f + cw);
+  const float new_p = __fmul_rn(act, x) / (1.f + cw);
 
   const float delta = prev - new_p;
   const float filt_in = -((a0 * delta) / (b0 * a.courant) + m0 / b0);
   const float out = (filt_in * b0 + m0) / a0;
   for (int j = 0; j < a.order; ++j) {
-    const float nxt = j + 1 < a.order ? a.st_in[(j + 1) * stack + idx] : 0.f;
-    a.st_out[j * stack + idx] =
+    const float nxt = j + 1 < a.order ? st_in[(j + 1) * stack + idx] : 0.f;
+    st_out[j * stack + idx] =
         (nxt + a.fb[p * nc + j + 1] * filt_in) - a.fa[p * nc + j + 1] * out;
   }
-  a.out_p[idx] = new_p;
+  out_p[idx] = new_p;
   return new_p;
 }
 
-__global__ void __launch_bounds__(kPlaneBlock) mega_plane_kernel(const PlaneArgs a) {
-  const int p = blockIdx.y;
-  const long long uv = (long long)a.Umax * a.Vmax;
-  const long long e = (long long)blockIdx.x * kPlaneBlock + threadIdx.x;
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
 
-  if (p == 0 && e == 0) {
-    // injection into the current field, then the post-injection taps; one
-    // thread does both, and no other thread of this launch reads the field
+// The plane pass of sub-step t: injection and taps by the grid's last
+// thread, then the six plane updates, and each plane's sum added to sums
+// (through `warp_sums`, kWarps x 6 floats of shared memory).
+__device__ __forceinline__ void plane_pass(const ChunkArgs& a, int t,
+                                           float* warp_sums,
+                                           float* A, const float* PL,
+                                           const float* INS,
+                                           const float* PRVP, float* SP,
+                                           const float* st_in,
+                                           float* st_out) {
+  const int gtid = block_x() * kThreads + thread_x();
+  const int nthreads = gridDim.x * kThreads;
+  const float sig = a.sig[t];
+  if (gtid == nthreads - 1) {
     float inj = 0.f;
     if (a.src >= 0) {
-      inj = a.mode == 1 ? a.sig[0] : a.field[a.src] + a.sig[0];
-      a.field[a.src] = inj;
+      inj = a.mode == 1 ? sig : A[a.src] + sig;
+      A[a.src] = inj;
     }
+    float* row = a.taps + (long long)t * a.k;
     for (int j = 0; j < a.k; ++j) {
       const long long n = a.tap_idx[j];
-      a.tap_row[j] = n == a.src ? inj : a.field[n];
+      row[j] = n == a.src ? inj : A[n];
     }
   }
-
-  float val = 0.f;
-  if (e < uv) val = plane_update(a, p, (int)(e / a.Vmax), (int)(e % a.Vmax));
-
-  // the plane's sum: warp shuffle, then one atomic add per block
-  for (int off = 16; off > 0; off >>= 1)
-    val += __shfl_down_sync(0xffffffffu, val, off);
-  __shared__ float warp_sums[kPlaneBlock / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = val;
+  const int uv = a.Umax * a.Vmax;
+  // each warp sums its elements' values per plane into its row of
+  // warp_sums; a warp's 32 elements are consecutive, so they span the
+  // planes from its first lane's to its last lane's (one or two unless the
+  // planes are tiny)
+  const int lane = gtid & 31;
+  float* const mine = warp_sums + (thread_x() >> 5) * 6;
+  if (lane < 6) mine[lane] = 0.f;
+  __syncwarp();
+  for (int e0 = gtid - lane; e0 < 6 * uv; e0 += nthreads) {
+    const int e = e0 + lane;
+    const int p = e < 6 * uv ? e / uv : 5;
+    float val = 0.f;
+    if (e < 6 * uv) {
+      const int r = e - p * uv;
+      val = plane_update(a, PL, INS, PRVP, SP, st_in, st_out, t, sig, p,
+                         r / a.Vmax, r % a.Vmax);
+    }
+    const int last = __shfl_sync(0xffffffffu, p, 31);
+    for (int q = __shfl_sync(0xffffffffu, p, 0); q <= last; ++q) {
+      const float sum = warp_sum(p == q ? val : 0.f);
+      if (lane == 0) mine[q] += sum;
+    }
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kPlaneBlock / 32; ++w) s += warp_sums[w];
-    atomicAdd(&a.sums[p], s);
+  const int tid = thread_x();
+  if (tid < 6) {
+    float sum = 0.f;
+    for (int w = 0; w < kWarps; ++w) sum += warp_sums[w * 6 + tid];
+    atomicAdd(&a.sums[tid], sum);
   }
 }
 
-__global__ void __launch_bounds__(kBlockZ * kBlockY)
-mega_stencil_kernel(const wv::StencilArgs a, float* sums, float* bad) {
-  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
-      threadIdx.x == 0 && threadIdx.y == 0) {
-    // the plane kernel of this sub-step has finished: count the planes
-    // whose sum is not finite, and clear the sums for the next sub-step
-    float b = 0.f;
-    for (int p = 0; p < 6; ++p) {
-      if (!(fabsf(sums[p]) <= 3.402823466e38f)) b += 1.f;  // NaN or inf
-      sums[p] = 0.f;
-    }
-    bad[0] += b;
+// The stencil value of node (x, y, z) from its six neighbours in cur and
+// its prev, in the plain version's order, then the splice, the store into
+// B and the extraction into INS.  The splice's plane value is read first,
+// so its load overlaps the neighbours' instead of following the sum.
+__device__ __forceinline__ void node(const ChunkArgs& a, const float* PL,
+                                     float* INS, float* B, long long i, int x,
+                                     int y, int z, float xm, float xp,
+                                     float ym, float yp, float zm, float zp,
+                                     float pv) {
+  const wv::StencilArgs& g = a.geo;
+  const int uv = a.Umax * a.Vmax, vmax = a.Vmax;
+  int u, v;
+  const int sp = wv::stencil_splice(g, x, y, z, &u, &v);
+  const float spliced = sp >= 0 ? PL[sp * uv + u * vmax + v] : 0.f;
+  const bool inside = x >= g.ilo0 && x <= g.ihi0 && y >= g.ilo1 &&
+                      y <= g.ihi1 && z >= g.ilo2 && z <= g.ihi2;
+  float res = 0.f;
+  if (inside) {
+    float acc = 0.f;
+    acc += x > 0 ? xm : 0.f;
+    acc += x < g.X - 1 ? xp : 0.f;
+    acc += y > 0 ? ym : 0.f;
+    acc += y < g.Y - 1 ? yp : 0.f;
+    acc += z > 0 ? zm : 0.f;
+    acc += z < g.Z - 1 ? zp : 0.f;
+    res = __fmul_rn(1.0f / 3.0f, acc) - pv;
   }
-  const int z = blockIdx.x * kBlockZ + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const int x = blockIdx.z;
-  if (z >= a.Z || y >= a.Y) return;
-  wv::stencil_node(a, x, y, z);
+  wv::stencil_finish(
+      g, x, y, z, res, B + i, [&](int, int, int) { return spliced; },
+      [&](int p, int u, int v) { return INS + (p * uv + u * vmax + v); });
+}
+
+// The bare leapfrog on N warp-wide z blocks from flat index i, every node
+// strictly inside the box: all the loads go out before the stores.
+template <int N>
+__device__ __forceinline__ void bare_blocks(const float* A, float* B,
+                                            long long i, long long yz, int Z) {
+  float res[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const long long j = i + 32 * k;
+    float acc = 0.f;
+    acc += A[j - yz];
+    acc += A[j + yz];
+    acc += A[j - Z];
+    acc += A[j + Z];
+    acc += A[j - 1];
+    acc += A[j + 1];
+    res[k] = __fmul_rn(1.0f / 3.0f, acc) - B[j];
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) B[i + 32 * k] = res[k];
+}
+
+// The stencil pass, one thread a node: warps stride over the (x, y) rows,
+// lanes along z, each neighbour loaded.  Warp-wide z blocks whose nodes are
+// all strictly inside the box on every axis (no splice, no extraction,
+// every neighbour on the grid) take the bare leapfrog, kGroup blocks at a
+// time where they can; any other block takes `node`.  Both compute the
+// same value in the same order.
+__device__ __forceinline__ void stencil_rows(const ChunkArgs& a,
+                                             const float* A, float* B,
+                                             const float* PL, float* INS) {
+  const wv::StencilArgs& g = a.geo;
+  const int X = g.X, Y = g.Y, Z = g.Z;
+  const long long yz = (long long)Y * Z;
+  const int lane = thread_x() & 31;
+  const int nwarps = gridDim.x * kWarps;
+  for (int r = block_x() * kWarps + (thread_x() >> 5); r < X * Y;
+       r += nwarps) {
+    const int x = r / Y, y = r - (r / Y) * Y;
+    const bool xy_plain = x > g.ilo0 && x < g.ihi0 && y > g.ilo1 &&
+                          y < g.ihi1;
+    for (int z0 = 0; z0 < Z;) {
+      const long long i = (long long)r * Z + z0 + lane;
+      const bool plain = xy_plain && z0 > g.ilo2;
+      if (plain && z0 + 32 * kGroup - 1 < g.ihi2) {
+        bare_blocks<kGroup>(A, B, i, yz, Z);
+        z0 += 32 * kGroup;
+        continue;
+      }
+      const int z = z0 + lane;
+      if (plain && z0 + 31 < g.ihi2) {
+        bare_blocks<1>(A, B, i, yz, Z);
+      } else if (z < Z) {
+        const float xm = x > 0 ? A[i - yz] : 0.f;
+        const float xp = x < X - 1 ? A[i + yz] : 0.f;
+        const float ym = y > 0 ? A[i - Z] : 0.f;
+        const float yp = y < Y - 1 ? A[i + Z] : 0.f;
+        const float zm = z > 0 ? A[i - 1] : 0.f;
+        const float zp = z < Z - 1 ? A[i + 1] : 0.f;
+        node(a, PL, INS, B, i, x, y, z, xm, xp, ym, yp, zm, zp, B[i]);
+      }
+      z0 += 32;
+    }
+  }
+}
+
+// Plane buffer j of the three that rotate: PL, the spare, PRVP's slot.  At
+// sub-step t, r = t % 3: PL is buffer r, the new planes go into buffer
+// (r + 1) % 3 and PRVP is buffer (r + 2) % 3.
+__device__ __forceinline__ float* plane_buf(const ChunkArgs& a, int j) {
+  const int stack = 6 * a.Umax * a.Vmax;
+  return j == 0 ? a.pln : (j == 1 ? a.pln_spare : a.pln + 2 * stack);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+mega_chunk_kernel(const ChunkArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float warp_sums[kWarps * 6];
+  if (thread_x() < 6) {
+    const int nc = a.order + 1;
+    face_ratio[thread_x()] = a.fa[thread_x() * nc] / a.fb[thread_x() * nc];
+  }
+  __syncthreads();
+  const int stack = 6 * a.Umax * a.Vmax;
+  float* const ins = a.pln + stack;
+
+  for (int t = 0; t < a.K; ++t) {
+    // the roles of this sub-step, from t alone: the fields and the state
+    // alternate, the plane buffers rotate with period 3
+    const bool odd = t & 1;
+    float* const A = odd ? a.prev : a.cur;
+    float* const B = odd ? a.cur : a.prev;
+    const int r = t % 3;
+    plane_pass(a, t, warp_sums, A, plane_buf(a, r), ins,
+               plane_buf(a, (r + 2) % 3), plane_buf(a, (r + 1) % 3),
+               odd ? a.st_spare : a.st, odd ? a.st : a.st_spare);
+    grid.sync();  // the new planes, state, sums and the injection are out
+
+    if (block_x() == 0 && thread_x() == 0) {
+      // count the planes whose sum is not finite, and clear the sums for
+      // the next sub-step's plane pass (which starts after the barrier)
+      float b = 0.f;
+      for (int p = 0; p < 6; ++p) {
+        const float s = atomicExch(&a.sums[p], 0.f);
+        if (!(fabsf(s) <= 3.402823466e38f)) b += 1.f;  // NaN or inf
+      }
+      a.bad[0] += b;
+    }
+    // PL is now the new planes
+    stencil_rows(a, A, B, plane_buf(a, (r + 1) % 3), ins);
+    grid.sync();  // every node of B and of INS is written
+  }
+
+  // K is even, so the fields and the state are back in cur/prev and st.
+  // After K rotations PL is buffer K % 3 and PRVP buffer (K + 2) % 3: move
+  // them back to their slots of pln (each element is read before it is
+  // written, by one thread; the last barrier ordered the stencil pass's
+  // reads of PL).
+  const int r = a.K % 3;
+  if (r != 0) {
+    const float* PL = plane_buf(a, r);
+    const float* PRVP = plane_buf(a, (r + 2) % 3);
+    float* const base_prvp = a.pln + 2 * stack;
+    const int gtid = block_x() * kThreads + thread_x();
+    for (int e = gtid; e < stack; e += gridDim.x * kThreads) {
+      const float pl = PL[e], prvp = PRVP[e];
+      a.pln[e] = pl;
+      base_prvp[e] = prvp;
+    }
+  }
+}
+
+// The cooperative grid: CTAs an SM (from the occupancy calculator) x SMs.
+cudaError_t grid_size(int* ctas_per_sm, int* ctas) {
+  int device, sms;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm,
+                                                      mega_chunk_kernel,
+                                                      kThreads, 0);
+  if (e == cudaSuccess) *ctas = *ctas_per_sm * sms;
+  return e;
 }
 
 }  // namespace
@@ -256,8 +503,9 @@ extern "C" {
 //                  order, K;
 //   src, mode      source node (flat, or -1) and injection mode;
 //   ins_uv         (u, v) of the source on each inner plane, or -1 (12 ints).
-// Launches 2K kernels on `stream`, does not synchronise, allocates nothing.
-// Returns the first CUDA error code (0 on success).
+// One cooperative launch on `stream`; does not synchronise, allocates
+// nothing.  Returns the CUDA error code (0 on success); a grid that cannot
+// be resident at once is refused by the launch.
 int wv_box_mega_chunk_f32(float* cur, float* prev, float* st, float* st_spare,
                           float* pln, float* pln_spare, const float* sig,
                           const long long* tap_idx, int k, float* taps,
@@ -265,119 +513,77 @@ int wv_box_mega_chunk_f32(float* cur, float* prev, float* st, float* st_spare,
                           const float* fa, const int* geom, long long src,
                           int mode, const int* ins_uv, float courant,
                           float courant_sq, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int X = geom[0], Y = geom[1], Z = geom[2];
   const int Umax = geom[9], Vmax = geom[10], order = geom[11], K = geom[12];
-  if (K % 2 != 0 || order < 1 || k < 1) return cudaErrorInvalidValue;
-  const long long uv = (long long)Umax * Vmax;
-  const long long stack = 6 * uv;
+  if (K < 2 || K % 2 != 0 || order < 1 || k < 1)
+    return cudaErrorInvalidValue;
+  // plane indices and the (x, y) row index are 32-bit
+  const long long stack = 6LL * Umax * Vmax;
+  if (stack * (order > 4 ? order : 4) > 0x7fffffffLL ||
+      (long long)X * Y > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
 
-  PlaneArgs pa;
-  pa.src = src;
-  pa.mode = mode;
-  pa.tap_idx = tap_idx;
-  pa.k = k;
-  pa.fb = fb;
-  pa.fa = fa;
-  pa.sums = sums;
-  pa.dims[0] = X;
-  pa.dims[1] = Y;
-  pa.dims[2] = Z;
+  ChunkArgs a = {};  // the stencil geometry's pointers stay null
+  a.cur = cur;
+  a.prev = prev;
+  a.st = st;
+  a.st_spare = st_spare;
+  a.pln = pln;
+  a.pln_spare = pln_spare;
+  a.sig = sig;
+  a.tap_idx = tap_idx;
+  a.taps = taps;
+  a.bad = bad;
+  a.sums = sums;
+  a.res = res;
+  a.fb = fb;
+  a.fa = fa;
+  a.src = src;
+  a.mode = mode;
+  a.k = k;
+  a.K = K;
+  a.dims[0] = X;
+  a.dims[1] = Y;
+  a.dims[2] = Z;
   for (int ax = 0; ax < 3; ++ax) {
-    pa.blo[ax] = geom[3 + 2 * ax] - 1;
-    pa.bhi[ax] = geom[4 + 2 * ax] + 1;
+    a.blo[ax] = geom[3 + 2 * ax] - 1;
+    a.bhi[ax] = geom[4 + 2 * ax] + 1;
   }
-  pa.Umax = Umax;
-  pa.Vmax = Vmax;
-  pa.order = order;
+  a.Umax = Umax;
+  a.Vmax = Vmax;
+  a.order = order;
   for (int p = 0; p < 6; ++p) {
-    pa.ins_u[p] = ins_uv[2 * p];
-    pa.ins_v[p] = ins_uv[2 * p + 1];
+    a.ins_u[p] = ins_uv[2 * p];
+    a.ins_v[p] = ins_uv[2 * p + 1];
   }
-  pa.courant = courant;
-  pa.courant_sq = courant_sq;
-
-  wv::StencilArgs sa;
+  a.courant = courant;
+  a.courant_sq = courant_sq;
   const int shape_geom[10] = {X, Y, Z, 0, geom[3], geom[4],
                               geom[5], geom[6], geom[7], geom[8]};
-  wv::stencil_set_geometry(sa, shape_geom);
-  sa.hlo = nullptr;
-  sa.hhi = nullptr;
-  sa.inj_val = nullptr;
-  sa.src = -1;   // the plane kernel already injected into the field
-  sa.mode = 0;
+  wv::stencil_set_geometry(a.geo, shape_geom);
 
-  float* base_pl = pln;
-  float* ins = pln + stack;
-  float* base_prvp = pln + 2 * stack;
-  float* PL = base_pl;
-  float* PRVP = base_prvp;
-  float* SP = pln_spare;
-  float* st_in = st;
-  float* st_out = st_spare;
-
-  const dim3 pgrid((unsigned)((uv + kPlaneBlock - 1) / kPlaneBlock), 6, 1);
-  const dim3 sblock(kBlockZ, kBlockY, 1);
-  const dim3 sgrid((Z + kBlockZ - 1) / kBlockZ, (Y + kBlockY - 1) / kBlockY, X);
-  cudaError_t err;
-  for (int t = 0; t < K; ++t) {
-    float* A = (t % 2 == 0) ? cur : prev;
-    float* B = (t % 2 == 0) ? prev : cur;
-    pa.field = A;
-    pa.sig = sig + t;
-    pa.tap_row = taps + (long long)t * k;
-    pa.res = res ? res + (long long)t * 4 * stack : nullptr;
-    pa.pl = PL;
-    pa.ins = ins;
-    pa.prvp = PRVP;
-    pa.out_p = SP;
-    pa.st_in = st_in;
-    pa.st_out = st_out;
-    mega_plane_kernel<<<pgrid, kPlaneBlock, 0, stream>>>(pa);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-    // PRVP <- PL, PL <- new; the state's new copy becomes current
-    float* old_prvp = PRVP;
-    PRVP = PL;
-    PL = SP;
-    SP = old_prvp;
-    float* tmp = st_in;
-    st_in = st_out;
-    st_out = tmp;
-
-    sa.cur = A;
-    sa.prev = B;
-    sa.next = B;
-    for (int p = 0; p < 6; ++p) {
-      sa.plane[p] = PL + p * uv;
-      sa.plane_stride[p] = Vmax;
-      sa.inner[p] = ins + p * uv;
-      sa.inner_stride[p] = Vmax;
-    }
-    mega_stencil_kernel<<<sgrid, sblock, 0, stream>>>(sa, sums, bad);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-
-  // K is even, so the fields and the state are back in cur/prev and st.
-  // The plane roles rotate with period 3: move PL and PRVP back to their
-  // slots of pln, first the one whose slot is the free buffer.
-  const size_t bytes = stack * sizeof(float);
-  if (PL != base_pl) {
-    if (SP == base_pl) {
-      err = cudaMemcpyAsync(base_pl, PL, bytes, cudaMemcpyDeviceToDevice, stream);
-      if (err == cudaSuccess && PRVP != base_prvp)
-        err = cudaMemcpyAsync(base_prvp, PRVP, bytes, cudaMemcpyDeviceToDevice,
-                              stream);
-    } else {
-      err = cudaMemcpyAsync(base_prvp, PRVP, bytes, cudaMemcpyDeviceToDevice,
-                            stream);
-      if (err == cudaSuccess)
-        err = cudaMemcpyAsync(base_pl, PL, bytes, cudaMemcpyDeviceToDevice,
-                              stream);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  int per_sm, ctas;
+  cudaError_t e = grid_size(&per_sm, &ctas);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(mega_chunk_kernel), dim3(ctas),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream_ptr));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card makes of the kernel on the current device: its registers a
+// thread, local memory (spills) a thread in bytes, CTAs resident on one SM,
+// and the cooperative grid one chunk launches.  Returns the CUDA error code.
+int wv_box_mega_chunk_occupancy(int* registers, int* local_bytes,
+                                int* ctas_per_sm, int* grid) {
+  cudaFuncAttributes attrs;
+  cudaError_t e = cudaFuncGetAttributes(&attrs, mega_chunk_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *registers = attrs.numRegs;
+  *local_bytes = static_cast<int>(attrs.localSizeBytes);
+  return static_cast<int>(grid_size(ctas_per_sm, grid));
 }
 
 const char* wv_cuda_error_string(int code) {

@@ -1,7 +1,8 @@
 // One node of the shoebox leapfrog step: stencil, splices and inner-plane
-// extraction.  Shared by the fused step (box_fused_step.cu, kernel B1) and
-// the mega chunk's stencil phase (box_mega_chunk.cu, kernel B2), so the
-// splice precedence is written once.
+// extraction.  The fused step (box_fused_step.cu, kernel B1) runs
+// `stencil_node` per node; the mega chunk (box_mega_chunk.cu, kernels B2 and
+// B6) computes the stencil value its own way and calls `stencil_finish`, so
+// the splice precedence and the extraction are written once.
 //
 // For the node (x, y, z) (x local; global x = x_off + x):
 //   1. the point-source injection (mode 0 none, 1 set, 2 add): the source
@@ -50,9 +51,59 @@ struct StencilArgs {
   int xin_lo, xin_hi;     // local rows of the two inner x planes (clamped)
 };
 
+// Element (u, v) of boundary plane p.  The plane is picked by selects: a
+// dynamic index into the kernel's parameters could be copied to local
+// memory.
 __device__ __forceinline__ float stencil_plane_at(const StencilArgs& a, int p,
                                                   int u, int v) {
-  return a.plane[p][(long long)u * a.plane_stride[p] + v];
+  const float* base = a.plane[5];
+  long long stride = a.plane_stride[5];
+  for (int q = 4; q >= 0; --q)
+    if (p == q) {
+      base = a.plane[q];
+      stride = a.plane_stride[q];
+    }
+  return base[(long long)u * stride + v];
+}
+
+// The splice that lands on node (x, y, z): the boundary plane p it reads,
+// at (*u, *v), or -1.  Precedence y < z < x: an x plane beats a z plane
+// beats a y plane (the last test that matches wins).
+__device__ __forceinline__ int stencil_splice(const StencilArgs& a, int x,
+                                              int y, int z, int* u, int* v) {
+  const int gx = a.x_off + x;
+  int p = -1;
+  if (y == a.ilo1 - 1) p = 2;
+  if (y == a.ihi1 + 1) p = 3;
+  if (z == a.ilo2 - 1) p = 4;
+  if (z == a.ihi2 + 1) p = 5;
+  if (gx == a.ilo0 - 1) p = 0;
+  if (gx == a.ihi0 + 1) p = 1;
+  *u = p < 2 ? y : x;
+  *v = p < 4 ? z : y;
+  return p;
+}
+
+// Steps 3 and 4 for the node (x, y, z) whose stencil value is `res`: the
+// splice (plane_at(p, u, v) reads boundary plane p), the store to *next_i,
+// and the extraction (inner_at(p, u, v) points at inner plane p's element).
+// Only the geometry of `a` is read.
+template <class PlaneAt, class InnerAt>
+__device__ __forceinline__ void stencil_finish(const StencilArgs& a, int x,
+                                               int y, int z, float res,
+                                               float* next_i, PlaneAt plane_at,
+                                               InnerAt inner_at) {
+  int u, v;
+  const int p = stencil_splice(a, x, y, z, &u, &v);
+  if (p >= 0) res = plane_at(p, u, v);
+  *next_i = res;
+
+  if (x == a.xin_lo) *inner_at(0, y, z) = res;
+  if (x == a.xin_hi) *inner_at(1, y, z) = res;
+  if (y == a.ilo1) *inner_at(2, x, z) = res;
+  if (y == a.ihi1) *inner_at(3, x, z) = res;
+  if (z == a.ilo2) *inner_at(4, x, y) = res;
+  if (z == a.ihi2) *inner_at(5, x, y) = res;
 }
 
 __device__ __forceinline__ void stencil_node(const StencilArgs& a, int x,
@@ -91,21 +142,12 @@ __device__ __forceinline__ void stencil_node(const StencilArgs& a, int x,
     res = __fmul_rn(1.0f / 3.0f, acc) - p;
   }
 
-  // splice precedence: y < z < x (the last test that matches wins)
-  if (y == a.ilo1 - 1) res = stencil_plane_at(a, 2, x, z);
-  if (y == a.ihi1 + 1) res = stencil_plane_at(a, 3, x, z);
-  if (z == a.ilo2 - 1) res = stencil_plane_at(a, 4, x, y);
-  if (z == a.ihi2 + 1) res = stencil_plane_at(a, 5, x, y);
-  if (gx == a.ilo0 - 1) res = stencil_plane_at(a, 0, y, z);
-  if (gx == a.ihi0 + 1) res = stencil_plane_at(a, 1, y, z);
-  a.next[i] = res;
-
-  if (x == a.xin_lo) a.inner[0][(long long)y * a.inner_stride[0] + z] = res;
-  if (x == a.xin_hi) a.inner[1][(long long)y * a.inner_stride[1] + z] = res;
-  if (y == a.ilo1) a.inner[2][(long long)x * a.inner_stride[2] + z] = res;
-  if (y == a.ihi1) a.inner[3][(long long)x * a.inner_stride[3] + z] = res;
-  if (z == a.ilo2) a.inner[4][(long long)x * a.inner_stride[4] + y] = res;
-  if (z == a.ihi2) a.inner[5][(long long)x * a.inner_stride[5] + y] = res;
+  stencil_finish(
+      a, x, y, z, res, a.next + i,
+      [&](int p, int u, int v) { return stencil_plane_at(a, p, u, v); },
+      [&](int p, int u, int v) {
+        return a.inner[p] + (long long)u * a.inner_stride[p] + v;
+      });
 }
 
 // Fill X..ihi2 and the clamped inner x rows from (X, Y, Z, x_off, ilo0,

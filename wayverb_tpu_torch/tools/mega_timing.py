@@ -1,0 +1,219 @@
+"""Time the shoebox chunk kernel (B2, and B6 in grad mode) at the hall.
+
+    python -m wayverb_tpu_torch.tools.mega_timing
+
+On the card, at the concert-hall shoebox of ``bench.py`` (224, 224, 256)
+meshed at the engine's rate, with the hall run's hard source at the centre
+and its receiver's taps:
+
+* builds ``csrc/box_mega_chunk.cu`` and prints ptxas's registers, stack and
+  spills for each kernel in it, and what the card makes of the chunk kernel
+  (``box_mega.chunk_occupancy``: registers, local bytes, CTAs an SM, the
+  cooperative grid);
+* holds one K = 128 chunk of B2 and of B6 against the plain version
+  (``_mega_chunk_plain``) on the same random state, to the bit, and B6's
+  outputs against B2's;
+* times B2 and B6 (µs a sub-step: CUDA events over a few chunks), and B1
+  (``fused_step``, whose per-node code the chunk shares) at the same shape;
+* profiles one B2 chunk with ``torch.profiler``: the kernels it launched
+  (the chunk kernel's own, ``mega_*``, and the wrapper's allocations),
+  their count and device time by name, the chunk's span on the device (CUDA
+  events) and the gaps (the span less the kernels' time).
+
+One JSON line, after the card's name and power limit.  Without a card it
+fails.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import numpy as np
+import torch
+
+from wayverb_tpu_torch.tools.probe_resident import card_name_and_power_limit
+
+FS = 500.0 / (0.25 * 0.6)   # the engine's mesh rate at a 500 Hz cutoff
+SIDE = (224, 224, 256)      # bench.py's production-scale shoebox
+ABSORPTION = 0.1
+CHUNK = 128
+SEED = 20261111
+
+
+def hall_case(device="cuda"):
+    """(spec, face_b, face_a, src (x, y, z, mode), tap indices) of the hall
+    run: source at the centre, receiver 4 nodes off it in z."""
+    from wayverb_tpu_torch.core.geometry import Box
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import face_coefficients
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    dx = grid_spacing(340.0, 1.0 / FS)
+    box = Box((0, 0, 0), tuple(dx * (s - 4) for s in SIDE))
+    mesh = wgrun.shoebox_mesh(box, np.full((1, 8), ABSORPTION), dx, FS,
+                              device=device)
+    centre = np.asarray(box.centre())
+    source, receiver, _, _ = wgrun.canonical_problem(
+        mesh, tuple(centre), tuple(centre + np.asarray([0.0, 0.0, 4 * dx])),
+        CHUNK / FS)
+    spec = mesh.box_spec
+    fb, fa = face_coefficients(mesh.structure, spec)
+    src = tuple(int(v) for v in source.kernel_injection(spec.dims, 0)[0])
+    taps = receiver.tap_nodes().reshape(-1).to(torch.int64).contiguous()
+    return spec, fb, fa, src, taps
+
+
+def random_state(spec, order, gen, device="cuda"):
+    """Random (cur, prev, st, pln), zero in the planes' padding."""
+    from wayverb_tpu_torch.waveguide.box_fused import stacked_plane_shape
+    Umax, Vmax = stacked_plane_shape(spec)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    mask = torch.zeros((6, Umax, Vmax), device=device)
+    for p in range(6):
+        U, V = spec.plane_shape(p)
+        mask[p, :U, :V] = 1.0
+    st = (rnd(order, 6, Umax, Vmax) * mask).contiguous()
+    pln = (rnd(3, 6, Umax, Vmax) * mask).contiguous()
+    return rnd(*spec.dims), rnd(*spec.dims), st, pln
+
+
+def ptxas_lines() -> list[str]:
+    """ptxas's report of each kernel of ``box_mega_chunk.cu``, from a fresh
+    build."""
+    from wayverb_tpu_torch import _build
+    log = _build.build("box_mega_chunk", force=True)[1]
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling" in ln]
+
+
+def compare(case, gen, grad=False):
+    """One chunk of the kernel and of the plain version on the same random
+    state: (all outputs equal, max |Δ|, kernel outputs)."""
+    from wayverb_tpu_torch.waveguide.box_mega import (_mega_chunk_plain,
+                                                      mega_chunk)
+    spec, fb, fa, src, taps = case
+    state = random_state(spec, fb.shape[1] - 1, gen)
+    sig = torch.randn(CHUNK, generator=gen, device="cuda")
+    want = _mega_chunk_plain(spec, sig, fb, fa, *state, src, taps, grad=grad)
+    got = mega_chunk(spec, sig, fb, fa, *(t.clone() for t in state), src,
+                     taps, grad=grad)
+    torch.cuda.synchronize()
+    equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return equal, err, got
+
+
+def events_us(fn, reps: int) -> float:
+    """µs of one ``fn()`` by CUDA events over ``reps`` calls, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(stop) / reps
+
+
+def chunk_us(case, gen, grad=False, reps=5) -> float:
+    """µs of one K = CHUNK chunk at the case's shape."""
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    spec, fb, fa, src, taps = case
+    state = random_state(spec, fb.shape[1] - 1, gen)
+    sig = torch.randn(CHUNK, generator=gen, device="cuda") * 1e-3
+    return events_us(lambda: mega_chunk(spec, sig, fb, fa, *state, src, taps,
+                                        grad=grad), reps)
+
+
+def b1_us(spec, gen, reps=200) -> float:
+    """µs of one B1 step at the shape of ``spec``."""
+    from wayverb_tpu_torch.waveguide.box_fused import _plane_shapes, fused_step
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
+    cur, prev = rnd(*spec.dims), rnd(*spec.dims)
+    planes = tuple(rnd(*s) for s in _plane_shapes(*spec.dims))
+    inj = tuple(d // 2 for d in spec.dims) + (1,)
+    inj_val = rnd(2)
+    out = torch.empty_like(cur)
+    geom = spec.geom_array()
+    return events_us(lambda: fused_step(geom, cur, prev, planes, inj,
+                                        inj_val, out=out), reps)
+
+
+def profile_chunk(case, gen) -> dict:
+    """One B2 chunk under torch.profiler: {kernel name: [launches, device
+    µs]} (the wrapper's own allocations among them), the launches of
+    ``box_mega_chunk.cu``'s kernels, the kernels' total, the chunk's span by
+    CUDA events, and the gaps (span - total; None when the profiler saw no
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    spec, fb, fa, src, taps = case
+    state = random_state(spec, fb.shape[1] - 1, gen)
+    sig = torch.randn(CHUNK, generator=gen, device="cuda") * 1e-3
+    run = lambda: mega_chunk(spec, sig, fb, fa, *state, src, taps)  # noqa
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run()
+        stop.record()
+        torch.cuda.synchronize()
+    span_us = 1e3 * start.elapsed_time(stop)
+    kernels = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            if t > 0:
+                kernels[e.key[:80]] = [e.count, t]
+    busy = sum(t for _, t in kernels.values())
+    chunk = sum(n for name, (n, _) in kernels.items() if "mega_" in name)
+    return {"kernels": kernels, "chunk_launches": chunk, "device_us": busy,
+            "span_us": span_us,
+            "gaps_us": span_us - busy if busy > 0 else None}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("mega_timing: needs a CUDA device")
+    print(card_name_and_power_limit(), flush=True)
+    from wayverb_tpu_torch.waveguide.box_mega import chunk_occupancy
+    t0 = time.perf_counter()
+    ptxas = ptxas_lines()
+    occupancy = chunk_occupancy()
+    case = hall_case()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b2_equal, b2_err, b2_out = compare(case, gen)
+    gen_b6 = torch.Generator(device="cuda").manual_seed(SEED)
+    b6_equal, b6_err, b6_out = compare(case, gen_b6, grad=True)
+    b6_same = all(bool(torch.equal(a, b)) for a, b in zip(b6_out[:6],
+                                                          b2_out))
+    del b2_out, b6_out
+    torch.cuda.empty_cache()
+    b2 = chunk_us(case, gen)
+    b6 = chunk_us(case, gen, grad=True)
+    b1 = b1_us(case[0], gen)
+    prof = profile_chunk(case, gen)
+    print(json.dumps({
+        "shape": list(case[0].dims), "K": CHUNK, "ptxas": ptxas,
+        "occupancy": occupancy,
+        "b2_us_per_substep": b2 / CHUNK, "b6_us_per_substep": b6 / CHUNK,
+        "b1_us_per_step": b1,
+        "b2_equal_plain": b2_equal, "b2_max_abs_err": b2_err,
+        "b6_equal_plain": b6_equal, "b6_max_abs_err": b6_err,
+        "b6_forward_equal_b2": b6_same, "profile": prof,
+        "wall_s": time.perf_counter() - t0}), flush=True)
+    if not (b2_equal and b6_equal and b6_same):
+        raise SystemExit("mega_timing: the kernel differs from its plain "
+                         "version")
+
+
+if __name__ == "__main__":
+    main()

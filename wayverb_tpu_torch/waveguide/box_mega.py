@@ -17,8 +17,9 @@ replays over the tap block afterwards (``replay_taps``).
 
 The TPU kernel keeps the field resident in VMEM; on the H100 the field of a
 hall does not fit in L2, so the CUDA chunk streams it through device memory
-each sub-step (two launches per sub-step, see the kernel's notes).  What it
-saves over the fused path is the host's eager plane-step launches.
+each sub-step: one persistent cooperative launch a chunk, the plane pass and
+a 2.5D stencil march per sub-step between grid barriers (see the kernel's
+notes; ``chunk_occupancy`` reads its residency on the card).
 
 Gradients.  The whole run is one ``torch.autograd.Function``
 (``_MegaRun``) in (face_b, face_a, signal).  When one of them requires grad
@@ -260,6 +261,24 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.wv_cuda_error_string.argtypes = [ctypes.c_int]
     lib.wv_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def chunk_occupancy(device="cuda") -> dict:
+    """What the card makes of the chunk kernel: registers a thread, local
+    memory (spills) a thread in bytes, CTAs resident on one SM, and the
+    cooperative grid (CTAs) one chunk launches."""
+    lib = _kernel_lib()
+    fn = lib.wv_box_mega_chunk_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device):
+        err = fn(*(ctypes.byref(x) for x in out))
+    if err != 0:
+        raise RuntimeError("box_mega_chunk occupancy query failed: "
+                           + lib.wv_cuda_error_string(err).decode())
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "grid"),
+                    (x.value for x in out)))
 
 
 def _check(name, t, device, shape=None, dtype=torch.float32):
