@@ -34,14 +34,17 @@ Drives the port through its public entry points on the card and fails
 12. B6 (the grad-mode chunk: B2's outputs plus the residual block, to the
     bit) and B7 (the chunk's adjoint, K = 128) against their plain versions
     at three shapes, the hall from random state among them, the error per
-    output and per plane, and their times per sub-step with B6's registers,
-    spills and CTAs an SM;
+    output and per plane, and their times per sub-step with B6's and B7's
+    registers, spills and CTAs an SM, and the two streamed figures of B7
+    (four fields, and the two-field form the kernel runs);
 13. the gradient path at full width: the hall, 640 steps, value and gradient
     of Σ taps² with respect to the filter coefficients and the source
     signal through ``mega_canonical_loss_fn``, with the seconds of the
     forward and of the backward, the peak memory and the launch counts;
     then the same run again (warm allocator) and with only the signal
-    requiring grad, for their seconds; the phase's wall;
+    requiring grad, for their seconds; one run under the profiler, whose
+    backward chunks must be as many device launches of B7's one kernel;
+    the phase's wall;
 14. the two gradient routes on the card: the mega route (B6, B7) against
     ``run_waveguide_box(kernel_inject=False)`` (B1, B5) on the hall, 16
     steps, with the source beside a wall so the boundary filters matter;
@@ -936,8 +939,12 @@ def kernel_bounds(spec, order, k):
     state = f * (2 * order + 5) * plane     # PL, INS, PRVP, st in; PL, INS, st out
     out["b2_stream"] = _bound(f * 3 * n + state, 0)[0]
     out["b6_stream"] = _bound(f * 3 * n + state + f * 4 * plane, 0)[0]
-    out["b7_stream"] = _bound(f * 4 * n + f * (2 * order + 4 + 1 + order)
-                              * plane, 0)[0]
+    # B7's plane streams: ĝst in and out, ĝst′ and ĝpplus out, and 4 plane
+    # stacks of scratch, with four fields (P̂, Q̂ read, Q̂, P̂′ written) or, in
+    # the two-field form, three (P̂_t, P̂_{t+1} read, R written over P̂_{t+1})
+    b7_planes = f * (2 * order + 4 + 1 + order) * plane
+    out["b7_stream"] = _bound(f * 4 * n + b7_planes, 0)[0]
+    out["b7_stream_two_field"] = _bound(f * 3 * n + b7_planes, 0)[0]
     return out
 
 
@@ -1148,11 +1155,17 @@ def phase_grad_chunk_time(torch, case, card):
     streams = mega_chunk_bwd(spec, fb, fa, gtaps, *carry, src, taps)[4:]
     theta_us = _cuda_time_us(torch, lambda: _chunk_theta_grads(
         spec, fb, fa, res, *streams), 3)
-    from wayverb_tpu_torch.waveguide.box_mega import chunk_occupancy
+    from wayverb_tpu_torch.waveguide.box_mega import (chunk_bwd_occupancy,
+                                                      chunk_occupancy)
     occ = chunk_occupancy()
     print(f"[12 grad] B6 is the chunk kernel of phase 7 with a residual "
           f"block: {occ['registers']} registers, {occ['local_bytes']} B "
           f"local, {occ['ctas_per_sm']} CTAs an SM [{card}]")
+    b7_occ = chunk_bwd_occupancy()
+    print(f"[12 grad] B7, one cooperative launch a chunk: "
+          f"{b7_occ['registers']} registers, {b7_occ['local_bytes']} B "
+          f"local, {b7_occ['ctas_per_sm']} CTAs an SM, a grid of "
+          f"{b7_occ['grid']} CTAs [{card}]")
     print(f"[12 grad] alone at {spec.dims}, K = {CHUNK}: B6 "
           f"{b6_us / CHUNK:.2f} us/sub-step (plain {b6_plain_us / CHUNK:.2f})"
           f", B7 {b7_us / CHUNK:.2f} us/sub-step (plain "
@@ -1160,7 +1173,7 @@ def phase_grad_chunk_time(torch, case, card):
           f"B7 {b7_us / 1e3:.3f} ms, the coefficient gradients "
           f"(_chunk_theta_grads, plain autograd) {theta_us / 1e3:.3f} ms "
           f"[{card}]")
-    return b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us
+    return b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us, b7_occ
 
 
 def _grad_counts():
@@ -1268,6 +1281,11 @@ def phase_grad_hall(torch, box, dx, mesh, card):
         torch, mesh, source, receiver, n, CHUNK, timed=True,
         only_signal=True)
     peak_sig = torch.cuda.max_memory_allocated()
+    # the backward's device launches: one B7 kernel a chunk
+    from wayverb_tpu_torch.tools.mega_timing import profile
+    prof = profile(lambda: _mega_grads(torch, mesh, source, receiver, n,
+                                       CHUNK), "mega_chunk_bwd_kernel")
+    bwd_kernels = {k: v for k, v in prof["kernels"].items() if "bwd" in k}
     sig_rel = _rel_err(gsig_only, grads[2])
     sig_same = sig_rel <= GRAD_REL
     chunks = -(-n // CHUNK)
@@ -1292,16 +1310,23 @@ def phase_grad_hall(torch, box, dx, mesh, card):
           f"{t_bwd_sig:.4f} s, peak memory {peak_sig / 2**20:.1f} MiB, "
           f"d/dsignal vs the full run's {sig_rel:.3e} of the largest "
           f"(bound {GRAD_REL:g}) [{card}]")
+    print(f"[13 grad hall] one run under the profiler: "
+          f"{prof['chunk_launches']} device launches of B7's kernel for "
+          f"{chunks} backward chunks; the adjoint kernels by name "
+          f"[launches, device us]: {bwd_kernels} [{card}]")
     if not (n == GRAD_STEPS and stable and finite and nonzero and sig_same
             and counts["box_mega_chunk_grad"] == chunks
             and counts["box_mega_chunk_bwd"] == chunks
-            and counts["box_mega_chunk"] == 0):
+            and counts["box_mega_chunk"] == 0
+            and prof["chunk_launches"] == chunks
+            and len(bwd_kernels) == 1):
         _fail("the hall gradient run failed its checks")
     return (counts, t_fwd, t_bwd, peak_mem,
             {"warm_forward_s": t_fwd_warm, "warm_backward_s": t_bwd_warm,
              "signal_only_forward_s": t_fwd_sig,
              "signal_only_backward_s": t_bwd_sig,
-             "signal_only_peak_memory_bytes": peak_sig})
+             "signal_only_peak_memory_bytes": peak_sig,
+             "b7_device_launches": prof["chunk_launches"]})
 
 
 def _compare_grads(tag, what, got, want):
@@ -3131,8 +3156,8 @@ def main():
     b5_us, b5_plain_us = phase_b5_time(torch, mesh.box_spec, card)
     b6_err, b7_err, grad_case = phase_grad_chunks_vs_plain(torch, mesh, box,
                                                            dx, card)
-    b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us = phase_grad_chunk_time(
-        torch, grad_case, card)
+    b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us, b7_occ = \
+        phase_grad_chunk_time(torch, grad_case, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     grad_counts, grad_fwd_s, grad_bwd_s, grad_peak, grad_more = \
@@ -3148,7 +3173,11 @@ def main():
           "memory every sub-step (not the bound): "
           + ", ".join(f"{n.upper()} {1e3 * bounds[n + '_stream']:.1f} us "
                       f"(bound {1e3 * bounds[n][0]:.2f} us)"
-                      for n in ("b2", "b6", "b7")), flush=True)
+                      for n in ("b2", "b6", "b7"))
+          + f"; B7 in the two-field form (three fields streamed, as the "
+          f"kernel runs) {1e3 * bounds['b7_stream_two_field']:.1f} us, in "
+          f"the four-field form {1e3 * bounds['b7_stream']:.1f} us",
+          flush=True)
     del mesh, hall_case, grad_case
     torch.cuda.empty_cache()
 
@@ -3320,6 +3349,7 @@ def main():
         "err_is": f"worst of six outputs; each is gated at {BWD_REL:g} of "
                   "its own largest value",
         **per_substep("b7", b7_us, b7_plain_us),
+        **{k: b7_occ[k] for k in ("registers", "local_bytes", "ctas_per_sm")},
     }, *({
         "name": name,
         "route": "cuda",

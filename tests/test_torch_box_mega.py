@@ -303,3 +303,252 @@ def test_execute_matches_jax(meshes, monkeypatch, kernel_inject):
     assert seen == [kernel_inject]
     _assert_outputs_close(got["outputs"], want["outputs"])
     assert bool(got["stable"]) and bool(want["stable"])
+
+
+# ---------------------------------------------------------------------------
+# the adjoint chunk in the CUDA kernel's two-field form (csrc/
+# box_mega_chunk_bwd.cu), in plain torch, against _mega_chunk_bwd_plain
+
+BWD_REL = 1e-5          # B7 against its plain version, of the largest value
+BWD_BOX = tbf.BoxSpec(dims=(21, 17, 26), ilo=(2, 3, 2), ihi=(18, 13, 23),
+                      face_surface=(0,) * 6)
+
+
+def _bwd_case(mode, where, K, seed=11):
+    """Cotangents on the unaligned 21 x 17 x 26 box of the card tests (zero
+    in the planes' padding), per-face filters of order 6, and the source in
+    the middle, on the inner z-lo plane or on the inner x-lo/y-hi edge, with
+    taps at the source (twice), beside it and at a far node."""
+    spec = BWD_BOX
+    X, Y, Z = spec.dims
+    order = 6
+    Umax, Vmax = tbf.stacked_plane_shape(spec)
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((6, Umax, Vmax), np.float32)
+    for p in range(6):
+        U, V = spec.plane_shape(p)
+        mask[p, :U, :V] = 1.0
+    src = [(spec.ilo[a] + spec.ihi[a]) // 2 for a in range(3)]
+    if where == "plane":
+        src[2] = spec.ilo[2]
+    elif where == "edge":
+        src[0], src[1] = spec.ilo[0], spec.ihi[1]
+    flat = (src[0] * Y + src[1]) * Z + src[2]
+    taps = torch.tensor([flat, flat + 1, flat, (1 * Y + 5) * Z + 7])
+    fb = np.array([[1.0, 0.1, 0.05, 0.02, 0.0, 0.01, 0.0]] * 6) * 2.0 \
+        + 0.01 * np.arange(6)[:, None]
+    fa = np.array([[1.0, -0.2, 0.01, 0.0, 0.03, 0.0, 0.0]] * 6)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32))
+    cot = (mk(K, taps.numel()), mk(*spec.dims), mk(*spec.dims),
+           mk(order, 6, Umax, Vmax) * torch.from_numpy(mask))
+    return (spec, torch.tensor(fb, dtype=torch.float32),
+            torch.tensor(fa, dtype=torch.float32), *cot,
+            tuple(src) + (mode,), taps)
+
+
+def _plane_slices(field, spec):
+    """ĝpplus: the field at the six plane coordinates under the splice
+    precedence y < z < x (an x plane beats a z plane beats a y plane)."""
+    blo = [tbm._plane_coord(spec, 2 * a) for a in range(3)]
+    bhi = [tbm._plane_coord(spec, 2 * a + 1) for a in range(3)]
+    out = []
+    for pi, (a, _) in enumerate(tbf.PLANES):
+        sl = field.select(a, tbm._plane_coord(spec, pi)).clone()
+        if a > 0:
+            sl[blo[0]] = 0.0
+            sl[bhi[0]] = 0.0
+        if a == 1:
+            sl[:, blo[2]] = 0.0
+            sl[:, bhi[2]] = 0.0
+        out.append(sl)
+    return out
+
+
+def _autograd_transpose(spec, fb, fa, order):
+    """(gp6, gst) → (ĝpl6, ĝin6, ĝprev6, ĝst): the plane updates' transpose
+    as the plain version takes it, autograd of plane_step_natural at zero
+    primals."""
+    shp = [spec.plane_shape(p) for p in range(6)]
+    with torch.enable_grad():
+        zeros = lambda *lead: tuple(  # noqa: E731
+            torch.zeros(lead + s, requires_grad=True) for s in shp)
+        pl6, in6, prev6, st6 = zeros(), zeros(), zeros(), zeros(order)
+        pplus, newst = tbm.plane_step_natural(spec, pl6, in6, prev6, st6, fb,
+                                              fa)
+    primals = (*pl6, *in6, *prev6, *st6)
+
+    def transpose(gp6, gst):
+        gst6 = tuple(gst[:, p, :U, :V] for p, (U, V) in enumerate(shp))
+        grads = torch.autograd.grad((*pplus, *newst), primals,
+                                    (*gp6, *gst6), retain_graph=True)
+        gpl6, gin6, gprev6, gst6 = (grads[6 * i:6 * i + 6] for i in range(4))
+        gst = tbf.stack_planes(tuple(s.permute(1, 2, 0) for s in gst6),
+                               spec).permute(3, 0, 1, 2).contiguous()
+        return gpl6, gin6, gprev6, gst
+    return transpose
+
+
+def _kernel_transpose(spec, fb, fa, order):
+    """The same transpose as the kernel writes it out by hand, element by
+    element (see csrc/box_mega_chunk_bwd.cu): D, ĝprev and ĝst's local part
+    from the element's own values, then ĝpl gathered from D of the four
+    in-plane neighbours, ĝin = 2 λ² D, and the edge coupling of the planes
+    through each node into ĝst's slot 0."""
+    c, c2 = float(np.float32(tbm.COURANT)), tbm.COURANT_SQ
+    blo = [tbm._plane_coord(spec, 2 * a) for a in range(3)]
+    bhi = [tbm._plane_coord(spec, 2 * a + 1) for a in range(3)]
+    ratio = fa[:, 0] / fb[:, 0]
+
+    def weights(i, lo, hi, at_lo, at_hi):
+        return torch.where(i == lo, at_lo, torch.where(i == hi, at_hi, 1.0))
+
+    def transpose(gp6, gst):
+        D6, gprev6, gst_new = [], [], torch.zeros_like(gst)
+        for p, (ax, _) in enumerate(tbf.PLANES):
+            a1, a2 = tbf._other_axes(ax)
+            U, V = spec.plane_shape(p)
+            u = torch.arange(U).view(U, 1)
+            v = torch.arange(V).view(1, V)
+            gs = gst[:, p, :U, :V]
+            b0, a0 = fb[p, 0], fa[p, 0]
+            sum_a = sum_b = torch.zeros(U, V)
+            for j in range(order - 1, -1, -1):
+                sum_a = sum_a + fa[p, j + 1] * gs[j]
+                sum_b = sum_b + fb[p, j + 1] * gs[j]
+            gout = -sum_a
+            gfilt = sum_b + gout * b0 / a0
+            gdelta = -(gfilt * a0) / (b0 * c)
+            cw = ratio[p].expand(U, V)
+            for i, e in ((u, a1), (v, a2)):
+                cw = torch.where(i == blo[e], cw + ratio[2 * e], cw)
+                cw = torch.where(i == bhi[e], cw + ratio[2 * e + 1], cw)
+            cw = c * cw
+            act = ((u >= blo[a1]) & (u <= bhi[a1]) & (v >= blo[a2])
+                   & (v <= bhi[a2])).float()
+            D = act * ((gp6[p] - gdelta) / (1.0 + cw))
+            D6.append(D)
+            gprev6.append(gdelta + (cw - 1.0) * D)
+            gst_new[0, p, :U, :V] = gout / a0 - gfilt / b0
+            gst_new[1:, p, :U, :V] = gs[:-1]
+        gpl6, gin6 = [], []
+        for p, (ax, _) in enumerate(tbf.PLANES):
+            a1, a2 = tbf._other_axes(ax)
+            U, V = spec.plane_shape(p)
+            u = torch.arange(U).view(U, 1)
+            v = torch.arange(V).view(1, V)
+            cD = D6[p] * c2
+            wm = lambda i, e: weights(i, blo[e], bhi[e], 0.0, 2.0)  # noqa
+            wp = lambda i, e: weights(i, blo[e], bhi[e], 2.0, 0.0)  # noqa
+            gpl = torch.zeros(U, V)
+            gpl[:-1] += wm(u + 1, a1)[:-1] * cD[1:]
+            gpl[1:] += wp(u - 1, a1)[1:] * cD[:-1]
+            gpl[:, :-1] += wm(v + 1, a2)[:, :-1] * cD[:, 1:]
+            gpl[:, 1:] += wp(v - 1, a2)[:, 1:] * cD[:, :-1]
+            gpl6.append(gpl)
+            gin6.append(2.0 * cD)
+        # the coupling: D of every other plane through the element's node
+        grids = []
+        for q, (ax, _) in enumerate(tbf.PLANES):
+            g = torch.zeros(spec.dims)
+            g.select(ax, tbm._plane_coord(spec, q)).copy_(D6[q])
+            grids.append(g)
+        for p, (ax, _) in enumerate(tbf.PLANES):
+            U, V = spec.plane_shape(p)
+            d = D6[p]
+            for q in range(6):
+                if tbf.PLANES[q][0] != ax:
+                    d = d + grids[q].select(ax, tbm._plane_coord(spec, p))
+            gst_new[0, p, :U, :V] += c2 * d / fb[p, 0]
+        return gpl6, gin6, gprev6, gst_new
+    return transpose
+
+
+def _two_field_bwd(spec, fb, fa, gtaps, gnext, gcur, gst, src, tap_idx,
+                   transpose):
+    """The adjoint chunk on two fields in place, as the kernel runs it.
+
+    Sub-step t reads P̂_t from field (K − 1 − t) % 2 and overwrites the
+    other field, which holds the previous sub-step's P̂, with
+    R = (−M ⊙ P̂_{t+1} + ĝprev_{t+1} at the plane coordinates), or the
+    explicit ĝcur at t = K − 1, + λ² Σ₆ M ⊙ P̂_t, then for each plane in
+    order ĝpl at its coordinate and ĝin at its inner coordinate, the taps
+    one by one in tap order, ĝsig_t = R[src] and a hard source's zero.
+    ĝprev alternates between two buffers by t; Q̂ is written out (into the
+    spare) only after the last sub-step."""
+    K = gtaps.shape[0]
+    X, Y, Z = spec.dims
+    sx, sy, sz, mode = src
+    src_flat = (sx * Y + sy) * Z + sz if mode > 0 else -1
+    ar = lambda n, shape: torch.arange(n).view(shape)  # noqa: E731
+    inside = tbf._inside_mask(ar(X, (X, 1, 1)), ar(Y, (1, Y, 1)),
+                              ar(Z, (1, 1, Z)), spec.geom_array())
+    step = transpose(spec, fb, fa, gst.shape[0])
+
+    def implicit_q(older, gprev6):
+        q = -torch.where(inside, older, torch.zeros(()))
+        for pi, (a, _) in enumerate(tbf.PLANES):
+            q.select(a, tbm._plane_coord(spec, pi)).add_(gprev6[pi])
+        return q
+
+    fields = [gnext.clone(), gcur.clone()]
+    gst = gst.clone()
+    gprv = [None, None]
+    gsig = torch.zeros(K)
+    gp_stream, gstin_stream = [None] * K, [None] * K
+    for t in range(K - 1, -1, -1):
+        A, B = fields[(K - 1 - t) % 2], fields[(K - t) % 2]
+        # plane pass
+        gp6 = _plane_slices(A, spec)
+        gp_stream[t] = tbf.stack_planes(gp6, spec)
+        gstin_stream[t] = gst
+        gpl6, gin6, gprv[t % 2], gst = step(gp6, gst)
+        # node pass, over the older field
+        R = B.clone() if t == K - 1 else implicit_q(B, gprv[(t + 1) % 2])
+        R = R + tbm.COURANT_SQ * tbf._neighbor_sum(
+            torch.where(inside, A, torch.zeros(())))
+        for pi, (a, _) in enumerate(tbf.PLANES):
+            R.select(a, tbm._plane_coord(spec, pi)).add_(gpl6[pi])
+            R.select(a, tbm._plane_coord(spec, pi, inner=True)).add_(
+                gin6[pi])
+        flat = R.view(-1)
+        for j in range(tap_idx.numel()):
+            flat[tap_idx[j]] += gtaps[t, j]
+        if src_flat >= 0:
+            gsig[t] = flat[src_flat]
+            if mode == 1:
+                flat[src_flat] = 0.0
+        B.copy_(R)
+    spare = implicit_q(fields[(K - 1) % 2], gprv[0])
+    return (fields[K % 2], spare, gst, gsig, torch.stack(gp_stream),
+            torch.stack(gstin_stream))
+
+
+@pytest.mark.parametrize("transpose", ["autograd", "kernel"])
+@pytest.mark.parametrize("K", [2, 4, 6, 8])
+@pytest.mark.parametrize("where", ["middle", "plane", "edge"])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_two_field_adjoint_matches_plain(mode, where, K, transpose):
+    """The adjoint chunk in the kernel's two-field in-place form against
+    ``_mega_chunk_bwd_plain`` on the card tests' unaligned box, with a
+    duplicated tap at the source.  With the plain version's own transpose
+    of the plane updates (autograd) every sum runs in the same order, so
+    all six outputs are equal to the bit (0.0); with the kernel's
+    hand-written transpose each is within 1e-5 of its largest value."""
+    spec, fb, fa, *cot, src, taps = _bwd_case(mode, where, K)
+    want = tbm._mega_chunk_bwd_plain(spec, fb, fa, *cot, src, taps)
+    got = _two_field_bwd(spec, fb, fa, *cot, src, taps,
+                         _autograd_transpose if transpose == "autograd"
+                         else _kernel_transpose)
+    names = ("gnext", "gcur", "gst", "gsig", "gp_stream", "gstin_stream")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, name
+        if transpose == "autograd":
+            assert torch.equal(g, w), name
+        else:
+            err = float((g - w).abs().max())
+            assert err <= BWD_REL * float(w.abs().max()), (name, err)
+    if mode == 0:
+        assert float(got[3].abs().max()) == 0.0
+    else:
+        assert float(want[3].abs().max()) > 0.0

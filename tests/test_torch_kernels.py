@@ -256,12 +256,14 @@ def test_fused_step_bwd_kernel_matches_plain(cuda_device, dims, rows, src,
         assert float((a - b).abs().max()) <= BWD_REL * float(g.abs().max())
 
 
-def _chunk_case(device, mode, on_plane, K=8, order=6):
-    """The unaligned 21 x 17 x 26 box with random fields, state and planes
-    (zero in the planes' padding), a source in the middle or on an inner
-    plane, and taps at the source, beside it and at a boundary node."""
-    spec = tbf.BoxSpec(dims=(21, 17, 26), ilo=(2, 3, 2), ihi=(18, 13, 23),
-                       face_surface=(0,) * 6)
+def _chunk_case(device, mode, on_plane, K=8, order=6, box=None, taps=None):
+    """The unaligned 21 x 17 x 26 box (or ``box``: dims, ilo, ihi) with
+    random fields, state and planes (zero in the planes' padding), a source
+    in the middle, on an inner plane (an int), on the inner x-lo/y-hi edge
+    ("edge") or the inner x-hi/y-lo/z-hi corner ("corner"), and taps at the
+    source, beside it and at a boundary node, or ``taps(spec, src)``'s."""
+    dims, ilo, ihi = box or ((21, 17, 26), (2, 3, 2), (18, 13, 23))
+    spec = tbf.BoxSpec(dims=dims, ilo=ilo, ihi=ihi, face_surface=(0,) * 6)
     Umax, Vmax = tbf.stacked_plane_shape(spec)
     gen = torch.Generator(device=device).manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
@@ -270,16 +272,22 @@ def _chunk_case(device, mode, on_plane, K=8, order=6):
         U, V = spec.plane_shape(p)
         mask[p, :U, :V] = 1.0
     src = [(spec.ilo[a] + spec.ihi[a]) // 2 for a in range(3)]
-    if on_plane is not None:
-        a, side = divmod(on_plane, 2)
-        src[a] = spec.ilo[a] if side == 0 else spec.ihi[a]
+    sides = {"edge": (0, 1, None), "corner": (1, 0, 1)}.get(on_plane)
+    if sides is None and on_plane is not None:
+        sides = tuple(on_plane % 2 if a == on_plane // 2 else None
+                      for a in range(3))
+    for a, side in enumerate(sides or ()):
+        if side is not None:
+            src[a] = spec.ilo[a] if side == 0 else spec.ihi[a]
     _, Y, Z = spec.dims
     flat = (src[0] * Y + src[1]) * Z + src[2]
-    taps = torch.tensor([flat, flat + 1, (1 * Y + 5) * Z + 7], device=device)
-    fb = torch.tensor([[1.0, 0.1, 0.05, 0.02, 0.0, 0.01, 0.0]] * 6,
-                      device=device) * 2.0
-    fa = torch.tensor([[1.0, -0.2, 0.01, 0.0, 0.03, 0.0, 0.0]] * 6,
-                      device=device)
+    taps = torch.tensor(taps(spec, src) if taps else
+                        [flat, flat + 1, (1 * Y + 5) * Z + 7], device=device)
+    # order up to 8; the fitted filters are of order 6
+    fb = torch.tensor([[1.0, 0.1, 0.05, 0.02, 0.0, 0.01, 0.0, 0.01, 0.0]]
+                      * 6, device=device) * 2.0
+    fa = torch.tensor([[1.0, -0.2, 0.01, 0.0, 0.03, 0.0, 0.0, 0.01, 0.0]]
+                      * 6, device=device)
     fb = fb + 0.01 * torch.arange(6, device=device)[:, None]
     return dict(spec=spec, rnd=rnd, mask=mask, src=tuple(src) + (mode,),
                 taps=taps, fb=fb[:, :order + 1].contiguous(),
@@ -316,19 +324,108 @@ def test_mega_chunk_grad_mode_kernel_matches_plain(cuda_device, mode,
     assert _rel(got[6], want[6]) <= BWD_REL
 
 
+# the boxes of the persistent chunk kernels' tests: the unaligned box, whose
+# z extent holds no bare z block, and one whose nodes outnumber the grid's
+# threads and whose rows hold bare blocks
+SMALL_BOX = ((21, 17, 26), (2, 3, 2), (18, 13, 23))
+LARGE_BOX = ((40, 60, 100), (2, 3, 2), (37, 56, 97))
+
+
+def _bare_node(spec, src):
+    """A node of LARGE_BOX inside a bare z block (z 32..63, strictly inside
+    the box on every axis) and off the source's row."""
+    _, Y, Z = spec.dims
+    return (10 * Y + 20) * Z + 40
+
+
+def _tap_in_bare_block(spec, src):
+    _, Y, Z = spec.dims
+    flat = (src[0] * Y + src[1]) * Z + src[2]
+    return [flat, flat + 1, _bare_node(spec, src)]
+
+
+def _duplicated_taps(spec, src):
+    _, Y, Z = spec.dims
+    flat = (src[0] * Y + src[1]) * Z + src[2]
+    bare = _bare_node(spec, src)
+    return [flat, bare, flat, flat + 1, bare, bare]
+
+
+def _far_from_planes_and_taps(spec, K, taps):
+    """Nodes farther than K + 1 (Manhattan) from every boundary plane,
+    inner plane and tap: what K sub-steps carry from the plane transpose,
+    whose order of sums differs from the plain version's, and from the
+    taps, whose duplicates the plain version adds with atomics, does not
+    reach them."""
+    X, Y, Z = spec.dims
+    dev = taps.device
+    g = [torch.arange(n, device=dev) for n in (X, Y, Z)]
+    far = torch.ones((X, Y, Z), dtype=torch.bool, device=dev)
+    for a in range(3):
+        d = torch.minimum((g[a] - (spec.ilo[a] - 1)).abs(),
+                          (g[a] - (spec.ihi[a] + 1)).abs())
+        shape = [1, 1, 1]
+        shape[a] = -1
+        far &= (d > K + 1).view(shape)
+    for n in taps.tolist():
+        t = (n // (Y * Z), n // Z % Y, n % Z)
+        dist = sum((g[a] - t[a]).abs().view([-1 if b == a else 1
+                                             for b in range(3)])
+                   for a in range(3))
+        far &= dist > K + 1
+    return far
+
+
+def _agree_where_plain_is_not_nan(got, want):
+    """Inputs at 1e38: where the plain version is finite the kernel is too
+    and within BWD_REL of the largest finite value; where it is infinite
+    the kernel has the same infinity.  Where it is NaN the kernel is left
+    free: the plain version's transpose of the edge coupling sums a
+    broadcast line, 0 * inf = NaN from every element along it, which the
+    kernel's gather of the coupled planes does not form."""
+    finite, inf = torch.isfinite(want), torch.isinf(want)
+    if not torch.equal(got[inf], want[inf]):
+        return False
+    if not finite.any():
+        return True
+    g, w = got[finite], want[finite]
+    return bool(torch.isfinite(g).all()) and \
+        float((g - w).abs().max()) <= BWD_REL * float(w.abs().max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,on_plane,K,order", [
-    (0, None, 8, 6), (1, 4, 8, 6), (2, 1, 8, 6), (1, 2, 6, 3), (2, 5, 4, 1)])
+@pytest.mark.parametrize("mode,on_plane,K,order,box,taps,scale", [
+    (0, None, 8, 6, None, None, 1.0),
+    (1, 4, 8, 6, None, None, 1.0),
+    (2, 1, 8, 6, None, None, 1.0),
+    (1, 2, 6, 3, None, None, 1.0),
+    (2, 5, 4, 1, None, None, 1.0),
+    (1, None, 8, 6, LARGE_BOX, _tap_in_bare_block, 1.0),
+    (2, None, 4, 6, LARGE_BOX, _duplicated_taps, 1.0),
+    (1, "edge", 8, 6, None, None, 1.0),
+    (1, "corner", 8, 6, None, None, 1.0),
+    (1, "edge", 4, 6, LARGE_BOX, None, 1.0),
+    (1, None, 2, 1, None, None, 1.0),
+    (2, "corner", 2, 1, LARGE_BOX, _duplicated_taps, 1.0),
+    (2, 3, 4, 8, None, None, 1.0),        # more state slots than one load
+    (2, None, 8, 6, None, None, 1e38),
+    (1, 0, 4, 3, LARGE_BOX, _tap_in_bare_block, 1e38),
+])
 def test_mega_chunk_bwd_kernel_matches_plain(cuda_device, mode, on_plane, K,
-                                             order):
+                                             order, box, taps, scale):
     """B7 on random cotangents against ``_mega_chunk_bwd_plain``: each of
     the six outputs within 1e-5 of its largest value, the streams plane by
-    plane; one launch.  K = 8, 6 and 4 leave the results in each of the
-    three rotating field buffers."""
-    c = _chunk_case(cuda_device, mode, on_plane, K, order)
+    plane; one launch.  The cases: sources in the middle, on inner planes,
+    a hard source on an inner edge and a corner; a tap inside a bare z
+    block and taps repeated; K from 2 to 8, order 1 to 8; and cotangents at
+    1e38, where sums overflow (``_agree_where_plain_is_not_nan``).  The
+    fields are equal to the bit at nodes that the plane transpose and the
+    taps do not reach in K sub-steps."""
+    c = _chunk_case(cuda_device, mode, on_plane, K, order, box, taps)
     spec, rnd, mask = c["spec"], c["rnd"], c["mask"]
-    cot = (rnd(K, 3), rnd(*spec.dims), rnd(*spec.dims),
-           rnd(order, 6, c["Umax"], c["Vmax"]) * mask)
+    cot = tuple((t * scale).contiguous() for t in (
+        rnd(K, c["taps"].numel()), rnd(*spec.dims), rnd(*spec.dims),
+        rnd(order, 6, c["Umax"], c["Vmax"]) * mask))
     want = tbm._mega_chunk_bwd_plain(spec, c["fb"], c["fa"], *cot, c["src"],
                                      c["taps"])
     before = tbm.mega_chunk_bwd.launches
@@ -341,20 +438,26 @@ def test_mega_chunk_bwd_kernel_matches_plain(cuda_device, mode, on_plane, K,
         assert tuple(a.shape) == tuple(b.shape), name
         if mode == 0 and name == "gsig":
             assert float(a.abs().max()) == 0.0
+        elif scale > 1.0:
+            assert _agree_where_plain_is_not_nan(a, b), name
         else:
             assert _rel(a, b) <= BWD_REL, name
+    if scale > 1.0:
+        assert not bool(torch.isfinite(want[0]).all())   # sums overflowed
+        return
     for name, a, b, axis in (("gp_stream", got[4], want[4], 1),
                              ("gstin_stream", got[5], want[5], 2)):
         scale = float(b.abs().max())
         for q in range(6):
             err = float((a.select(axis, q) - b.select(axis, q)).abs().max())
             assert err <= BWD_REL * scale, (name, q)
+    far = _far_from_planes_and_taps(spec, K, c["taps"])
+    for name, a, b in zip(names[:2], got, want):
+        assert torch.equal(a[far], b[far]), name
 
 
 # the persistent chunk kernel (B2, and B6 in grad mode): one cooperative
 # launch a chunk, held to the bit
-SMALL_BOX = ((21, 17, 26), (2, 3, 2), (18, 13, 23))
-LARGE_BOX = ((40, 60, 100), (2, 3, 2), (37, 56, 97))  # more nodes than threads
 
 
 def _nan_equal(a, b):
@@ -480,6 +583,32 @@ def test_mega_chunk_residency(cuda_device):
     registers (its launch bounds), and a cooperative grid of every CTA the
     card holds at once, CTAs an SM x SMs."""
     occ = tbm.chunk_occupancy(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert occ["local_bytes"] == 0, occ
+    assert 0 < occ["registers"] <= 64, occ
+    assert occ["ctas_per_sm"] >= 1, occ
+    assert occ["grid"] == occ["ctas_per_sm"] * sms, occ
+
+
+@pytest.mark.cuda
+def test_mega_chunk_bwd_persistent_one_launch(cuda_device):
+    """B7 is one cooperative launch a chunk: a profiled K = 8 chunk shows
+    one ``mega_chunk_bwd_kernel`` and no other adjoint kernel; and what the
+    card makes of it: no local memory, at most 64 registers, a grid of
+    CTAs an SM x SMs."""
+    from wayverb_tpu_torch.tools.mega_timing import profile
+    c = _chunk_case(cuda_device, 1, "edge", 8, 6, LARGE_BOX,
+                    _tap_in_bare_block)
+    spec, rnd, mask = c["spec"], c["rnd"], c["mask"]
+    cot = (rnd(8, c["taps"].numel()), rnd(*spec.dims), rnd(*spec.dims),
+           rnd(6, 6, c["Umax"], c["Vmax"]) * mask)
+    prof = profile(lambda: tbm.mega_chunk_bwd(
+        spec, c["fb"], c["fa"], *(t.clone() for t in cot), c["src"],
+        c["taps"]), "bwd_")
+    names = [n for n in prof["kernels"] if "bwd_" in n]
+    assert prof["chunk_launches"] == 1, prof["kernels"]
+    assert len(names) == 1 and "mega_chunk_bwd_kernel" in names[0], names
+    occ = tbm.chunk_bwd_occupancy(cuda_device)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert occ["local_bytes"] == 0, occ
     assert 0 < occ["registers"] <= 64, occ

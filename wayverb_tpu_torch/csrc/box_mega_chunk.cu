@@ -70,11 +70,17 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "box_chunk.cuh"
 #include "box_stencil.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using wv::block_x;
+using wv::other_axes;
+using wv::pick3;
+using wv::thread_x;
 
 constexpr int kThreads = 1024; // threads a CTA
 constexpr int kMinCtas = 1;    // CTAs an SM the launch bounds ask for
@@ -111,33 +117,10 @@ struct ChunkArgs {
 // division the plane update would repeat for every element).
 __shared__ float face_ratio[6];
 
-// v[i] of a three- or six-element parameter array, by selects: a dynamic
-// index into the kernel's parameters could be copied to local memory.
-__device__ __forceinline__ int pick3(const int (&v)[3], int i) {
-  return i == 0 ? v[0] : (i == 1 ? v[1] : v[2]);
-}
+// v[i] of a six-element parameter array, by selects (see wv::pick3).
 __device__ __forceinline__ int pick6(const int (&v)[6], int i) {
   return i < 3 ? (i == 0 ? v[0] : (i == 1 ? v[1] : v[2]))
                : (i == 3 ? v[3] : (i == 4 ? v[4] : v[5]));
-}
-
-// threadIdx.x and blockIdx.x, read afresh at each use: a value derived from
-// them and kept live from one pass to the other would cost a register the
-// plane pass needs.
-__device__ __forceinline__ int thread_x() {
-  int v;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
-  return v;
-}
-__device__ __forceinline__ int block_x() {
-  int v;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
-  return v;
-}
-
-__device__ __forceinline__ void other_axes(int a, int* a1, int* a2) {
-  *a1 = a == 0 ? 1 : 0;
-  *a2 = a == 2 ? 1 : 2;
 }
 
 // One plane element's boundary update; returns the new pressure (0 in the
@@ -338,28 +321,6 @@ __device__ __forceinline__ void node(const ChunkArgs& a, const float* PL,
       [&](int p, int u, int v) { return INS + (p * uv + u * vmax + v); });
 }
 
-// The bare leapfrog on N warp-wide z blocks from flat index i, every node
-// strictly inside the box: all the loads go out before the stores.
-template <int N>
-__device__ __forceinline__ void bare_blocks(const float* A, float* B,
-                                            long long i, long long yz, int Z) {
-  float res[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const long long j = i + 32 * k;
-    float acc = 0.f;
-    acc += A[j - yz];
-    acc += A[j + yz];
-    acc += A[j - Z];
-    acc += A[j + Z];
-    acc += A[j - 1];
-    acc += A[j + 1];
-    res[k] = __fmul_rn(1.0f / 3.0f, acc) - B[j];
-  }
-#pragma unroll
-  for (int k = 0; k < N; ++k) B[i + 32 * k] = res[k];
-}
-
 // The stencil pass, one thread a node: warps stride over the (x, y) rows,
 // lanes along z, each neighbour loaded.  Warp-wide z blocks whose nodes are
 // all strictly inside the box on every axis (no splice, no extraction,
@@ -383,13 +344,13 @@ __device__ __forceinline__ void stencil_rows(const ChunkArgs& a,
       const long long i = (long long)r * Z + z0 + lane;
       const bool plain = xy_plain && z0 > g.ilo2;
       if (plain && z0 + 32 * kGroup - 1 < g.ihi2) {
-        bare_blocks<kGroup>(A, B, i, yz, Z);
+        wv::bare_blocks<kGroup>(A, B, i, yz, Z);
         z0 += 32 * kGroup;
         continue;
       }
       const int z = z0 + lane;
       if (plain && z0 + 31 < g.ihi2) {
-        bare_blocks<1>(A, B, i, yz, Z);
+        wv::bare_blocks<1>(A, B, i, yz, Z);
       } else if (z < Z) {
         const float xm = x > 0 ? A[i - yz] : 0.f;
         const float xp = x < X - 1 ? A[i + yz] : 0.f;
@@ -468,20 +429,6 @@ mega_chunk_kernel(const ChunkArgs a) {
       base_prvp[e] = prvp;
     }
   }
-}
-
-// The cooperative grid: CTAs an SM (from the occupancy calculator) x SMs.
-cudaError_t grid_size(int* ctas_per_sm, int* ctas) {
-  int device, sms;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm,
-                                                      mega_chunk_kernel,
-                                                      kThreads, 0);
-  if (e == cudaSuccess) *ctas = *ctas_per_sm * sms;
-  return e;
 }
 
 }  // namespace
@@ -563,7 +510,8 @@ int wv_box_mega_chunk_f32(float* cur, float* prev, float* st, float* st_spare,
   wv::stencil_set_geometry(a.geo, shape_geom);
 
   int per_sm, ctas;
-  cudaError_t e = grid_size(&per_sm, &ctas);
+  cudaError_t e = wv::cooperative_grid(mega_chunk_kernel, kThreads, &per_sm,
+                                       &ctas);
   if (e != cudaSuccess) return static_cast<int>(e);
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel(
@@ -578,12 +526,8 @@ int wv_box_mega_chunk_f32(float* cur, float* prev, float* st, float* st_spare,
 // and the cooperative grid one chunk launches.  Returns the CUDA error code.
 int wv_box_mega_chunk_occupancy(int* registers, int* local_bytes,
                                 int* ctas_per_sm, int* grid) {
-  cudaFuncAttributes attrs;
-  cudaError_t e = cudaFuncGetAttributes(&attrs, mega_chunk_kernel);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  *registers = attrs.numRegs;
-  *local_bytes = static_cast<int>(attrs.localSizeBytes);
-  return static_cast<int>(grid_size(ctas_per_sm, grid));
+  return wv::chunk_occupancy(mega_chunk_kernel, kThreads, registers,
+                             local_bytes, ctas_per_sm, grid);
 }
 
 const char* wv_cuda_error_string(int code) {

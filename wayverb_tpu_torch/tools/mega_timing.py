@@ -1,10 +1,11 @@
-"""Time the shoebox chunk kernel (B2, and B6 in grad mode) at the hall.
+"""Time the shoebox chunk kernels at the hall: B2 (and B6, its grad mode),
+or with ``--kernel b7`` the chunk's adjoint B7.
 
-    python -m wayverb_tpu_torch.tools.mega_timing
+    python -m wayverb_tpu_torch.tools.mega_timing [--kernel b7]
 
 On the card, at the concert-hall shoebox of ``bench.py`` (224, 224, 256)
 meshed at the engine's rate, with the hall run's hard source at the centre
-and its receiver's taps:
+and its receiver's taps, the default mode:
 
 * builds ``csrc/box_mega_chunk.cu`` and prints ptxas's registers, stack and
   spills for each kernel in it, and what the card makes of the chunk kernel
@@ -20,12 +21,20 @@ and its receiver's taps:
   their count and device time by name, the chunk's span on the device (CUDA
   events) and the gaps (the span less the kernels' time).
 
+``--kernel b7`` does the same for ``csrc/box_mega_chunk_bwd.cu``: ptxas's
+report and ``box_mega.chunk_bwd_occupancy``; one K = 128 chunk of B7 on
+random cotangents against ``_mega_chunk_bwd_plain``, each of its six
+outputs within 1e-5 of its largest value (the largest error of each
+printed); B7's µs a sub-step, chained chunk to chunk as the backward runs
+them; and one profiled chunk (its kernels, ``*bwd_*``, by name).
+
 One JSON line, after the card's name and power limit.  Without a card it
 fails.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -39,6 +48,7 @@ SIDE = (224, 224, 256)      # bench.py's production-scale shoebox
 ABSORPTION = 0.1
 CHUNK = 128
 SEED = 20261111
+BWD_REL = 1e-5              # B7 against its plain version, of the largest
 
 
 def hall_case(device="cuda"):
@@ -77,11 +87,11 @@ def random_state(spec, order, gen, device="cuda"):
     return rnd(*spec.dims), rnd(*spec.dims), st, pln
 
 
-def ptxas_lines() -> list[str]:
-    """ptxas's report of each kernel of ``box_mega_chunk.cu``, from a fresh
+def ptxas_lines(source="box_mega_chunk") -> list[str]:
+    """ptxas's report of each kernel of ``csrc/<source>.cu``, from a fresh
     build."""
     from wayverb_tpu_torch import _build
-    log = _build.build("box_mega_chunk", force=True)[1]
+    log = _build.build(source, force=True)[1]
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling" in ln]
 
@@ -142,24 +152,18 @@ def b1_us(spec, gen, reps=200) -> float:
                                         inj_val, out=out), reps)
 
 
-def profile_chunk(case, gen) -> dict:
-    """One B2 chunk under torch.profiler: {kernel name: [launches, device
-    µs]} (the wrapper's own allocations among them), the launches of
-    ``box_mega_chunk.cu``'s kernels, the kernels' total, the chunk's span by
-    CUDA events, and the gaps (span - total; None when the profiler saw no
-    device time)."""
-    from torch.profiler import ProfilerActivity, profile
-    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
-    spec, fb, fa, src, taps = case
-    state = random_state(spec, fb.shape[1] - 1, gen)
-    sig = torch.randn(CHUNK, generator=gen, device="cuda") * 1e-3
-    run = lambda: mega_chunk(spec, sig, fb, fa, *state, src, taps)  # noqa
+def profile(run, marker) -> dict:
+    """``run()`` once more after a warm-up, under torch.profiler: {kernel
+    name: [launches, device µs]}, the launches of kernels whose name holds
+    ``marker``, the kernels' total, the span by CUDA events, and the gaps
+    (span - total; None when the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
     run()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         start.record()
         run()
         stop.record()
@@ -174,16 +178,100 @@ def profile_chunk(case, gen) -> dict:
             if t > 0:
                 kernels[e.key[:80]] = [e.count, t]
     busy = sum(t for _, t in kernels.values())
-    chunk = sum(n for name, (n, _) in kernels.items() if "mega_" in name)
+    chunk = sum(n for name, (n, _) in kernels.items() if marker in name)
     return {"kernels": kernels, "chunk_launches": chunk, "device_us": busy,
             "span_us": span_us,
             "gaps_us": span_us - busy if busy > 0 else None}
 
 
-def main():
+def profile_chunk(case, gen) -> dict:
+    """One B2 chunk under torch.profiler (``profile``; the chunk kernel's
+    name holds ``mega_``)."""
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    spec, fb, fa, src, taps = case
+    state = random_state(spec, fb.shape[1] - 1, gen)
+    sig = torch.randn(CHUNK, generator=gen, device="cuda") * 1e-3
+    return profile(lambda: mega_chunk(spec, sig, fb, fa, *state, src, taps),
+                   "mega_")
+
+
+def random_cotangents(spec, order, k, gen, device="cuda"):
+    """Random (gtaps (K, k), gnext, gcur, gst), zero in the planes'
+    padding."""
+    gst = random_state(spec, order, gen, device)[2]
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    return rnd(CHUNK, k), rnd(*spec.dims), rnd(*spec.dims), gst
+
+
+def compare_bwd(case, gen) -> dict:
+    """One chunk of B7 and of ``_mega_chunk_bwd_plain`` on the same random
+    cotangents: per output, the largest |kernel - plain| and that over the
+    output's largest value."""
+    from wayverb_tpu_torch.waveguide.box_mega import (_mega_chunk_bwd_plain,
+                                                      mega_chunk_bwd)
+    spec, fb, fa, src, taps = case
+    cot = random_cotangents(spec, fb.shape[1] - 1, taps.numel(), gen)
+    want = _mega_chunk_bwd_plain(spec, fb, fa, *cot, src, taps)
+    got = mega_chunk_bwd(spec, fb, fa, *(t.clone() for t in cot), src, taps)
+    torch.cuda.synchronize()
+    out = {}
+    for name, g, w in zip(("gnext", "gcur", "gst", "gsig", "gp_stream",
+                           "gstin_stream"), got, want):
+        err = float((g - w).abs().max())
+        out[name] = {"max_abs_err": err,
+                     "rel": err / max(float(w.abs().max()), 1e-30)}
+    return out
+
+
+def bwd_run(case, gen):
+    """A callable that runs one B7 chunk on carried cotangents: the kernel
+    consumes its field and state cotangents, so each call chains on the
+    previous one's, as the backward's chunks do."""
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk_bwd
+    spec, fb, fa, src, taps = case
+    gtaps, gnext, gcur, gst = random_cotangents(spec, fb.shape[1] - 1,
+                                                taps.numel(), gen)
+    carry = [gnext * 1e-3, gcur * 1e-3, gst * 0.0]
+
+    def run():
+        carry[:] = mega_chunk_bwd(spec, fb, fa, gtaps, *carry, src, taps)[:3]
+    return run
+
+
+def main_b7():
+    """The ``--kernel b7`` mode: one JSON line."""
+    from wayverb_tpu_torch.waveguide.box_mega import chunk_bwd_occupancy
+    t0 = time.perf_counter()
+    ptxas = ptxas_lines("box_mega_chunk_bwd")
+    occupancy = chunk_bwd_occupancy()
+    case = hall_case()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = compare_bwd(case, gen)
+    torch.cuda.empty_cache()
+    b7 = events_us(bwd_run(case, gen), 5)
+    prof = profile(bwd_run(case, gen), "bwd_")
+    ok = all(e["rel"] <= BWD_REL for e in errs.values())
+    print(json.dumps({
+        "shape": list(case[0].dims), "K": CHUNK, "ptxas": ptxas,
+        "occupancy": occupancy, "b7_us_per_substep": b7 / CHUNK,
+        "b7_vs_plain": errs, "b7_within_bound": ok, "bound_rel": BWD_REL,
+        "profile": prof, "wall_s": time.perf_counter() - t0}), flush=True)
+    if not ok:
+        raise SystemExit("mega_timing: B7 differs from its plain version")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m wayverb_tpu_torch.tools.mega_timing",
+        description="Time the chunk kernels B2/B6 (default) or B7 at the "
+                    "hall.")
+    p.add_argument("--kernel", choices=("b2", "b7"), default="b2")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mega_timing: needs a CUDA device")
     print(card_name_and_power_limit(), flush=True)
+    if args.kernel == "b7":
+        return main_b7()
     from wayverb_tpu_torch.waveguide.box_mega import chunk_occupancy
     t0 = time.perf_counter()
     ptxas = ptxas_lines()

@@ -27,7 +27,8 @@ its forward runs the chunks in grad mode (``mega_chunk(grad=True)``), which
 also writes the residual block (K, 4, 6, Umax, Vmax) = PL, patched INS, PRVP
 and the old first state slot per sub-step.  Its backward walks the chunks in
 reverse with ``mega_chunk_bwd``, the adjoint leapfrog (CUDA:
-``csrc/box_mega_chunk_bwd.cu``; plain: ``_mega_chunk_bwd_plain``), which
+``csrc/box_mega_chunk_bwd.cu``, one persistent cooperative launch a chunk
+on two fields in place; plain: ``_mega_chunk_bwd_plain``), which
 returns the field and state cotangents, the signal cotangent and the streams
 of plane cotangents (ĝpplus, ĝst′).  The plane step is linear in pressures
 and state, so the kernel transposes it at zero primals and needs no
@@ -263,22 +264,27 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def chunk_occupancy(device="cuda") -> dict:
-    """What the card makes of the chunk kernel: registers a thread, local
-    memory (spills) a thread in bytes, CTAs resident on one SM, and the
-    cooperative grid (CTAs) one chunk launches."""
-    lib = _kernel_lib()
-    fn = lib.wv_box_mega_chunk_occupancy
+def _occupancy(lib, entry: str, device) -> dict:
+    """Registers, local bytes, CTAs an SM and the cooperative grid of a
+    chunk kernel, from its C entry ``entry``."""
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
     out = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device):
         err = fn(*(ctypes.byref(x) for x in out))
     if err != 0:
-        raise RuntimeError("box_mega_chunk occupancy query failed: "
+        raise RuntimeError(f"{entry} failed: "
                            + lib.wv_cuda_error_string(err).decode())
     return dict(zip(("registers", "local_bytes", "ctas_per_sm", "grid"),
                     (x.value for x in out)))
+
+
+def chunk_occupancy(device="cuda") -> dict:
+    """What the card makes of the chunk kernel: registers a thread, local
+    memory (spills) a thread in bytes, CTAs resident on one SM, and the
+    cooperative grid (CTAs) one chunk launches."""
+    return _occupancy(_kernel_lib(), "wv_box_mega_chunk_occupancy", device)
 
 
 def _check(name, t, device, shape=None, dtype=torch.float32):
@@ -497,12 +503,20 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+def chunk_bwd_occupancy(device="cuda") -> dict:
+    """What the card makes of the adjoint chunk kernel (B7), as
+    :func:`chunk_occupancy` reads the forward's."""
+    return _occupancy(_bwd_kernel_lib(), "wv_box_mega_chunk_bwd_occupancy",
+                      device)
+
+
 def _mega_chunk_bwd_cuda(spec: BoxSpec, face_b, face_a, gtaps, gnext, gcur,
                          gst, src, tap_idx):
     """Launch the chunk's adjoint (csrc/box_mega_chunk_bwd.cu) on gnext's
-    stream.  gnext, gcur and gst are consumed: the kernel works in their
-    storage (and one spare field), and the returned cotangents live in
-    whichever of the three field buffers holds them after K rotations."""
+    stream: one cooperative launch of K sub-steps on two fields in place.
+    gnext, gcur and gst are consumed: the kernel works in their storage,
+    the cotangent of the chunk's input ``cur`` comes back in gnext's and
+    that of its input ``prev`` in a new field."""
     dev = gnext.device
     K, k = gtaps.shape
     order = gst.shape[0]
@@ -519,16 +533,17 @@ def _mega_chunk_bwd_cuda(spec: BoxSpec, face_b, face_a, gtaps, gnext, gcur,
     if gnext.data_ptr() == gcur.data_ptr():
         raise ValueError("mega_chunk_bwd: gnext and gcur must be separate "
                          "buffers")
-    _, Y, Z = spec.dims
+    X, Y, Z = spec.dims
     sx, sy, sz, mode = src
     src_flat = (sx * Y + sy) * Z + sz if mode > 0 else -1
     new = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
                                  device=dev)
-    spare = torch.empty_like(gnext)
+    spare = new(*spec.dims)      # takes the cotangent of the input prev
     gsig = new(K)
     gp_stream = new(K, 6, Umax, Vmax)
     gstin_stream = new(K, order, 6, Umax, Vmax)
-    scratch = new(4, 6, Umax, Vmax)      # D, ĝpl, ĝin, ĝprev
+    # D, ĝprev twice (by sub-step parity), then one byte a (x, y) row
+    scratch = new(3 * 6 * Umax * Vmax + -(-X * Y // 4))
     lib = _bwd_kernel_lib()
     err = lib.wv_box_mega_chunk_bwd_f32(
         gnext.data_ptr(), gcur.data_ptr(), spare.data_ptr(), gst.data_ptr(),
@@ -542,10 +557,7 @@ def _mega_chunk_bwd_cuda(spec: BoxSpec, face_b, face_a, gtaps, gnext, gcur,
         raise RuntimeError("box_mega_chunk_bwd launch failed: "
                            + lib.wv_cuda_error_string(err).decode())
     mega_chunk_bwd.launches += 1
-    # each sub-step rotates the roles (P̂, Q̂, spare) ← (Q̂, spare, P̂)
-    bufs = (gnext, gcur, spare)
-    return (bufs[K % 3], bufs[(K + 1) % 3], gst, gsig, gp_stream,
-            gstin_stream)
+    return gnext, spare, gst, gsig, gp_stream, gstin_stream
 
 
 def mega_chunk_bwd(spec: BoxSpec, face_b, face_a, gtaps, gnext, gcur, gst,
@@ -640,7 +652,8 @@ def mega_device_bytes(spec: BoxSpec, order: int, num_steps: int = 0,
         nchunks = -(-num_steps // chunk)
         total += nchunks * chunk * 4 * plane          # residuals
         total += X * Y * Z + order * plane            # spare field, ĝst
-        total += chunk * (1 + order) * plane + 4 * plane   # streams, scratch
+        total += chunk * (1 + order) * plane          # streams
+        total += 3 * plane + -(-X * Y // 4)           # scratch, row flags
     return 4 * total
 
 
