@@ -10,12 +10,18 @@ Drives the port through its public entry points on the card and fails
 2. build: compiles every kernel of the port from ``wayverb_tpu_torch/csrc``,
    one nvcc per source, all started together;
 3. B1 (the fused step) against its plain PyTorch version on the same CUDA
-   tensors;
+   tensors, to the bit in ``next`` and the six inner planes: 18 cases, the
+   injection modes, sources on inner planes, on each side of a y and a z
+   edge of the CTAs and warps, in a shard's first and last rows, shards of
+   two rows and of the sharded hall's shape with halos, 1e38 inputs;
 4. T30 oracle through the fused path: a 2.0×2.5×3.0 m box against Sabine,
    against the port's plain CPU run of the same case, then ``postprocess``;
 5. a concert-hall shoebox of 12.8 M nodes for 1024 fused steps
    (``run_waveguide_box``), with the launch count, step time, node-update
-   rate, kernel time and peak memory, and a profiler breakdown of a step;
+   rate and peak memory; B1 alone at the hall and at the sharded hall's
+   shard shape with halos, timed with the stream held, beside the
+   wrapper's host time, its bound, registers, local bytes and CTAs an SM;
+   and a profiler breakdown of a step (device busy µs, idle share);
 6. B2 (the mega chunk, K = 128) against its plain version at three shapes,
    the hall one with the hall's source and receiver taps, to the bit;
 7. the mega path (``canonical``) against the fused path on the hall, with
@@ -167,7 +173,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FS = 500.0 / (0.25 * 0.6)
 ABSORPTION = 0.1
 SEED = 20261016
-KERNEL_ATOL = 1e-5          # test_box_fused.py bound on the Pallas kernel
 MEGA_VS_FUSED_REL = 1e-4    # mega vs fused path over 1024 steps, of peak
 HYBRID_REL = 1e-3           # hybrid IR card vs CPU, of peak
 BWD_REL = 1e-5             # B5, B6 residuals, B7 vs plain, of the largest
@@ -247,27 +252,29 @@ def phase_build(card):
     return reports
 
 
-def _random_step_inputs(torch, spec, x_offset, gen, halos=True):
+def _random_step_inputs(torch, spec, x_offset, gen, rows, scale=1.0):
+    """Random cur, prev, planes and halo rows of ``rows`` x rows of
+    ``spec`` from global row ``x_offset``, times ``scale``."""
     from wayverb_tpu_torch.waveguide.box_fused import _plane_shapes
-    X, Y, Z = spec.dims
-    X -= x_offset
-    dev = "cuda"
-    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa
-    cur, prev = rnd(X, Y, Z), rnd(X, Y, Z)
-    planes = tuple(rnd(*s) for s in _plane_shapes(X, Y, Z))
-    hal = (rnd(1, Y, Z), rnd(1, Y, Z)) if halos else None
-    return cur, prev, planes, hal
+    _, Y, Z = spec.dims
+    rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa
+                                 device="cuda") * scale
+    cur, prev = rnd(rows, Y, Z), rnd(rows, Y, Z)
+    planes = tuple(rnd(*s) for s in _plane_shapes(rows, Y, Z))
+    return cur, prev, planes, (rnd(1, Y, Z), rnd(1, Y, Z))
 
 
-def _max_err(a, b):
-    (na, ia), (nb, ib) = a, b
-    errs = [float((na - nb).abs().max())]
-    errs += [float((p - q).abs().max()) for p, q in zip(ia, ib)]
-    return max(errs)
+def _nan_equal(torch, a, b):
+    """torch.equal, with NaN equal to NaN at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)
+                and torch.equal(a.masked_fill(na, 0), b.masked_fill(nb, 0)))
 
 
 def phase_kernel_vs_plain(torch, hall_spec, card):
-    """fused_step (CUDA kernel) against _fused_step_plain, same tensors."""
+    """fused_step (CUDA kernel) against _fused_step_plain, same tensors, to
+    the bit in next and the six inner planes (NaN where the plain version
+    has NaN)."""
     from wayverb_tpu_torch.waveguide.box_fused import (
         BoxSpec, _fused_step_plain, fused_step)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -279,32 +286,57 @@ def phase_kernel_vs_plain(torch, hall_spec, card):
     s37 = BoxSpec(dims=(37, 29, 53), ilo=(2, 3, 2), ihi=(33, 25, 50),
                   face_surface=(0,) * 6)
     hx, hy, hz = hall_spec.dims
-    # (spec, x offset, source (global x, y, z), mode, what it checks)
+    sh = hx // SHARDS           # the sharded hall's shard, the second one
+    mid = (hy // 2, hz // 2)
+    # (spec, x offset, rows, source (global x, y, z), mode, input scale,
+    # what it checks); the kernel's CTAs are 128 z x 2 y of one x row, its
+    # warps 32 z
     cases = [
-        (s16, 0, (8, 9, 64), 0, "no injection"),
-        (s16, 0, (8, 9, 64), 1, "hard source deep inside"),
-        (s16, 0, (2, 9, 64), 2, "soft source on the inner x plane"),
-        # y = 4 starts a 2-row thread block: its y-1 read crosses blocks
-        (s16, 0, (9, 4, 125), 1, "source at a thread-block edge"),
-        (s16x, 4, (10, 7, 40), 1, "x offset 4, halos, source in shard"),
-        (s37, 0, (18, 14, 26), 2, "unaligned 37x29x53"),
-        (hall_spec, 0, (hx // 2, hy // 2, hz // 2), 1, "hall shape"),
+        (s16, 0, 16, (8, 9, 64), 0, 1.0, "no injection"),
+        (s16, 0, 16, (8, 9, 64), 1, 1.0, "hard source deep inside"),
+        (s16, 0, 16, (2, 9, 64), 2, 1.0, "soft source on the inner x plane"),
+        (s16, 0, 16, (9, 4, 125), 1, 1.0, "source on the inner z plane"),
+        (s16x, 4, 16, (10, 7, 40), 1, 1.0,
+         "x offset 4, halos, source in shard"),
+        (s37, 0, 37, (18, 14, 26), 2, 1.0, "unaligned 37x29x53"),
+        (s37, 0, 37, (18, 15, 26), 1, 1.0, "source below a y tile edge"),
+        (s37, 0, 37, (18, 16, 26), 2, 1.0, "source above a y tile edge"),
+        (s37, 0, 37, (18, 14, 31), 1, 1.0, "source below a z tile edge"),
+        (s37, 0, 37, (18, 14, 32), 2, 1.0, "source above a z tile edge"),
+        (s37, 8, 16, (8, 14, 26), 1, 1.0, "source in a shard's row 0"),
+        (s37, 8, 16, (23, 14, 26), 2, 1.0, "source in a shard's row X - 1"),
+        (s37, 20, 2, (21, 14, 26), 1, 1.0, "a two-row shard"),
+        (s37, 0, 37, (18, 14, 26), 2, 1e38, "1e38 inputs: sums overflow"),
+        (hall_spec, sh, sh, (sh + sh // 2, *mid), 1, 1.0,
+         "the sharded hall's shard shape, halos"),
+        (hall_spec, sh, sh, (sh + sh // 2 - 1, hy // 2 + 1, hz // 2 - 1),
+         2, 1.0, "source at the last y and z of a CTA"),
+        (hall_spec, sh, sh, (sh + sh // 2, hy // 2 + 2, hz // 2), 1, 1.0,
+         "source at the first y and z of the next CTAs"),
+        (hall_spec, 0, hx, (hx // 2, *mid), 1, 1.0, "hall shape"),
     ]
     worst = 0.0
-    for spec, xo, src, mode, what in cases:
-        cur, prev, planes, halos = _random_step_inputs(torch, spec, xo, gen)
+    for spec, xo, rows, src, mode, scale, what in cases:
+        cur, prev, planes, halos = _random_step_inputs(torch, spec, xo, gen,
+                                                       rows, scale)
         geom = spec.geom_array(x_offset=xo)
-        inj_val = torch.randn(2, generator=gen, device="cuda")
+        inj_val = torch.randn(2, generator=gen, device="cuda") * scale
         args = (geom, cur, prev, planes, src + (mode,), inj_val, halos)
         got = fused_step(*args)
         want = _fused_step_plain(*args)
         torch.cuda.synchronize()
-        err = _max_err(got, want)
+        pairs = list(zip((got[0], *got[1]), (want[0], *want[1])))
+        equal = all(_nan_equal(torch, g, w) for g, w in pairs)
+        finite = [torch.isfinite(w) for _, w in pairs]
+        err = max(float((g - w)[f].abs().max()) if bool(f.any()) else 0.0
+                  for (g, w), f in zip(pairs, finite))
         worst = max(worst, err)
-        print(f"[3 B1] {tuple(cur.shape)} mode {mode} ({what}): "
-              f"max |kernel - plain| = {err:.3e} (bound {KERNEL_ATOL:g})")
-        if not err <= KERNEL_ATOL:
-            _fail(f"B1 disagrees with its plain version: {err}")
+        print(f"[3 B1] {tuple(cur.shape)} mode {mode} ({what}): next and "
+              f"inner planes equal to the plain version's {equal}, max "
+              f"|kernel - plain| = {err:.3e} where finite")
+        if not equal:
+            _fail(f"B1 disagrees with its plain version: {what}")
+    print(f"[3 B1] {len(cases)} cases bit-equal [{card}]")
     return worst
 
 
@@ -473,25 +505,32 @@ def phase_hall(torch, box, dx, mesh, setup_s, card):
 
 
 def phase_kernel_time(torch, spec, card):
-    """B1 alone vs its plain version at the hall shape (CUDA events)."""
-    from wayverb_tpu_torch.waveguide.box_fused import (_fused_step_plain,
-                                                       fused_step)
+    """B1 alone at the hall shape and at the sharded hall's shard shape
+    with halos, with the stream held (``mega_timing.b1_shape``: bit-equal
+    to the plain version, device and host µs, bound, occupancy), and the
+    plain version's time at the hall."""
+    from wayverb_tpu_torch.tools.mega_timing import b1_shape
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    cur, prev, planes, _ = _random_step_inputs(torch, spec, 0, gen,
-                                               halos=False)
-    geom = spec.geom_array()
-    inj = tuple(d // 2 for d in spec.dims) + (1,)
-    inj_val = torch.randn(2, generator=gen, device="cuda")
-    out = torch.empty_like(cur)
-    k_us = _cuda_time_us(torch, lambda: fused_step(
-        geom, cur, prev, planes, inj, inj_val, out=out), 200)
-    p_us = _cuda_time_us(torch, lambda: _fused_step_plain(
-        geom, cur, prev, planes, inj, inj_val), 20)
-    nodes = cur.numel()
-    print(f"[5 hall] B1 alone at {tuple(cur.shape)}: kernel "
-          f"{k_us:.2f} us/step ({12 * nodes / k_us / 1e3:.1f} GB/s at "
-          f"12 B/node), plain version {p_us:.2f} us/step [{card}]")
-    return k_us, p_us
+    X = spec.dims[0]
+    rows = {"hall": b1_shape(spec, 0, X, gen, False, plain_reps=20),
+            "shard": b1_shape(spec, X // SHARDS, X // SHARDS, gen, True)}
+    for name, r in rows.items():
+        occ = r["occupancy"]
+        print(f"[5 hall] B1 alone at the {name} shape {tuple(r['shape'])}"
+              f"{' with halos' if r['halos'] else ''}: {r['us_per_step']:.2f}"
+              f" us/step on the card (stream held), the wrapper's host "
+              f"{r['host_us_per_call']:.1f} us a call; bound "
+              f"{r['bound_us']:.2f} us ({r['bound_by']}), "
+              f"{r['time_over_bound']:.2f}x; bit-equal {r['equal_plain']}; "
+              f"{occ['registers']} registers, {occ['local_bytes']} B local, "
+              f"{occ['ctas_per_sm']} CTAs of {occ['threads']} an SM, "
+              f"{occ['grid']} CTAs a step"
+              + (f"; plain version {r['plain_us_per_step']:.2f} us/step"
+                 if "plain_us_per_step" in r else "") + f" [{card}]")
+        if not r["equal_plain"]:
+            _fail(f"B1 disagrees with its plain version at the {name} "
+                  "shape")
+    return rows
 
 
 def _profile_window(torch, tag, run, steps, step_s, card):
@@ -541,7 +580,7 @@ def phase_profile(torch, mesh, box, dx, step_s, card):
     steps = 32
     fs = mesh.descriptor.sample_rate(340.0)
     src, rcv = _hall_positions(box, dx)
-    _profile_window(
+    return _profile_window(
         torch, "5 profile",
         lambda: _fused_canonical(mesh, src, rcv, (steps - 0.5) / fs), steps,
         step_s, card)
@@ -911,10 +950,10 @@ def _bound(n_bytes, flops):
 
 
 def kernel_bounds(spec, order, k):
-    """Bounds per step (B1, B5) or per sub-step of a K = CHUNK chunk (B2,
-    B6, B7) at ``spec``, from the shapes alone.  Stencil: 6 adds, a multiply
-    and a subtract per node; the adjoint's node update: 6 adds, a multiply,
-    an add and a negation."""
+    """Bounds per step (B5) or per sub-step of a K = CHUNK chunk (B2, B6,
+    B7) at ``spec``, from the shapes alone (B1's is ``mega_timing.b1_bound``).
+    Stencil: 6 adds, a multiply and a subtract per node; the adjoint's node
+    update: 6 adds, a multiply, an add and a negation."""
     from wayverb_tpu_torch.waveguide.box_fused import stacked_plane_shape
     X, Y, Z = spec.dims
     n = X * Y * Z
@@ -923,8 +962,6 @@ def kernel_bounds(spec, order, k):
     natural = 2 * (Y * Z + X * Z + X * Y)
     f = 4                                               # bytes per float32
     out = {}
-    # B1: cur, prev, six planes in; next, six inner planes out
-    out["b1"] = _bound(f * (3 * n + 2 * natural), 8 * n)
     # B5: g, six inner cotangents in; gcur, gprev, six planes, two halos out
     out["b5"] = _bound(f * (3 * n + 2 * natural + 2 * Y * Z), 8 * n)
     # a chunk: cur, prev, state, planes in and out, signal in, taps out
@@ -2582,28 +2619,10 @@ def _sharded_columns_engine(torch, card):
 
 
 def _device_time_us(torch, fn, reps):
-    """(device µs of one ``fn()``, host µs of one call).  A shard's kernel
-    takes less time on the card than its wrapper takes on the host, so
-    events around a plain loop would time the host's launch rate: a spin
-    kernel (``torch.cuda._sleep``) holds the stream for twice the time the
-    host needs to enqueue ``reps`` calls, and the events then time the
-    kernels back to back."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(8):
-        fn()
-    torch.cuda.synchronize()
-    host_us = 1e6 * (time.perf_counter() - t0) / 8
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2 * reps * host_us * 2000))  # cycles at <= 2 GHz
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return 1e3 * start.elapsed_time(stop) / reps, host_us
+    """(device µs of one ``fn()``, host µs of one call), the stream held
+    while the host enqueues (``mega_timing.device_time_us``)."""
+    from wayverb_tpu_torch.tools.mega_timing import device_time_us
+    return device_time_us(fn, reps)
 
 
 def shard_kernel_bounds(xl, Y, Z):
@@ -3141,8 +3160,8 @@ def main():
     t30_mesh, t30_fused, sabine, t30_src, t30_rcv = phase_t30(torch, card)
     fused_out, b1_launches, step_s = phase_hall(torch, box, dx, mesh,
                                                 setup_s, card)
-    b1_us, b1_plain_us = phase_kernel_time(torch, mesh.box_spec, card)
-    phase_profile(torch, mesh, box, dx, step_s, card)
+    b1_rows = phase_kernel_time(torch, mesh.box_spec, card)
+    hall_window = phase_profile(torch, mesh, box, dx, step_s, card)
     b2_err, hall_case = phase_mega_vs_plain(torch, mesh, box, dx, card)
     t0 = time.perf_counter()
     b2_us, b2_plain_us, b2_occ = phase_mega_time(torch, hall_case, ptxas,
@@ -3298,11 +3317,24 @@ def main():
         "shape": list(hall_dims),
         "launches": counted["box_fused_step"],
         "max_abs_err": b1_err,
-        "ms": b1_us / 1e3,
-        "plain_ms": b1_plain_us / 1e3,
-        "bound_ms": bounds["b1"][0], "bound_by": bounds["b1"][1],
+        "ms": b1_rows["hall"]["us_per_step"] / 1e3,
+        "plain_ms": b1_rows["hall"]["plain_us_per_step"] / 1e3,
+        "bound_ms": b1_rows["hall"]["bound_us"] / 1e3,
+        "bound_by": b1_rows["hall"]["bound_by"],
         "library_ms": None,
         "ms_is_per": "step",
+        "host_ms_per_call": b1_rows["hall"]["host_us_per_call"] / 1e3,
+        **{k: b1_rows["hall"]["occupancy"][k]
+           for k in ("registers", "local_bytes", "ctas_per_sm")},
+        "hall_run": {"wall_ms_per_step": 1e3 * step_s,
+                     "busy_ms_per_step": (hall_window[0] / 1e3
+                                          if hall_window else None),
+                     "idle_share": hall_window[2] if hall_window else None},
+        "shard": {"shape": b1_rows["shard"]["shape"], "halos": True,
+                  "ms": b1_rows["shard"]["us_per_step"] / 1e3,
+                  "bound_ms": b1_rows["shard"]["bound_us"] / 1e3,
+                  "host_ms_per_call":
+                      b1_rows["shard"]["host_us_per_call"] / 1e3},
     }, {
         "name": f"box_mega_chunk (K={CHUNK})",
         "route": "cuda",

@@ -125,3 +125,189 @@ def test_stack_unstack_roundtrip(rng):
     assert stack.shape == (6,) + tbf.stacked_plane_shape(spec)
     for a, b in zip(tbf.unstack_planes(stack, spec), planes):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's order of work, in plain torch
+
+TILE_Z = 32   # the kernel's warp: 32 nodes along z
+
+
+def _staged_row(cur, r, src, mode, v_now):
+    """Row r of cur as the kernel reads it: a zero y/z border around it (the
+    neighbours off the grid), the source's injected value in place, zeros
+    for a row off the grid."""
+    X, Y, Z = cur.shape
+    if not 0 <= r < X:
+        return torch.zeros(Y + 2, Z + 2)
+    row = torch.nn.functional.pad(cur[r], (1, 1, 1, 1))
+    if src is not None and src[0] == r:
+        e = row[src[1] + 1, src[2] + 1]
+        row[src[1] + 1, src[2] + 1] = v_now if mode == 1 else e + v_now
+    return row
+
+
+def _warp_paths(geom, shape, x, src, xin):
+    """(bare, z only): (Y, Z) masks of the nodes of row x whose 32-node z
+    warp the kernel runs bare (strictly between the inner planes in x, y and
+    z, the clamped inner x rows included, away from the source) or with
+    only the z tests (the same, but for z)."""
+    _, Y, Z = shape
+    y = torch.arange(Y).view(Y, 1)
+    z0 = (torch.arange(Z) // TILE_Z * TILE_Z).view(1, Z)
+    gx = geom[0] + x
+    xy = ((y > geom[5]) & (y < geom[6])
+          & bool(geom[3] <= gx <= geom[4] and x not in xin))
+    if src is not None and abs(x - src[0]) <= 1:
+        xy = xy & ~(((y - src[1]).abs() <= 1) & (src[2] >= z0 - 1)
+                    & (src[2] <= z0 + TILE_Z))
+    z_in = (z0 > geom[7]) & (z0 + TILE_Z - 1 < geom[8])
+    return xy & z_in, xy & ~z_in
+
+
+def _row_walk_step(geom, cur, prev, planes, inj_idx, inj_val, halos):
+    """The fused step computed as the CUDA kernel computes it, row by row:
+    a rolling window of three rows (x - 1, x, x + 1) with the injection in
+    the rows read; the neighbour sum x-, x+, y-, y+, z-, z+ from zero, the
+    halo row added last; bare warps get only the leapfrog, z-only warps the
+    z inside test, the z splices and the z extractions, the others the full
+    inside test, the source's prev, every splice and every extraction.
+    Returns (next, inner)."""
+    X, Y, Z = cur.shape
+    sx, sy, sz, mode = inj_idx
+    src = None
+    if mode > 0 and 0 <= sx - geom[0] < X and 0 <= sy < Y and 0 <= sz < Z:
+        src = (sx - geom[0], sy, sz)
+    v_now, v_prev = (inj_val[0], inj_val[1]) if src else (None, None)
+    xin = tuple(tbf._clamp(geom[3 + s] - geom[0], X) for s in (0, 1))
+    gy = torch.arange(Y).view(Y, 1)
+    gz = torch.arange(Z).view(1, Z)
+    zero = torch.zeros(())
+    nxt = torch.full_like(cur, float("nan"))
+    inner = [torch.full(s, float("nan")) for s in tbf._plane_shapes(X, Y, Z)]
+    below = _staged_row(cur, -1, src, mode, v_now)
+    here = _staged_row(cur, 0, src, mode, v_now)
+    for x in range(X):
+        above = _staged_row(cur, x + 1, src, mode, v_now)
+        acc = torch.zeros(Y, Z)
+        for term in (below[1:-1, 1:-1], above[1:-1, 1:-1], here[:-2, 1:-1],
+                     here[2:, 1:-1], here[1:-1, :-2], here[1:-1, 2:]):
+            acc = acc + term
+        bare, z_only = _warp_paths(geom, cur.shape, x, src, xin)
+        p = prev[x].clone()
+        leap = tbf.COURANT_SQ * acc - p
+        # z only: the z inside test, the z splices, the z extractions
+        z_in = (gz >= geom[7]) & (gz <= geom[8])
+        res_z = torch.where(z_in, leap, zero)
+        res_z = torch.where(gz == geom[7] - 1, planes[4][x][:, None], res_z)
+        res_z = torch.where(gz == geom[8] + 1, planes[5][x][:, None], res_z)
+        # general
+        if halos is not None and x == 0:
+            acc = acc + halos[0][0]
+        if halos is not None and x == X - 1:
+            acc = acc + halos[1][0]
+        if src is not None and src[0] == x:
+            p[sy, sz] = v_prev if mode == 1 else p[sy, sz] + v_prev
+        gx = geom[0] + x
+        inside = (geom[3] <= gx <= geom[4]) & (gy >= geom[5]) \
+            & (gy <= geom[6]) & z_in
+        res = torch.where(inside, tbf.COURANT_SQ * acc - p, zero)
+        res = torch.where(gy == geom[5] - 1, planes[2][x][None, :], res)
+        res = torch.where(gy == geom[6] + 1, planes[3][x][None, :], res)
+        res = torch.where(gz == geom[7] - 1, planes[4][x][:, None], res)
+        res = torch.where(gz == geom[8] + 1, planes[5][x][:, None], res)
+        if gx == geom[3] - 1:
+            res = planes[0].clone()
+        if gx == geom[4] + 1:
+            res = planes[1].clone()
+        general = ~bare & ~z_only
+        nxt[x] = torch.where(bare, leap, torch.where(z_only, res_z, res))
+        for q, (axis, s_) in enumerate(tbf.PLANES):
+            if axis == 0:
+                if x == xin[s_]:
+                    inner[q] = torch.where(general, res, inner[q])
+                continue
+            c = geom[3 + 2 * axis + s_]
+            if axis == 1:
+                line, keep = res[c], general[c]
+            else:
+                line = torch.where(z_only[:, c], res_z[:, c], res[:, c])
+                keep = general[:, c] | z_only[:, c]
+            inner[q][x] = torch.where(keep, line, inner[q][x])
+        below, here = here, above
+    return nxt, tuple(inner)
+
+
+# (dims, x offset, rows, source (global x, y, z), mode)
+ORDER_CASES = [
+    # the (20, 16, 128) shard at offset 4 with halos, every injection mode
+    ((20, 16, 128), 4, 16, (12, 9, 64), 0),
+    ((20, 16, 128), 4, 16, (12, 9, 64), 1),
+    ((20, 16, 128), 4, 16, (12, 9, 64), 2),
+    # on the low inner x plane; on the inner corner
+    ((20, 16, 128), 4, 16, (6, 7, 30), 2),
+    ((20, 16, 128), 4, 16, (17, 13, 125), 1),
+    # on a z warp edge, each side
+    ((20, 16, 128), 4, 16, (12, 9, 31), 1),
+    ((20, 16, 128), 4, 16, (12, 9, 32), 2),
+    # in row 0 and row X - 1 of the shard
+    ((20, 16, 128), 4, 16, (4, 9, 64), 1),
+    ((20, 16, 128), 4, 16, (19, 9, 64), 2),
+    # a source in the halo row below the shard injects nothing here
+    ((20, 16, 128), 4, 16, (3, 9, 64), 1),
+    # the unaligned box, a source on each side of a 16-row y edge
+    ((37, 29, 53), 0, 37, (18, 14, 26), 2),
+    ((37, 29, 53), 0, 37, (18, 15, 26), 1),
+    ((37, 29, 53), 0, 37, (18, 16, 40), 2),
+    # a shard inside the box in x: its rows 0 and X - 1 take the halos,
+    # the source in row 0
+    ((20, 16, 128), 8, 8, (8, 9, 64), 1),
+    # a two-row shard of the unaligned box
+    ((37, 29, 53), 20, 2, (21, 14, 26), 1),
+]
+
+
+@pytest.mark.parametrize("dims,x_off,rows,src,mode", ORDER_CASES)
+def test_kernel_order_matches_plain(rng, dims, x_off, rows, src, mode):
+    """The kernel's order of work and choice of warp paths in plain torch
+    (``_row_walk_step``) equals ``_fused_step_plain`` to the bit, in
+    ``next`` and the six inner planes."""
+    lo = (2, 3, 2) if dims[1] == 29 else (2, 2, 2)
+    spec = tbf.BoxSpec(dims=dims, ilo=(x_off and 6 or lo[0],) + lo[1:],
+                       ihi=tuple(d - 3 for d in dims), face_surface=(0,) * 6)
+    cur, prev, planes, halos, inj_val = (
+        _to_torch(a) for a in _step_inputs(rng, (rows,) + dims[1:]))
+    args = (spec.geom_array(x_offset=x_off), cur, prev, planes,
+            src + (mode,), inj_val, halos if x_off else None)
+    want_next, want_inner = tbf._fused_step_plain(*args)
+    got_next, got_inner = _row_walk_step(*args)
+    assert torch.equal(got_next, want_next)
+    for q, (g, w) in enumerate(zip(got_inner, want_inner)):
+        assert torch.equal(g, w), q
+
+
+def _to_torch(a):
+    if isinstance(a, list):
+        return tuple(torch.from_numpy(x) for x in a)
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("which", ["cur", "prev", "plane", "halo"])
+def test_fused_step_refuses_out_that_overlaps_an_input(rng, which):
+    """``out`` may not share memory with an input, on any device: the CUDA
+    kernel writes ``next`` through a restrict pointer."""
+    spec = tbf.BoxSpec(**GLOBAL)
+    cur, prev, planes, halos, _ = (
+        _to_torch(a) for a in _step_inputs(rng, GLOBAL["dims"]))
+    out = torch.zeros(GLOBAL["dims"])
+    if which == "cur":
+        out = cur
+    elif which == "prev":
+        out = prev
+    elif which == "plane":
+        planes = (out[3],) + planes[1:]
+    else:
+        halos = (halos[0], out[5:6])
+    with pytest.raises(ValueError, match="overlap"):
+        tbf.fused_step(spec.geom_array(), cur, prev, planes, halos=halos,
+                       out=out)

@@ -37,42 +37,90 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _random_step(dims, device, seed=0):
+HALL = (224, 224, 256)
+
+
+# (grid dims, x offset, rows, source (global x, y, z), mode, input scale):
+# a shard is `rows` x rows from global row `x offset`, with halo rows.  The
+# kernel's CTAs are 128 z x 2 y of one x row, its warps 32 z: the tile
+# edges below are those of its CTAs and warps
+FUSED_CASES = [
+    ((16, 16, 128), 0, 16, (8, 9, 64), 0, 1.0),
+    ((16, 16, 128), 0, 16, (8, 9, 64), 1, 1.0),
+    ((16, 16, 128), 0, 16, (2, 4, 64), 2, 1.0),
+    ((37, 29, 53), 0, 37, (18, 14, 26), 2, 1.0),
+    # a source on each side of a y tile edge and of a z (warp) tile edge
+    ((37, 29, 53), 0, 37, (18, 15, 26), 1, 1.0),
+    ((37, 29, 53), 0, 37, (18, 16, 26), 2, 1.0),
+    ((37, 29, 53), 0, 37, (18, 14, 31), 1, 1.0),
+    ((37, 29, 53), 0, 37, (18, 14, 32), 2, 1.0),
+    # a source in the halo-adjacent rows of a shard inside the box
+    ((37, 29, 53), 8, 16, (8, 14, 26), 1, 1.0),
+    ((37, 29, 53), 8, 16, (23, 14, 26), 2, 1.0),
+    # two rows
+    ((37, 29, 53), 20, 2, (21, 14, 26), 1, 1.0),
+    # the sharded hall's shard shape, a source at the centre, then on each
+    # side of a CTA edge in z (128) and in y, in two adjacent x rows
+    (HALL, 56, 56, (84, 112, 128), 1, 1.0),
+    (HALL, 56, 56, (83, 113, 127), 2, 1.0),
+    (HALL, 56, 56, (84, 114, 128), 1, 1.0),
+    # sums that overflow: the infinities and NaNs agree
+    ((37, 29, 53), 0, 37, (18, 14, 26), 2, 1e38),
+    ((16, 16, 128), 0, 16, (8, 9, 31), 1, 1e38),
+]
+
+
+def _fused_case(device, dims, x_off, rows, src, mode, scale, seed=0):
+    """(spec, args of fused_step) on random inputs, halo rows included: the
+    box inside [2, dim - 3] on every axis."""
     inside = np.zeros(dims, dtype=bool)
     inside[2:-2, 2:-2, 2:-2] = True
     spec = tbf.spec_from_inside(inside)
+    _, Y, Z = dims
     gen = torch.Generator(device=device).manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
-                                 device=device)
-    return spec, (rnd(*dims), rnd(*dims),
-                  tuple(rnd(*s) for s in tbf._plane_shapes(*dims)), rnd(2),
-                  (rnd(1, *dims[1:]), rnd(1, *dims[1:])))
+                                 device=device) * scale
+    cur, prev = rnd(rows, Y, Z), rnd(rows, Y, Z)
+    planes = tuple(rnd(*s) for s in tbf._plane_shapes(rows, Y, Z))
+    halos = (rnd(1, Y, Z), rnd(1, Y, Z))
+    return spec, (spec.geom_array(x_offset=x_off), cur, prev, planes,
+                  src + (mode,), rnd(2), halos)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims,src,mode", [
-    ((16, 16, 128), (8, 9, 64), 0), ((16, 16, 128), (8, 9, 64), 1),
-    ((16, 16, 128), (2, 4, 64), 2), ((37, 29, 53), (18, 14, 26), 2)])
-def test_fused_step_kernel_matches_plain(cuda_device, dims, src, mode):
-    spec, (cur, prev, planes, inj_val, halos) = _random_step(dims,
-                                                            cuda_device)
-    args = (spec.geom_array(), cur, prev, planes, src + (mode,), inj_val,
-            halos)
+@pytest.mark.parametrize("dims,x_off,rows,src,mode,scale", FUSED_CASES)
+def test_fused_step_kernel_matches_plain(cuda_device, dims, x_off, rows, src,
+                                         mode, scale):
+    """B1 against ``_fused_step_plain`` to the bit (NaN where the plain
+    version has NaN), in ``next`` and the six inner planes; one launch."""
+    _, args = _fused_case(cuda_device, dims, x_off, rows, src, mode, scale)
     before = tbf.fused_step.launches
     got_next, got_inner = tbf.fused_step(*args)
     assert tbf.fused_step.launches == before + 1
     want_next, want_inner = tbf._fused_step_plain(*args)
     torch.cuda.synchronize()
-    assert float((got_next - want_next).abs().max()) <= ATOL
-    for g, w in zip(got_inner, want_inner):
-        assert float((g - w).abs().max()) <= ATOL
+    assert _nan_equal(got_next, want_next)
+    for q, (g, w) in enumerate(zip(got_inner, want_inner)):
+        assert _nan_equal(g, w), q
+    if scale > 1.0:
+        assert not bool(torch.isfinite(want_next).all())
+
+
+@pytest.mark.cuda
+def test_fused_step_occupancy(cuda_device):
+    """What the card makes of B1: no local memory, at least one CTA an SM,
+    and at the hall one thread a node (CTAs x threads cover the field)."""
+    occ = tbf.step_occupancy(cuda_device, HALL)
+    assert occ["local_bytes"] == 0, occ
+    assert 0 < occ["registers"] <= 255, occ
+    assert occ["ctas_per_sm"] >= 1, occ
+    assert occ["grid"] * occ["threads"] >= HALL[0] * HALL[1] * HALL[2], occ
 
 
 @pytest.mark.cuda
 def test_fused_step_kernel_rejects_what_it_cannot_take(cuda_device):
-    spec, (cur, prev, planes, _, _) = _random_step((16, 16, 128),
-                                                   cuda_device)
-    geom = spec.geom_array()
+    _, (geom, cur, prev, planes, _, _, _) = _fused_case(
+        cuda_device, (16, 16, 128), 0, 16, (0, 0, 0), 0, 1.0)
     with pytest.raises(ValueError):
         tbf.fused_step(geom, cur.double(), prev.double(), planes)
     with pytest.raises(ValueError):
@@ -80,6 +128,8 @@ def test_fused_step_kernel_rejects_what_it_cannot_take(cuda_device):
                        prev, planes)
     with pytest.raises(ValueError):
         tbf.fused_step(geom, cur, prev, planes, out=cur)
+    with pytest.raises(ValueError, match="overlap"):
+        tbf.fused_step(geom, cur, prev, planes, out=prev)
     with pytest.raises(ValueError):
         tbf.fused_step(geom, cur, prev, planes[:5] + (planes[5].t(),))
 

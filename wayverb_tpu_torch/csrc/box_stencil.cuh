@@ -1,8 +1,8 @@
 // One node of the shoebox leapfrog step: stencil, splices and inner-plane
-// extraction.  The fused step (box_fused_step.cu, kernel B1) runs
-// `stencil_node` per node; the mega chunk (box_mega_chunk.cu, kernels B2 and
-// B6) computes the stencil value its own way and calls `stencil_finish`, so
-// the splice precedence and the extraction are written once.
+// extraction.  The fused step (box_fused_step.cu, kernel B1) and the mega
+// chunk (box_mega_chunk.cu, kernels B2 and B6) each compute the stencil
+// value their own way and call `stencil_finish`, so the splice precedence
+// and the extraction are written once.
 //
 // For the node (x, y, z) (x local; global x = x_off + x):
 //   1. the point-source injection (mode 0 none, 1 set, 2 add): the source
@@ -18,8 +18,9 @@
 //   4. the extraction of the six inner planes (first inside layer of each
 //      wall, the next step's boundary inputs) from the spliced result.
 //
-// Every output element has exactly one writer.  `next` may alias `prev`:
-// each node's prev is read and its next written by the same thread.
+// Every output element has exactly one writer.  B1's `next` overlaps no
+// input (its wrapper refuses an `out` that does); B2 writes next over prev
+// in place, each node's prev read and next write by one thread.
 //
 // The arithmetic keeps the plain version's order (neighbour sum x-, x+,
 // y-, y+, z-, z+, then the halo; an explicitly rounded multiply so the
@@ -33,17 +34,13 @@
 namespace wv {
 
 struct StencilArgs {
-  const float* cur;
-  const float* prev;
-  float* next;
   const float* hlo;       // (Y, Z) halo row at local x = -1, or null
   const float* hhi;       // (Y, Z) halo row at local x = X, or null
   const float* plane[6];  // xlo, xhi (Y, Z); ylo, yhi (X, Z); zlo, zhi (X, Y)
   long long plane_stride[6];  // row stride of each plane, in elements
   float* inner[6];        // same shapes as the planes
   long long inner_stride[6];  // row stride of each inner plane, in elements
-  const float* inj_val;   // (2,): v_now, v_prev; read only when src >= 0
-  long long src;          // local flat index of the source node, or -1
+  const float* inj_val;   // (2,): v_now, v_prev; read only with a source
   int mode;               // 1 set, 2 add
   int X, Y, Z;
   int x_off;              // global x of local row 0
@@ -87,67 +84,34 @@ __device__ __forceinline__ int stencil_splice(const StencilArgs& a, int x,
 // Steps 3 and 4 for the node (x, y, z) whose stencil value is `res`: the
 // splice (plane_at(p, u, v) reads boundary plane p), the store to *next_i,
 // and the extraction (inner_at(p, u, v) points at inner plane p's element).
-// Only the geometry of `a` is read.
-template <class PlaneAt, class InnerAt>
+// Only the geometry of `a` is read.  kZOnly: the caller knows the node lies
+// strictly between the inner planes in x and y (the clamped inner x rows
+// included), so only the z tests can match.
+template <bool kZOnly = false, class PlaneAt, class InnerAt>
 __device__ __forceinline__ void stencil_finish(const StencilArgs& a, int x,
                                                int y, int z, float res,
                                                float* next_i, PlaneAt plane_at,
                                                InnerAt inner_at) {
   int u, v;
-  const int p = stencil_splice(a, x, y, z, &u, &v);
+  int p;
+  if (kZOnly) {
+    p = z == a.ilo2 - 1 ? 4 : (z == a.ihi2 + 1 ? 5 : -1);
+    u = x;
+    v = y;
+  } else {
+    p = stencil_splice(a, x, y, z, &u, &v);
+  }
   if (p >= 0) res = plane_at(p, u, v);
   *next_i = res;
 
-  if (x == a.xin_lo) *inner_at(0, y, z) = res;
-  if (x == a.xin_hi) *inner_at(1, y, z) = res;
-  if (y == a.ilo1) *inner_at(2, x, z) = res;
-  if (y == a.ihi1) *inner_at(3, x, z) = res;
+  if (!kZOnly) {
+    if (x == a.xin_lo) *inner_at(0, y, z) = res;
+    if (x == a.xin_hi) *inner_at(1, y, z) = res;
+    if (y == a.ilo1) *inner_at(2, x, z) = res;
+    if (y == a.ihi1) *inner_at(3, x, z) = res;
+  }
   if (z == a.ilo2) *inner_at(4, x, y) = res;
   if (z == a.ihi2) *inner_at(5, x, y) = res;
-}
-
-__device__ __forceinline__ void stencil_node(const StencilArgs& a, int x,
-                                             int y, int z) {
-  const long long yz_size = (long long)a.Y * a.Z;
-  const long long yz = (long long)y * a.Z + z;
-  const long long i = x * yz_size + yz;
-  const int gx = a.x_off + x;
-
-  float v_now = 0.f, v_prev = 0.f;
-  if (a.src >= 0) {
-    v_now = a.inj_val[0];
-    v_prev = a.inj_val[1];
-  }
-  auto cur_at = [&](long long j) {
-    const float c = a.cur[j];
-    if (j != a.src) return c;
-    return a.mode == 1 ? v_now : c + v_now;
-  };
-
-  const bool inside = gx >= a.ilo0 && gx <= a.ihi0 && y >= a.ilo1 &&
-                      y <= a.ihi1 && z >= a.ilo2 && z <= a.ihi2;
-  float res = 0.f;
-  if (inside) {
-    float acc = 0.f;
-    acc += x > 0 ? cur_at(i - yz_size) : 0.f;
-    acc += x < a.X - 1 ? cur_at(i + yz_size) : 0.f;
-    acc += y > 0 ? cur_at(i - a.Z) : 0.f;
-    acc += y < a.Y - 1 ? cur_at(i + a.Z) : 0.f;
-    acc += z > 0 ? cur_at(i - 1) : 0.f;
-    acc += z < a.Z - 1 ? cur_at(i + 1) : 0.f;
-    if (x == 0 && a.hlo) acc += a.hlo[yz];
-    if (x == a.X - 1 && a.hhi) acc += a.hhi[yz];
-    float p = a.prev[i];
-    if (i == a.src) p = a.mode == 1 ? v_prev : p + v_prev;
-    res = __fmul_rn(1.0f / 3.0f, acc) - p;
-  }
-
-  stencil_finish(
-      a, x, y, z, res, a.next + i,
-      [&](int p, int u, int v) { return stencil_plane_at(a, p, u, v); },
-      [&](int p, int u, int v) {
-        return a.inner[p] + (long long)u * a.inner_stride[p] + v;
-      });
 }
 
 // Fill X..ihi2 and the clamped inner x rows from (X, Y, Z, x_off, ilo0,

@@ -1,7 +1,8 @@
-"""Time the shoebox chunk kernels at the hall: B2 (and B6, its grad mode),
-or with ``--kernel b7`` the chunk's adjoint B7.
+"""Time the shoebox kernels at the hall: the chunk kernel B2 (and B6, its
+grad mode), with ``--kernel b7`` the chunk's adjoint B7, with ``--kernel
+b1`` the fused step B1.
 
-    python -m wayverb_tpu_torch.tools.mega_timing [--kernel b7]
+    python -m wayverb_tpu_torch.tools.mega_timing [--kernel b1|b7]
 
 On the card, at the concert-hall shoebox of ``bench.py`` (224, 224, 256)
 meshed at the engine's rate, with the hall run's hard source at the centre
@@ -14,8 +15,7 @@ and its receiver's taps, the default mode:
 * holds one K = 128 chunk of B2 and of B6 against the plain version
   (``_mega_chunk_plain``) on the same random state, to the bit, and B6's
   outputs against B2's;
-* times B2 and B6 (µs a sub-step: CUDA events over a few chunks), and B1
-  (``fused_step``, whose per-node code the chunk shares) at the same shape;
+* times B2 and B6 (µs a sub-step: CUDA events over a few chunks);
 * profiles one B2 chunk with ``torch.profiler``: the kernels it launched
   (the chunk kernel's own, ``mega_*``, and the wrapper's allocations),
   their count and device time by name, the chunk's span on the device (CUDA
@@ -27,6 +27,16 @@ random cotangents against ``_mega_chunk_bwd_plain``, each of its six
 outputs within 1e-5 of its largest value (the largest error of each
 printed); B7's µs a sub-step, chained chunk to chunk as the backward runs
 them; and one profiled chunk (its kernels, ``*bwd_*``, by name).
+
+``--kernel b1`` builds ``csrc/box_fused_step.cu`` (ptxas's report) and reads
+``box_fused.step_occupancy`` at each shape; holds B1 to the bit against
+``_fused_step_plain`` (``next`` and the six inner planes) at the hall, with
+a hard source at the centre, and at the sharded hall's shard shape (56,
+224, 256), the second of four shards with random halo rows and a source in
+the shard; and times B1 at both shapes with the stream held
+(``device_time_us``: a step takes less time on the card than its wrapper
+takes on the host), beside the wrapper's host µs a call, the plain
+version's µs at the hall and each shape's bound (``tools/roofline.py``).
 
 One JSON line, after the card's name and power limit.  Without a card it
 fails.
@@ -138,18 +148,105 @@ def chunk_us(case, gen, grad=False, reps=5) -> float:
                                         grad=grad), reps)
 
 
-def b1_us(spec, gen, reps=200) -> float:
-    """µs of one B1 step at the shape of ``spec``."""
-    from wayverb_tpu_torch.waveguide.box_fused import _plane_shapes, fused_step
+def device_time_us(fn, reps: int):
+    """(device µs of one ``fn()``, host µs of one call).  A kernel that
+    takes less time on the card than its wrapper takes on the host would,
+    timed by events around a plain loop, give the host's launch rate: a
+    spin kernel (``torch.cuda._sleep``) holds the stream for twice the time
+    the host needs to enqueue ``reps`` calls, and the events then time the
+    kernels back to back."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        fn()
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - t0) / 8
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * reps * host_us * 2000))  # cycles at <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(stop) / reps, host_us
+
+
+def b1_bound(dims, halos: bool):
+    """(µs, "bytes" or "operations") of one B1 step on a field of ``dims``:
+    cur, prev and the six planes in, next and the six inner planes out, and
+    with halos the two halo rows in; 8 operations a node."""
+    from wayverb_tpu_torch.tools import roofline
+    X, Y, Z = dims
+    n = X * Y * Z
+    natural = 2 * (Y * Z + X * Z + X * Y)
+    return roofline.bound_us(4 * (3 * n + 2 * natural + 2 * Y * Z * halos),
+                             8 * n)
+
+
+def b1_step_case(spec, x_offset: int, rows: int, gen, halos: bool):
+    """Random inputs of one B1 step on ``rows`` x rows of ``spec`` from
+    local row 0 = global row ``x_offset``, with a hard source at the
+    centre of that block: (geom, cur, prev, planes, inj_idx, inj_val,
+    halos)."""
+    from wayverb_tpu_torch.waveguide.box_fused import _plane_shapes
+    _, Y, Z = spec.dims
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
-    cur, prev = rnd(*spec.dims), rnd(*spec.dims)
-    planes = tuple(rnd(*s) for s in _plane_shapes(*spec.dims))
-    inj = tuple(d // 2 for d in spec.dims) + (1,)
-    inj_val = rnd(2)
+    cur, prev = rnd(rows, Y, Z), rnd(rows, Y, Z)
+    planes = tuple(rnd(*s) for s in _plane_shapes(rows, Y, Z))
+    hal = (rnd(1, Y, Z), rnd(1, Y, Z)) if halos else None
+    src = (x_offset + rows // 2, Y // 2, Z // 2, 1)
+    return (spec.geom_array(x_offset=x_offset), cur, prev, planes, src,
+            rnd(2), hal)
+
+
+def b1_shape(spec, x_offset, rows, gen, halos, plain_reps=0) -> dict:
+    """B1 on one shape: to the bit against the plain version, its device
+    and host µs a step, the plain version's µs (when ``plain_reps``), its
+    bound and what the card makes of the kernel there."""
+    from wayverb_tpu_torch.waveguide.box_fused import (_fused_step_plain,
+                                                       fused_step,
+                                                       step_occupancy)
+    args = b1_step_case(spec, x_offset, rows, gen, halos)
+    geom, cur, prev, planes, src, inj_val, hal = args
+    got = fused_step(*args)
+    want = _fused_step_plain(*args)
+    torch.cuda.synchronize()
+    equal = all(bool(torch.equal(g, w))
+                for g, w in zip((got[0], *got[1]), (want[0], *want[1])))
+    err = max(float((g - w).abs().max())
+              for g, w in zip((got[0], *got[1]), (want[0], *want[1])))
+    del got, want
     out = torch.empty_like(cur)
-    geom = spec.geom_array()
-    return events_us(lambda: fused_step(geom, cur, prev, planes, inj,
-                                        inj_val, out=out), reps)
+    us, host_us = device_time_us(lambda: fused_step(
+        geom, cur, prev, planes, src, inj_val, hal, out=out), 200)
+    dims = tuple(cur.shape)
+    bound = b1_bound(dims, halos)
+    row = {"shape": list(dims), "x_offset": x_offset, "halos": halos,
+           "equal_plain": equal, "max_abs_err": err, "us_per_step": us,
+           "host_us_per_call": host_us, "bound_us": bound[0],
+           "bound_by": bound[1], "time_over_bound": us / bound[0],
+           "occupancy": step_occupancy(dims=dims)}
+    if plain_reps:
+        row["plain_us_per_step"] = events_us(lambda: _fused_step_plain(
+            geom, cur, prev, planes, src, inj_val, hal), plain_reps)
+    return row
+
+
+def main_b1():
+    """The ``--kernel b1`` mode: one JSON line."""
+    t0 = time.perf_counter()
+    ptxas = ptxas_lines("box_fused_step")
+    spec = hall_case()[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    X = spec.dims[0]
+    hall = b1_shape(spec, 0, X, gen, False, plain_reps=10)
+    shard = b1_shape(spec, X // 4, X // 4, gen, True)
+    print(json.dumps({"ptxas": ptxas, "hall": hall, "shard": shard,
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    if not (hall["equal_plain"] and shard["equal_plain"]):
+        raise SystemExit("mega_timing: B1 differs from its plain version")
 
 
 def profile(run, marker) -> dict:
@@ -263,15 +360,17 @@ def main_b7():
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m wayverb_tpu_torch.tools.mega_timing",
-        description="Time the chunk kernels B2/B6 (default) or B7 at the "
-                    "hall.")
-    p.add_argument("--kernel", choices=("b2", "b7"), default="b2")
+        description="Time the chunk kernels B2/B6 (default), B7 or the "
+                    "fused step B1 at the hall.")
+    p.add_argument("--kernel", choices=("b1", "b2", "b7"), default="b2")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mega_timing: needs a CUDA device")
     print(card_name_and_power_limit(), flush=True)
     if args.kernel == "b7":
         return main_b7()
+    if args.kernel == "b1":
+        return main_b1()
     from wayverb_tpu_torch.waveguide.box_mega import chunk_occupancy
     t0 = time.perf_counter()
     ptxas = ptxas_lines()
@@ -287,13 +386,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     b2 = chunk_us(case, gen)
     b6 = chunk_us(case, gen, grad=True)
-    b1 = b1_us(case[0], gen)
     prof = profile_chunk(case, gen)
     print(json.dumps({
         "shape": list(case[0].dims), "K": CHUNK, "ptxas": ptxas,
         "occupancy": occupancy,
         "b2_us_per_substep": b2 / CHUNK, "b6_us_per_substep": b6 / CHUNK,
-        "b1_us_per_step": b1,
         "b2_equal_plain": b2_equal, "b2_max_abs_err": b2_err,
         "b6_equal_plain": b6_equal, "b6_max_abs_err": b6_err,
         "b6_forward_equal_b2": b6_same, "profile": prof,

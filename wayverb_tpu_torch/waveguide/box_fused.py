@@ -376,6 +376,24 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+def step_occupancy(device="cuda", dims=(224, 224, 256)) -> dict:
+    """What the card makes of the step kernel: registers a thread, local
+    memory (spills) a thread in bytes, CTAs resident on one SM, threads a
+    CTA, and the CTAs one step launches on a field of ``dims``."""
+    lib = _kernel_lib()
+    fn = lib.wv_box_fused_step_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = fn((ctypes.c_int * 3)(*dims), out)
+    if err != 0:
+        raise RuntimeError("wv_box_fused_step_occupancy failed: "
+                           + lib.wv_cuda_error_string(err).decode())
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads",
+                     "grid"), out))
+
+
 def _check_field(name, t, ref):
     if t.device != ref.device or t.dtype != torch.float32 \
             or not t.is_contiguous():
@@ -408,9 +426,8 @@ def _fused_step_cuda(geom, cur, prev, planes, inj_idx, inj_val, halos, out):
                 raise ValueError("fused_step: halos must be (1, Y, Z)")
     nxt = torch.empty_like(cur) if out is None else out
     _check_field("out", nxt, cur)
-    if nxt.shape != cur.shape or nxt.data_ptr() == cur.data_ptr():
-        raise ValueError("fused_step: out must be a separate buffer of "
-                         "cur's shape")
+    if nxt.shape != cur.shape:
+        raise ValueError("fused_step: out must have cur's shape")
     sx, sy, sz, mode = inj_idx
     src = -1
     if mode > 0:
@@ -440,9 +457,32 @@ def _fused_step_cuda(geom, cur, prev, planes, inj_idx, inj_val, halos, out):
     return nxt, inner
 
 
+def _span(t):
+    """[first, last) byte addresses of the elements of ``t``."""
+    if t.numel() == 0:
+        return (0, 0)
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return (t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size())
+
+
+def _refuse_overlap(out, inputs):
+    """Raise if ``out`` shares a byte with one of ``inputs``: the kernel
+    writes ``next`` through a restrict pointer, while it still reads
+    them."""
+    lo, hi = _span(out)
+    for t in inputs:
+        if t is not None and t.device == out.device:
+            a, b = _span(t)
+            if a < hi and lo < b:
+                raise ValueError("fused_step: out must not overlap cur, "
+                                 "prev, a plane, a halo or inj_val")
+
+
 def _fused_step_forward(geom, cur, prev, planes, inj_idx, inj_val, halos,
                         out):
     """The step without autograd: kernel on CUDA tensors, plain on CPU."""
+    if out is not None:
+        _refuse_overlap(out, (cur, prev, *planes, *(halos or ()), inj_val))
     if cur.is_cuda:
         return _fused_step_cuda(geom, cur, prev, planes, inj_idx, inj_val,
                                 halos, out)
@@ -471,6 +511,8 @@ def fused_step(geom, cur, prev, planes, inj_idx=NO_INJECT[0], inj_val=None,
     ``out``: optional preallocated buffer for ``next``.  Unlike the
     reference's pure arrays, the step then writes into it in place, so a
     time loop can rotate three field buffers and allocate no field per step.
+    ``out`` must not overlap any input (cur, prev, a plane, a halo,
+    ``inj_val``): a ``ValueError`` otherwise.
 
     CPU tensors run the plain version ``_fused_step_plain``; CUDA tensors
     launch the CUDA kernel (counted in ``fused_step.launches``) or raise.
