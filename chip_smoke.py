@@ -115,12 +115,17 @@ Drives the port through its public entry points on the card and fails
     shard count, (344, 139, 259); B10 and B11 (the weighted step of one
     x-shard with its halo rows, and its adjoint with the halo cotangents)
     against their plain versions at the shard shape (86, 139, 259), at one
-    and two rows and at odd (Y, Z), with non-zero halos, and their times;
+    and two rows and at odd (Y, Z), with non-zero halos, B11 to the bit
+    (also at 1e38 with ±inf and NaN, all −0, Y·Z < 32, one and two rows, on
+    the hall's own shard code), and their times; B11's registers, local
+    bytes, CTAs an SM and the share of its warps on the bare path;
 30. that hall through ``run_waveguide_general_sharded``, 1000 steps (4000
     B10 launches), against the single-device B8 run on the same mesh, with
     the wall ms/step of both, the peak memory and a profiled window;
 31. the sharded general gradient, 64 steps, B11 in the backward, against
-    the single-device gradient;
+    the single-device gradient; the device time of the forward, the
+    backward and B11 in one more gradient under the profiler, beside the
+    walls;
 32. ``Engine(device_mesh=…).run`` + ``render`` against a single-device
     engine on the same mesh, same draws, with the seconds of each phase;
 33. the shoebox hall (224, 224, 256) through ``run_waveguide_box_sharded``
@@ -2626,26 +2631,46 @@ def _device_time_us(torch, fn, reps):
 
 
 def shard_kernel_bounds(xl, Y, Z):
-    """Bounds per launch at a shard of (xl, Y, Z).  B10: B8's cur, prev,
-    int32 code in and out out, plus the two halo rows in; 15 operations a
-    node.  B11: B9's g, code in and gcur out, plus the two halo rows out; 13
+    """(bound_ms, bound_by) per launch of B10 and B11 at a shard of (xl, Y,
+    Z), from ``mesh_timing.shard_bounds``: B10 reads B8's cur, prev and
+    int32 code plus the two halo rows and writes out, 15 operations a node;
+    B11 reads B9's g and code and writes gcur plus the two halo rows, 13
     operations a node and two multiplies per halo element."""
-    n, row = xl * Y * Z, Y * Z
-    return {"b10": _bound(16 * n + 8 * row, 15 * n),
-            "b11": _bound(12 * n + 8 * row, 13 * n + 4 * row)}
+    from wayverb_tpu_torch.tools.mesh_timing import shard_bounds
+    return {k: (us / 1e3, by)
+            for k, (us, by) in shard_bounds((xl, Y, Z)).items()}
+
+
+def _b11_case_g(torch, what, dims, rnd):
+    """g of a B11 case: random, at 1e38 with ±inf and NaN sprinkled in, or
+    all −0."""
+    if "-0" in what:
+        return torch.full(dims, -0.0, device="cuda")
+    g = rnd(*dims)
+    if "1e38" in what:
+        g = g * 1e38
+        flat = g.view(-1)
+        flat[::7], flat[::11], flat[::13] = (float("inf"), float("-inf"),
+                                             float("nan"))
+    return g
 
 
 def phase_shard_kernels(torch, structure, card):
     """B10 and B11 against their plain versions on the card, random inputs
     with non-zero halos: the columns hall's shard shape, one and two rows,
-    odd (Y, Z), and a shard of the hall's own weight code; then their times
-    at the shard shape."""
+    odd (Y, Z), and a shard of the hall's own weight code; B11 to the bit
+    (``mesh_timing.bits_equal``), and on the hall's shard code also at 1e38
+    with ±inf and NaN, all −0, and its slices of Y·Z < 32 and of one and
+    two rows; then their times at the shard shape and B11's registers,
+    local bytes and CTAs an SM."""
+    from wayverb_tpu_torch.tools.mesh_timing import bare_warps, bits_equal
     from wayverb_tpu_torch.waveguide import stencil_kernels as sk
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     X, Y, Z = structure.weight_code.shape
     xl = X // SHARDS
     rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
                                  device="cuda")
+    hall = structure.weight_code[xl:2 * xl].contiguous()
     worst = [0.0, 0.0]
     cases = [((xl, Y, Z), "the columns hall's shard shape"),
              ((1, Y, Z), "one row"), ((2, Y, Z), "two rows"),
@@ -2654,7 +2679,7 @@ def phase_shard_kernels(torch, structure, card):
     for dims, what in cases + [((xl, Y, Z), "a shard of the hall's own "
                                 "weight code")]:
         if what.startswith("a shard"):
-            code = structure.weight_code[xl:2 * xl].contiguous()
+            code = hall
         else:
             code = torch.randint(0, 1 << 13, dims, generator=gen,
                                  device="cuda", dtype=torch.int32)
@@ -2671,14 +2696,35 @@ def phase_shard_kernels(torch, structure, card):
             err = max(float((a - b).abs().max()) for a, b in outs)
             peak = max(float(b.abs().max()) for _, b in outs)
             worst[i] = max(worst[i], err)
+            equal = all(bits_equal(a, b) for a, b in outs)
             print(f"[29 sharded] {name} {dims} ({what}): max |kernel - "
                   f"plain| = {err:.3e}, peak {peak:.3e} (bound {MESH_REL:g} "
-                  "x peak)")
-            if not (err <= MESH_REL * peak and peak > 0):
+                  f"x peak{'; B11 to the bit' if i else ''}): "
+                  f"bit-equal {equal}")
+            if not (err <= MESH_REL * peak and peak > 0) \
+                    or (i == 1 and not equal):
                 _fail(f"{name} disagrees with its plain version: {what}")
 
+    more = [(hall, "the hall's shard code, g at 1e38 with inf and NaN"),
+            (hall, "the hall's shard code, g all -0"),
+            (hall[:4, 60:63, 100:105].contiguous(),
+             "a slice of it with Y*Z < 32"),
+            (hall[40:41].contiguous(), "one row of it"),
+            (hall[40:42].contiguous(), "two rows of it")]
+    for code, what in more:
+        dims = tuple(code.shape)
+        g = _b11_case_g(torch, what, dims, rnd)
+        got = sk.weighted_step_sharded_bwd(g, code)
+        want = sk._weighted_step_sharded_bwd_plain(g, code)
+        torch.cuda.synchronize()
+        equal = all(bits_equal(a, b) for a, b in zip(
+            (got[0], *got[1]), (want[0], *want[1])))
+        print(f"[29 sharded] B11 {dims} ({what}): bit-equal {equal}")
+        if not equal:
+            _fail(f"B11 differs from its plain version: {what}")
+
     dims = (xl, Y, Z)
-    code = structure.weight_code[xl:2 * xl].contiguous()
+    code = hall
     cur, prev, g = rnd(*dims), rnd(*dims), rnd(*dims)
     halos = (rnd(1, Y, Z), rnd(1, Y, Z))
     out = torch.empty_like(cur)
@@ -2698,12 +2744,20 @@ def phase_shard_kernels(torch, structure, card):
               f"device ({k_host:.2f} us a call on the host), plain version "
               f"{p_us:.2f} us, bound {1e3 * bounds[name][0]:.2f} us by "
               f"{bounds[name][1]} [{card}]")
+    occ = sk.shard_bwd_occupancy(dims=dims)
+    share = float(bare_warps(code).float().mean())
+    print(f"[29 sharded] B11: {share:.4f} of its warps on the hall's shard "
+          f"code take the bare path; {occ['registers']} registers, "
+          f"{occ['local_bytes']} B local, {occ['ctas_per_sm']} CTAs of "
+          f"{occ['threads']} an SM, {occ['grid']} CTAs a launch [{card}]")
     print(json.dumps({"phase": "29 sharded kernels", "shape": list(dims),
                       "max_abs_err": {"b10": worst[0], "b11": worst[1]},
                       "ms": {k: v[0] / 1e3 for k, v in times.items()},
                       "plain_ms": {k: v[1] / 1e3 for k, v in times.items()},
-                      "bound_ms": {k: v[0] for k, v in bounds.items()}}))
-    return worst, times, bounds
+                      "bound_ms": {k: v[0] for k, v in bounds.items()},
+                      "b11_bare_warp_share": share,
+                      "b11_occupancy": occ}))
+    return worst, times, bounds, {**occ, "bare_warp_share": share}
 
 
 def phase_general_sharded(torch, mesh, card):
@@ -2773,6 +2827,48 @@ def phase_general_sharded(torch, mesh, card):
     return result
 
 
+def _device_us(prof, match=""):
+    """Device µs and launches of the profiled kernels whose name holds
+    ``match`` (all with ""); (None, 0) when the profiler saw no device
+    time."""
+    us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") \
+                and match in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += t if t is not None else getattr(e, "self_cuda_time_total",
+                                                  0.0)
+            launches += e.count
+    return (us if us > 0 else None), launches
+
+
+def _profiled_gradient(torch, run, mesh):
+    """One more sharded gradient (``run(structure)``), its forward and its
+    backward each under torch.profiler: their walls with the profiler on,
+    the device µs of every kernel in each, and B11's device µs and
+    launches in the backward (device times None when the profiler saw no
+    device time)."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    coef_b = mesh.structure.coef_b.detach().clone().requires_grad_(True)
+    structure = dataclasses.replace(mesh.structure, coef_b=coef_b)
+    out = {}
+    torch.cuda.synchronize()
+    for part in ("forward", "backward"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if part == "forward":
+                loss = torch.sum(run(structure)["outputs"] ** 2)
+            else:
+                loss.backward()
+            torch.cuda.synchronize()
+            out[f"{part}_s"] = time.perf_counter() - t0
+        out[f"{part}_device_us"] = _device_us(prof)[0]
+    out["b11_device_us"], out["b11_launches"] = _device_us(prof, "haloed_bwd")
+    return out
+
+
 def phase_general_sharded_gradient(torch, mesh, card):
     """d(Σ taps²)/d coef_b through 4 shards, 64 steps, the source 3 nodes
     from a column, against the single-device gradient on the same mesh."""
@@ -2826,11 +2922,28 @@ def phase_general_sharded_gradient(torch, mesh, card):
             <= SHARDS * (n - 1)
             and counts["mesh_weighted_step_haloed"] == SHARDS * n):
         _fail("the sharded general gradient failed its checks")
+    prof = _profiled_gradient(torch, sharded, mesh)
+    b11_us, b11_n = prof["b11_device_us"], prof["b11_launches"]
+    if b11_us is None:
+        print("[31 sharded grad] B11's device time not measured: the "
+              "profiler saw no device activity")
+    else:
+        print(f"[31 sharded grad] one more gradient under the profiler: "
+              f"forward {prof['forward_s']:.4f} s with "
+              f"{prof['forward_device_us']:.1f} us on the device, backward "
+              f"{prof['backward_s']:.4f} s with "
+              f"{prof['backward_device_us']:.1f} us on the device, of which "
+              f"B11 {b11_us:.1f} us in {b11_n} launches "
+              f"({b11_us / max(b11_n, 1):.2f} us a launch); walls with the "
+              f"profiler on (unprofiled "
+              f"{t_fwd:.4f} s, {t_bwd:.4f} s) [{card}]")
     result = {"steps": n, "forward_s": t_fwd, "backward_s": t_bwd,
               "single_device_forward_s": t_fwd1,
               "single_device_backward_s": t_bwd1,
               "max_rel_err_vs_single": err / scale,
-              "peak_memory_bytes": peak_mem, "launches": counts}
+              "peak_memory_bytes": peak_mem, "launches": counts,
+              "b11_device_us": b11_us, "b11_profiled_launches": b11_n,
+              "profiled": prof}
     print(json.dumps({"phase": "31 sharded gradient", **result}))
     return counts, result
 
@@ -3264,7 +3377,7 @@ def main():
 
     sharded_engine, sharded_setup = _sharded_columns_engine(torch, card)
     shard_mesh = sharded_engine.mesh
-    shard_errs, shard_times, shard_bounds = phase_shard_kernels(
+    shard_errs, shard_times, shard_bounds, b11_occ = phase_shard_kernels(
         torch, shard_mesh.structure, card)
     sharded_general = phase_general_sharded(torch, shard_mesh, card)
     shard_grad_counts, sharded_grad = phase_general_sharded_gradient(
@@ -3459,11 +3572,18 @@ def main():
         "library_ms": None,
         "ms_is_per": "launch (one shard's step)",
         "launches_on": on,
-    } for name, key, line, err, on in (
+        **extra,
+    } for name, key, line, err, on, extra in (
         ("mesh_weighted_step_haloed", "b10", 366, shard_errs[0],
-         f"Engine(device_mesh={SHARDS} x cuda:0).run on the columns hall"),
+         f"Engine(device_mesh={SHARDS} x cuda:0).run on the columns hall",
+         {}),
         ("mesh_weighted_step_haloed_bwd", "b11", 396, shard_errs[1],
-         "the columns hall's 64-step gradient on 4 shards"))), {
+         "the columns hall's 64-step gradient on 4 shards",
+         {**{k: b11_occ[k] for k in ("registers", "local_bytes",
+                                     "ctas_per_sm", "bare_warp_share")},
+          "backward_device_ms": (sharded_grad["b11_device_us"] / 1e3
+                                 if sharded_grad["b11_device_us"]
+                                 is not None else None)}))), {
         "name": f"probe_resident (K={PROBE_LINE[1]})",
         "route": "cuda",
         "source": "wayverb_tpu_torch/csrc/probe_resident.cu",

@@ -341,3 +341,118 @@ def test_run_general_sharded_flags_nan(meshes):
         cpu_mesh(2), tm.structure, tm.descriptor.dimensions,
         dataclasses.replace(source, signal=sig), receiver, 8)
     assert not bool(out["stable"])
+
+
+# ---------------------------------------------------------------------------
+# B11's order of work (csrc/mesh_adjoint.cuh): warps of 32 (y, z) nodes, a
+# bare path where every neighbour weighs exactly 1
+
+@pytest.fixture(scope="module")
+def columns_shard_code():
+    """The second of four x-shards of the columns hall's weight code at a
+    400 Hz cutoff, x aligned to 4 (as the card tests build it): walls,
+    columns and a bare interior, (24, 41, 71)."""
+    from wayverb_tpu_torch.tools.mesh_timing import columns_shard_code
+    return columns_shard_code("cpu", cutoff=400.0)
+
+
+def _loop_bare_warps(code):
+    """B11's bare warps written out with numpy and loops: node n is bare
+    when each neighbour n + e_d lies in the grid and its code's twelve
+    weight bits are 0x3F (all six weights exactly 1); warp s of row x, the
+    nodes p = 32·s … 32·s + 31 of the flattened (y, z) plane, is bare when
+    all 32 exist and are bare."""
+    c = code.numpy().astype(np.int64)
+    X, Y, Z = c.shape
+    one = np.pad((c & 0xFFF) == 0x3F, 1)      # False beyond the grid
+    steps = [(-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1),
+             (0, 0, 1)]
+    nwarps = -(-Y * Z // 32)
+    want = np.zeros((X, nwarps), bool)
+    for x in range(X):
+        for s in range(nwarps):
+            ok = True
+            for p in range(32 * s, 32 * s + 32):
+                y, z = divmod(p, Z)
+                ok &= p < Y * Z and all(
+                    one[1 + x + dx, 1 + y + dy, 1 + z + dz]
+                    for dx, dy, dz in steps)
+            want[x, s] = ok
+    return torch.from_numpy(want)
+
+
+def _kernel_order(g, code):
+    """B11 in plain torch, in the kernel's order: a node of a bare warp
+    (``mesh_timing.bare_warps``) sums its six neighbours' g from +0 with no
+    weight, every other node adds w_opp(dd)·g, dd = 0..5; then λ²·acc.  The
+    halo rows (λ²·w)·g of rows 0 and X − 1."""
+    from wayverb_tpu_torch.tools.mesh_timing import bare_warps
+    X, Y, Z = g.shape
+    general = torch.zeros_like(g)
+    bare_sum = torch.zeros_like(g)
+    for dd in range(6):
+        gn = tsk._shifted(g, dd)
+        general = general + tsk._shifted(
+            tsk._weight(code, tsk._OPPOSITE[dd], g.dtype), dd) * gn
+        bare_sum = bare_sum + gn
+    node_bare = bare_warps(code)[:, torch.arange(Y * Z) // 32]
+    gcur = tsk.COURANT_SQ * torch.where(node_bare.reshape(X, Y, Z),
+                                        bare_sum, general)
+    ghlo = tsk.COURANT_SQ * tsk._weight(code[:1], 0, g.dtype) * g[:1]
+    ghhi = tsk.COURANT_SQ * tsk._weight(code[-1:], 1, g.dtype) * g[-1:]
+    return gcur, (ghlo, ghhi)
+
+
+def _order_codes(shard):
+    """(name, code): the columns shard, slices of it (one and two rows,
+    Y·Z < 32, odd Y), an interior block with a weight-2 and a weight-0
+    neighbour in warps that would be bare without them (warp 9 of rows 4
+    and 2), and random codes."""
+    rng = np.random.default_rng(40)
+    block = torch.full((6, 9, 70), 0x103F, dtype=torch.int32)
+    block[3, 4, 20] |= 1 << 7          # weight 2 toward +x, (4, 4, 20)
+    block[2, 5, 10] &= ~(1 << 2)       # weight 0 toward -y, (2, 4, 10)
+    rand = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 1 << 13, size=s).astype(np.int32))
+    return [("columns shard", shard), ("one row", shard[5:6].contiguous()),
+            ("two rows", shard[5:7].contiguous()),
+            ("odd Y", shard[:, :33].contiguous()),
+            ("Y*Z < 32", shard[:4, 10:13, 30:35].contiguous()),
+            ("interior block", block), ("random", rand(5, 37, 53)),
+            ("random one row", rand(1, 7, 9))]
+
+
+def test_adjoint_bare_warps_match_a_loop_classification(columns_shard_code):
+    """``mesh_timing.bare_warps`` against the classification written out
+    with loops, on the real shard, its slices and synthetic codes; the
+    shard has bare and general warps."""
+    from wayverb_tpu_torch.tools.mesh_timing import bare_warps
+    for name, code in _order_codes(columns_shard_code):
+        assert torch.equal(bare_warps(code), _loop_bare_warps(code)), name
+    share = float(bare_warps(columns_shard_code).float().mean())
+    assert 0.05 < share < 0.95
+
+
+def test_adjoint_kernel_order_equals_plain_to_the_bit(columns_shard_code):
+    """The kernel's order and bare classification (``_kernel_order``) equal
+    ``_weighted_step_sharded_bwd_plain`` to the bit (NaN for NaN, −0 apart
+    from +0): random g, g at 1e38 with ±inf and NaN (sums that overflow,
+    0·inf at weight-0 neighbours), and all −0; on every code of
+    ``_order_codes``."""
+    from wayverb_tpu_torch.tools.mesh_timing import bits_equal
+    rng = np.random.default_rng(41)
+    for name, code in _order_codes(columns_shard_code):
+        shape = tuple(code.shape)
+        with np.errstate(over="ignore"):
+            big = rng.normal(size=shape).astype(np.float32) * np.float32(1e38)
+        flat = big.reshape(-1)
+        flat[::7], flat[::11], flat[::13] = np.inf, -np.inf, np.nan
+        for what, g in (
+                ("random", rng.normal(size=shape).astype(np.float32)),
+                ("1e38 inf nan", big),
+                ("-0", np.full(shape, -0.0, np.float32))):
+            g = torch.from_numpy(g)
+            want = tsk._weighted_step_sharded_bwd_plain(g, code)
+            got = _kernel_order(g, code)
+            for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+                assert bits_equal(a, b), (name, what)

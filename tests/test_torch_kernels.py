@@ -1023,22 +1023,162 @@ def test_weighted_step_sharded_kernel_matches_plain(cuda_device, dims):
     assert float((buf - want).abs().max()) <= ATOL
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dims", SHARD_DIMS)
-def test_weighted_step_sharded_bwd_kernel_matches_plain(cuda_device, dims):
-    """B11: the cur cotangent and both halo cotangents, one and two rows
-    among the shapes (at one row a thread writes both halo rows)."""
+def _b11_bit_equal(g, code):
+    """B11 (one launch) against its plain version, to the bit in ĝcur and
+    both halo cotangents (``bits_equal``: NaN for NaN, −0 apart from +0)."""
+    from wayverb_tpu_torch.tools.mesh_timing import bits_equal
     from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
-    g, _, code, _ = _shard_case(dims, cuda_device, 5)
     before = tsk.weighted_step_sharded_bwd.launches
     gcur, ghalos = tsk.weighted_step_sharded_bwd(g, code)
     assert tsk.weighted_step_sharded_bwd.launches == before + 1
     want_cur, want_halos = tsk._weighted_step_sharded_bwd_plain(g, code)
     torch.cuda.synchronize()
-    assert float((gcur - want_cur).abs().max()) <= ATOL
+    assert bits_equal(gcur, want_cur)
     for got, want in zip(ghalos, want_halos):
-        assert got.shape == (1, *dims[1:])
-        assert float((got - want).abs().max()) <= ATOL
+        assert got.shape == (1, *g.shape[1:])
+        assert bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", SHARD_DIMS)
+def test_weighted_step_sharded_bwd_kernel_matches_plain(cuda_device, dims):
+    """B11: the cur cotangent and both halo cotangents, one and two rows
+    among the shapes (at one row a thread writes both halo rows), to the
+    bit."""
+    g, _, code, _ = _shard_case(dims, cuda_device, 5)
+    _b11_bit_equal(g, code)
+
+
+@pytest.fixture(scope="module")
+def columns_shard_code():
+    """The second of four x-shards of the small columns hall's weight code
+    (400 Hz, x aligned to 4, as ``test_general_sharded_on_the_card_equals_
+    single`` builds it), (24, 41, 71): random codes never make a warp
+    bare, this one does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from wayverb_tpu_torch.tools.mesh_timing import columns_shard_code
+    return columns_shard_code("cuda", cutoff=400.0)
+
+
+def _b11_case_g(case, shape, gen):
+    g = torch.randn(*shape, generator=gen, device="cuda")
+    if case == "1e38 inf nan":
+        g = g * 1e38
+        flat = g.view(-1)
+        flat[::7], flat[::11], flat[::13] = (float("inf"), float("-inf"),
+                                             float("nan"))
+    elif case == "all -0":
+        g = torch.full(shape, -0.0, device="cuda")
+    return g
+
+
+B11_CASES = [("columns shard", None), ("1e38 inf nan", None),
+             ("all -0", None), ("Y*Z < 32", (slice(0, 4), slice(10, 13),
+                                             slice(30, 35))),
+             ("one row", (slice(5, 6),)), ("two rows", (slice(5, 7),)),
+             ("odd Y", (slice(None), slice(0, 33)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,cut", B11_CASES, ids=[c for c, _ in B11_CASES])
+def test_weighted_step_sharded_bwd_kernel_cases(cuda_device,
+                                                columns_shard_code, case,
+                                                cut):
+    """B11 to the bit on a shard of a real mesh's weight code, where bare
+    warps meet walls and columns: random g, g at 1e38 with ±inf and NaN,
+    all −0, and slices of the shard (Y·Z < 32, X = 1 and 2, odd Y)."""
+    from wayverb_tpu_torch.tools.mesh_timing import bare_warps
+    code = columns_shard_code
+    if cut is not None:
+        code = code[cut].contiguous()
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    g = _b11_case_g(case, tuple(code.shape), gen)
+    if case == "columns shard":
+        assert 0 < int(bare_warps(code).sum()) < bare_warps(code).numel()
+    _b11_bit_equal(g, code)
+
+
+@pytest.mark.cuda
+def test_weighted_step_sharded_bwd_occupancy(cuda_device):
+    """What the card makes of B11: no local memory, at most 32 registers
+    (its launch bounds: 8 CTAs of 256 an SM), and CTAs x threads x 4 rows
+    a thread cover the shard."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    dims = (86, 139, 259)
+    occ = tsk.shard_bwd_occupancy(cuda_device, dims)
+    assert occ["local_bytes"] == 0, occ
+    assert 0 < occ["registers"] <= 32, occ
+    assert occ["ctas_per_sm"] >= 8, occ
+    assert occ["grid"] * occ["threads"] * 4 >= 86 * 139 * 259, occ
+
+
+@pytest.mark.cuda
+def test_weighted_step_sharded_bwd_follows_a_changed_code(
+        cuda_device, columns_shard_code):
+    """Each launch decides its bare warps from the code it is given: with
+    a neighbour of weight 2 and one of weight 0 put into two bare warps,
+    those warps leave the bare path and B11 equals the plain version of
+    the changed code to the bit."""
+    from wayverb_tpu_torch.tools.mesh_timing import bare_warps
+    code = columns_shard_code.clone()
+    Z = code.shape[2]
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    g = torch.randn(*code.shape, generator=gen, device="cuda")
+    _b11_bit_equal(g, code)
+    marked = bare_warps(code).nonzero()
+    assert len(marked) > 2
+    (x1, s1), (x2, s2) = marked[len(marked) // 3], marked[2 * len(marked) // 3]
+    # node p1 of warp (x1, s1) gets weight 2 from its -x neighbour; node p2
+    # of warp (x2, s2) weight 0 from its +y neighbour
+    p1, p2 = 32 * int(s1) + 5, 32 * int(s2) + 17
+    code[int(x1) - 1, p1 // Z, p1 % Z] |= 1 << 7
+    code[int(x2), p2 // Z + 1, p2 % Z] &= ~((1 << 2) | (1 << 8))
+    after = bare_warps(code)
+    assert not after[x1, s1] and not after[x2, s2]
+    _b11_bit_equal(g, code)
+
+
+@pytest.mark.cuda
+def test_general_sharded_gradient_follows_a_changed_code(cuda_device):
+    """The sharded gradient follows the weight code of the structure it
+    runs: with a run of interior nodes given weight 2 toward +x (another
+    weight code, the same boundary tables) it follows the single-device
+    gradient of the changed structure, as it follows the original's,
+    within 1e-4 of the largest component."""
+    from wayverb_tpu_torch.parallel import general_sharded as tgs
+    from wayverb_tpu_torch.parallel.sharding import make_device_mesh
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    fs = 400.0 / (0.25 * 0.6)
+    mesh = wgrun.compute_mesh(procedural_hall(2, 4, 1)[0],
+                              np.full((1, 8), 0.1),
+                              grid_spacing(340.0, 1.0 / fs), fs,
+                              align=(4, 1, 1), device=cuda_device)
+    dims = mesh.descriptor.dimensions
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, (6.4, 4.0, 8.97), (6.9, 4.0, 8.97), 47.5 / fs)
+    code = mesh.structure.weight_code.clone()
+    sx, rest = divmod(int(source.node_idx), dims[1] * dims[2])
+    row = code[sx + 2, rest // dims[2]]     # two rows from the source
+    row[row == 0x103F] |= 1 << 7
+    changed = dataclasses.replace(mesh.structure, weight_code=code)
+    devmesh = make_device_mesh(4, devices=["cuda:0"] * 4)
+    grads = []
+    for structure in (mesh.structure, changed):
+        pair = []
+        for run in (lambda s: tgs.run_waveguide_general_sharded(
+                        devmesh, s, dims, source, receiver, n),
+                    lambda s: wgrun.run_waveguide(s, dims, source, receiver,
+                                                  n)):
+            coef_b = structure.coef_b.clone().requires_grad_(True)
+            out = run(dataclasses.replace(structure, coef_b=coef_b))
+            torch.sum(out["outputs"][1] ** 2).backward()
+            pair.append(coef_b.grad)
+        scale = float(pair[1].abs().max())
+        assert scale > 0
+        assert float((pair[0] - pair[1]).abs().max()) <= GRAD_REL * scale
+        grads.append(pair[0])
+    assert not torch.equal(grads[0], grads[1])
 
 
 @pytest.mark.cuda

@@ -1,0 +1,79 @@
+"""The general-mesh timing tool (``python -m
+wayverb_tpu_torch.tools.mesh_timing``) on the CPU: its bounds, its
+comparison to the bit and its arguments.  It times only on the card.  No
+JAX, no hall-sized mesh."""
+
+from unittest import mock
+
+import pytest
+import torch
+
+from wayverb_tpu_torch.tools import mesh_timing as mt
+from wayverb_tpu_torch.tools import roofline
+
+
+def test_shard_bounds_at_the_columns_hall_shard():
+    """B11 at (86, 139, 259): g and the code in, ĝcur out (12 B a node)
+    and the two halo rows out, 11.18 µs by bytes at 3.35 TB/s; B10 16 B a
+    node and the two halo rows in, 14.87 µs."""
+    b = mt.shard_bounds((86, 139, 259))
+    n, row = 86 * 139 * 259, 139 * 259
+    assert b["b11"] == roofline.bound_us(12 * n + 8 * row, 13 * n + 4 * row)
+    assert b["b11"][1] == "bytes"
+    assert b["b11"][0] == pytest.approx(11.18, abs=5e-3)
+    assert b["b10"][0] == pytest.approx(14.87, abs=5e-3)
+    assert mt.shard_bounds((1, 7, 9))["b11"][0] == pytest.approx(
+        1e6 * 4 * (3 * 63 + 2 * 63) / roofline.HBM_BYTES_PER_S)
+
+
+def test_bits_equal_tells_signed_zeros_apart_and_matches_nans():
+    a = torch.tensor([0.0, 1.0, float("nan"), float("inf")])
+    assert mt.bits_equal(a, a.clone())
+    assert not mt.bits_equal(a, torch.tensor([-0.0, 1.0, float("nan"),
+                                              float("inf")]))
+    assert not mt.bits_equal(a, torch.tensor([0.0, 1.0, 2.0, float("inf")]))
+    assert not mt.bits_equal(a, a[:3])
+
+
+def test_arguments_and_the_card():
+    assert mt.parse_args([]).kernel == "b11"
+    assert mt.parse_args(["--kernel", "b11"]).kernel == "b11"
+    with pytest.raises(SystemExit):
+        mt.parse_args(["--kernel", "b9"])
+    with mock.patch.object(torch.cuda, "is_available", return_value=False):
+        with pytest.raises(SystemExit, match="CUDA"):
+            mt.main(["--kernel", "b11"])
+
+
+def test_b11_equal_on_the_cpu_takes_the_plain_version():
+    """``b11_equal`` compares the wrapper with the plain version; on CPU
+    tensors both are the plain version."""
+    gen = torch.Generator().manual_seed(3)
+    g = torch.randn(3, 5, 40, generator=gen)
+    code = torch.full((3, 5, 40), 0x103F, dtype=torch.int32)
+    with mock.patch.object(torch.cuda, "synchronize"):
+        out = mt.b11_equal(g, code)
+    assert all(v["equal"] and v["max_abs_err"] == 0.0 for v in out.values())
+
+
+def test_bare_warps_on_a_block():
+    """A block of interior code 0x103F: in (3, 4, 40) only row 1 has nodes
+    with six neighbours in the grid, at y = 1, 2 and z = 1 … 38, and no
+    warp of 32 consecutive (y, z) nodes holds only such nodes; in (3, 4,
+    130) they are the nodes 131 … 258 and 261 … 388 of row 1, so warps 5–7
+    and 9–11.  Bit 12 (the node's own interior flag) plays no part; a
+    neighbour of weight 2 or 0 in any direction takes the warps of its six
+    neighbours off the bare path."""
+    block = torch.full((3, 4, 40), 0x103F, dtype=torch.int32)
+    assert mt.bare_warps(block).shape == (3, 5)
+    assert not mt.bare_warps(block).any()
+    big = torch.full((3, 4, 130), 0x103F, dtype=torch.int32)
+    want = torch.zeros((3, 17), dtype=torch.bool)
+    want[1, [5, 6, 7, 9, 10, 11]] = True
+    assert torch.equal(mt.bare_warps(big), want)
+    assert torch.equal(mt.bare_warps(big & 0xFFF), want)
+    # (1, 1, 45) is node 175 (warp 5); its y + 1 neighbour is node 305
+    want[1, [5, 9]] = False
+    for changed in (0x103F | 1 << 7, 0x103F & ~(1 << 3)):
+        big[1, 1, 45] = changed
+        assert torch.equal(mt.bare_warps(big), want)

@@ -1,0 +1,187 @@
+"""Time the general mesh's shard kernels at the columns hall's shard shape:
+with ``--kernel b11`` the shard adjoint B11.
+
+    python -m wayverb_tpu_torch.tools.mesh_timing --kernel b11
+
+On the card, at the second of four x-shards of the columns hall
+(``procedural_hall(2, 4, 1)`` meshed at the engine's rate for a 1500 Hz
+cutoff with x aligned to 4, as ``Engine(device_mesh=…)`` meshes it: a shard
+of (86, 139, 259)), ``--kernel b11``:
+
+* builds ``csrc/mesh_weighted_step_haloed_bwd.cu`` and prints ptxas's
+  registers, stack and spills, and what the card makes of the kernel
+  (``stencil_kernels.shard_bwd_occupancy``: registers, local bytes, CTAs an
+  SM, threads a CTA, CTAs a launch);
+* counts the share of the kernel's warps (32 consecutive nodes of a row of
+  the flattened (y, z) plane) that take its bare path on the shard's code
+  (``bare_warps``);
+* holds B11 to the bit against ``_weighted_step_sharded_bwd_plain`` in ĝcur
+  and both halo cotangents (``bits_equal``: NaN where the plain version has
+  NaN, the same bits everywhere else, so −0 and +0 differ), on the shard's
+  own weight code and on a random code;
+* times B11 with the stream held (``mega_timing.device_time_us``), beside
+  the wrapper's host µs a call, the plain version's µs, B10 (the shard's
+  forward) at the same shape, and both bounds (``tools/roofline.py``).
+
+One JSON line, after the card's name and power limit.  Without a card it
+fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from wayverb_tpu_torch.tools import roofline
+
+COLUMNS_CUTOFF = 1500.0     # chip_smoke.py's columns hall
+SHARDS = 4
+ABSORPTION = 0.1
+SEED = 20261017
+REPS = 200
+
+
+def shard_bounds(dims) -> dict:
+    """{kernel: (µs, "bytes" or "operations")} of one launch on a shard of
+    ``dims`` (``chip_smoke.py`` reports them too).  B10: cur, prev, the
+    int32 code and the two halo rows in, out out; 15 operations a node.
+    B11: g and the code in, ĝcur and the two halo rows out; 13 operations a
+    node and two multiplies a halo element."""
+    X, Y, Z = dims
+    n, row = X * Y * Z, Y * Z
+    return {"b10": roofline.bound_us(4 * (4 * n + 2 * row), 15 * n),
+            "b11": roofline.bound_us(4 * (3 * n + 2 * row), 13 * n + 4 * row)}
+
+
+def bits_equal(a, b) -> bool:
+    """Whether two float tensors agree to the bit, NaN for NaN (the payload
+    aside): ``torch.equal`` holds −0 equal to +0."""
+    nan = torch.isnan(a)
+    if a.shape != b.shape or not torch.equal(nan, torch.isnan(b)):
+        return False
+    return bool(torch.equal(torch.where(nan, 0, a.view(torch.int32)),
+                            torch.where(nan, 0, b.view(torch.int32))))
+
+
+def columns_shard_code(device="cuda", shard: int = 1,
+                       cutoff: float = COLUMNS_CUTOFF):
+    """The int32 weight code of x-shard ``shard`` of the columns hall
+    meshed for ``cutoff`` Hz and split in ``SHARDS``, as ``chip_smoke.py``
+    phase 29 takes it (the tests take it at 400 Hz)."""
+    from wayverb_tpu_torch.raytracer.scenes import procedural_hall
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    fs = cutoff / (0.25 * 0.6)
+    mesh = wgrun.compute_mesh(procedural_hall(2, 4, 1)[0],
+                              np.full((1, 8), ABSORPTION),
+                              grid_spacing(340.0, 1.0 / fs), fs,
+                              align=(SHARDS, 1, 1), device=device)
+    code = mesh.structure.weight_code
+    xl = code.shape[0] // SHARDS
+    return code[shard * xl:(shard + 1) * xl].contiguous()
+
+
+def bare_warps(code):
+    """Which of B11's warps take its bare path: (X, ⌈Y·Z/32⌉) bool, warp s
+    of row x holding the nodes p = 32·s … 32·s + 31 of the flattened (y, z)
+    plane (``csrc/mesh_adjoint.cuh``); true where all 32 exist and each sees
+    six neighbours in the grid whose codes give all six weights exactly 1.
+    Those warps sum g without decoding."""
+    X, Y, Z = code.shape
+    one = (code & 0xFFF) == 0x3F
+    node = torch.zeros_like(one)
+    node[1:-1, 1:-1, 1:-1] = (one[:-2, 1:-1, 1:-1] & one[2:, 1:-1, 1:-1]
+                              & one[1:-1, :-2, 1:-1] & one[1:-1, 2:, 1:-1]
+                              & one[1:-1, 1:-1, :-2] & one[1:-1, 1:-1, 2:])
+    warps = -(-Y * Z // 32)
+    flat = torch.zeros((X, 32 * warps), dtype=torch.bool, device=code.device)
+    flat[:, :Y * Z] = node.reshape(X, Y * Z)
+    return flat.reshape(X, warps, 32).all(-1)
+
+
+def b11_equal(g, code) -> dict:
+    """B11 and its plain version on (g, code): bit-equality and the largest
+    |kernel − plain| of ĝcur and each halo cotangent."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    got = sk.weighted_step_sharded_bwd(g, code)
+    want = sk._weighted_step_sharded_bwd_plain(g, code)
+    torch.cuda.synchronize()
+    out = {}
+    for name, a, b in zip(("gcur", "ghlo", "ghhi"), (got[0], *got[1]),
+                          (want[0], *want[1])):
+        out[name] = {"equal": bits_equal(a, b),
+                     "max_abs_err": float((a - b).abs().nan_to_num().max())}
+    return out
+
+
+def main_b11() -> dict:
+    """The ``--kernel b11`` mode: one JSON line."""
+    from wayverb_tpu_torch.tools.mega_timing import (device_time_us,
+                                                     ptxas_lines)
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    t0 = time.perf_counter()
+    ptxas = ptxas_lines("mesh_weighted_step_haloed_bwd")
+    code = columns_shard_code()
+    dims = tuple(code.shape)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
+    g = rnd(*dims)
+    random_code = torch.randint(0, 1 << 13, dims, generator=gen,
+                                device="cuda", dtype=torch.int32)
+    checks = {"hall": b11_equal(g, code),
+              "random": b11_equal(g, random_code)}
+    us, host_us = device_time_us(
+        lambda: sk.weighted_step_sharded_bwd(g, code), REPS)
+    plain_us, _ = device_time_us(
+        lambda: sk._weighted_step_sharded_bwd_plain(g, code), 20)
+    cur, prev = rnd(*dims), rnd(*dims)
+    halos = (rnd(1, *dims[1:]), rnd(1, *dims[1:]))
+    out = torch.empty_like(cur)
+    b10_us, _ = device_time_us(lambda: sk.weighted_step_sharded(
+        cur, prev, code, halos, out=out), REPS)
+    bounds = shard_bounds(dims)
+    equal = all(c["equal"] for case in checks.values() for c in case.values())
+    row = {"kernel": "b11", "shape": list(dims), "ptxas": ptxas,
+           # trees before the redesign (a parent checked beside it) have
+           # no occupancy query
+           "occupancy": (sk.shard_bwd_occupancy(dims=dims)
+                         if hasattr(sk, "shard_bwd_occupancy") else None),
+           "bare_warp_share": float(bare_warps(code).float().mean()),
+           "equal_plain": equal, "checks": checks, "us_per_launch": us,
+           "host_us_per_call": host_us,
+           "plain_us": plain_us, "bound_us": bounds["b11"][0],
+           "bound_by": bounds["b11"][1],
+           "time_over_bound": us / bounds["b11"][0],
+           "b10_us_per_launch": b10_us, "b10_bound_us": bounds["b10"][0],
+           "wall_s": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    if not equal:
+        raise SystemExit("mesh_timing: B11 differs from its plain version")
+    return row
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m wayverb_tpu_torch.tools.mesh_timing",
+        description="Time a general-mesh shard kernel at the columns hall's "
+                    "shard shape.")
+    p.add_argument("--kernel", choices=("b11",), default="b11")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("mesh_timing: needs a CUDA device")
+    from wayverb_tpu_torch.tools.probe_resident import \
+        card_name_and_power_limit
+    print(card_name_and_power_limit(), flush=True)
+    return main_b11()
+
+
+if __name__ == "__main__":
+    main()

@@ -34,9 +34,11 @@ nothing but the weight code.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from wayverb_tpu_torch._build import load_entry
+from wayverb_tpu_torch._build import load, load_entry
 from wayverb_tpu_torch.waveguide.box_fused import _neighbor_sum
 from wayverb_tpu_torch.waveguide.descriptor import (COURANT_SQ,
                                                     DIRECTION_OFFSETS)
@@ -376,6 +378,9 @@ def weighted_step_sharded_bwd(g, weight_code):
         g = g.contiguous()
         _check(what, "g", g, g)
         _check(what, "weight_code", weight_code, g, torch.int32)
+        if g.numel() >= 2 ** 31:
+            raise ValueError(f"{what}: {tuple(g.shape)} has 2^31 nodes or "
+                             "more; the kernel's indices are 32-bit")
         gcur = torch.empty_like(g)
         ghlo, ghhi = torch.empty_like(g[:1]), torch.empty_like(g[:1])
         _launch(what, "mesh_weighted_step_haloed_bwd",
@@ -390,6 +395,27 @@ def weighted_step_sharded_bwd(g, weight_code):
 
 
 weighted_step_sharded_bwd.launches = 0
+
+
+def shard_bwd_occupancy(device="cuda", dims=(86, 139, 259)) -> dict:
+    """What the card makes of the shard adjoint's kernel (B11): registers a
+    thread, local memory (spills) a thread in bytes, CTAs resident on one
+    SM, threads a CTA, and the CTAs one launch runs on a shard of ``dims``
+    (default: the columns hall's shard)."""
+    lib = load("mesh_weighted_step_haloed_bwd")
+    fn = lib.wv_mesh_weighted_step_haloed_bwd_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    lib.wv_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.wv_cuda_error_string.restype = ctypes.c_char_p
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = fn((ctypes.c_int * 3)(*dims), out)
+    if err != 0:
+        raise RuntimeError("wv_mesh_weighted_step_haloed_bwd_occupancy "
+                           "failed: " + lib.wv_cuda_error_string(err).decode())
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads",
+                     "grid"), out))
 
 
 class _WeightedStepSharded(torch.autograd.Function):
