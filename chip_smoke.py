@@ -61,8 +61,11 @@ Drives the port through its public entry points on the card and fails
     masked interior step) against their plain versions at odd dims, at
     tile-like dims and at the full shape of a hall with columns, with random
     13-bit codes and with that hall's own ``weight_code`` and
-    ``interior_mask``;
-18. their times at that shape, and their plain versions';
+    ``interior_mask``; B9 to the bit, on the hall's own code also at 1e38
+    with ±inf and NaN, all −0, and slices of Y·Z < 32, of one and two rows
+    and of odd Y;
+18. their times at that shape, and their plain versions'; B9's registers,
+    local bytes, CTAs an SM and the share of its warps on the bare path;
 19. the columns hall (``raytracer.scenes.procedural_hall(2, 4, 1)``, 96
     triangles, about 11.8 M nodes at a 1500 Hz cutoff) built as a general
     mesh and run through ``canonical`` for 1000 steps: one B8 launch per
@@ -78,8 +81,9 @@ Drives the port through its public entry points on the card and fails
 22. the general gradient: value and gradient of Σ taps² in the filter
     coefficients on the columns hall, 64 steps checkpointed every 16, the
     source three nodes from a column (B9 in the backward), and a profiler
-    breakdown of a forward + backward step; then card against CPU on the
-    small columns hall;
+    breakdown of a forward + backward step with B9's device time in it, and
+    the device time a step of the backward's eager −bit12·g (profiled alone
+    as many times); then card against CPU on the small columns hall;
 23. B3 and B4 (the closest ray–triangle hit over all triangles, and behind
     the Morton-tile gate) against their plain versions, to the bit: 100, 512,
     700 and 4,096 rays on 3 (fewer than B3's cluster has shares) to 20,000
@@ -130,7 +134,9 @@ Drives the port through its public entry points on the card and fails
     engine on the same mesh, same draws, with the seconds of each phase;
 33. the shoebox hall (224, 224, 256) through ``run_waveguide_box_sharded``
     on four shards (B1 with real halos), 256 steps against the single-device
-    fused run, then a 16-step gradient (B5 with halo cotangents);
+    fused run, then a 16-step gradient (B5 with halo cotangents, its
+    launches counted), and B5 alone at the shard shape (56, 224, 256) with
+    its bound;
 34. ``sharded_trace`` on four shards: the direct energy against 8/(4πr²);
 35. the residency probe: P1 (``tools.probe_resident``, K bare leapfrog
     sub-steps in one cooperative launch) against its plain version in both
@@ -543,8 +549,8 @@ def _profile_window(torch, tag, run, steps, step_s, card):
     goes.  ``step_s``: the unprofiled wall time per step of the long run;
     the profiler's own overhead inflates the profiled wall time.  Returns
     (device busy us/step, device kernels/step, idle share of the unprofiled
-    step, {kernel name: us/step}), or None when the profiler saw no device
-    activity."""
+    step, {kernel name: us/step}, {kernel name: launches in the window}), or
+    None when the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -577,7 +583,8 @@ def _profile_window(torch, tag, run, steps, step_s, card):
         print(f"[{tag}]   {t / steps:9.2f} us/step  {count / steps:6.2f}"
               f"/step  {key[:90]}")
     return (busy_step_us, n_kernels / steps, idle,
-            {key: t / steps for t, _, key in rows})
+            {key: t / steps for t, _, key in rows},
+            {key: count for _, count, key in rows})
 
 
 def phase_profile(torch, mesh, box, dx, step_s, card):
@@ -954,6 +961,16 @@ def _bound(n_bytes, flops):
     return us / 1e3, by
 
 
+def b5_bound(dims):
+    """(bound_ms, bound_by) of one B5 step on a field (or shard) of
+    ``dims``: g and the six inner cotangents in; gcur, gprev, the six plane
+    cotangents and the two halo rows out; 8 operations a node."""
+    X, Y, Z = dims
+    n = X * Y * Z
+    natural = 2 * (Y * Z + X * Z + X * Y)
+    return _bound(4 * (3 * n + 2 * natural + 2 * Y * Z), 8 * n)
+
+
 def kernel_bounds(spec, order, k):
     """Bounds per step (B5) or per sub-step of a K = CHUNK chunk (B2, B6,
     B7) at ``spec``, from the shapes alone (B1's is ``mega_timing.b1_bound``).
@@ -964,11 +981,9 @@ def kernel_bounds(spec, order, k):
     n = X * Y * Z
     Umax, Vmax = stacked_plane_shape(spec)
     plane = 6 * Umax * Vmax
-    natural = 2 * (Y * Z + X * Z + X * Y)
     f = 4                                               # bytes per float32
     out = {}
-    # B5: g, six inner cotangents in; gcur, gprev, six planes, two halos out
-    out["b5"] = _bound(f * (3 * n + 2 * natural + 2 * Y * Z), 8 * n)
+    out["b5"] = b5_bound(spec.dims)
     # a chunk: cur, prev, state, planes in and out, signal in, taps out
     chunk_io = f * (4 * n + 2 * (order + 3) * plane + CHUNK * (1 + k))
     out["b2"] = _bound(chunk_io / CHUNK, 8 * n + 40 * plane)
@@ -1524,7 +1539,9 @@ def _columns_mesh(torch, cutoff, device, timings=None):
 
 def _mesh_kernel_case(torch, tag, what, cur, prev, g, code, mask):
     """B8, B9 and B12 against their plain versions on the same CUDA
-    tensors; returns the three max |kernel - plain|."""
+    tensors, B9 to the bit (``mesh_timing.bits_equal``: NaN for NaN, −0
+    apart from +0); returns the three max |kernel - plain|."""
+    from wayverb_tpu_torch.tools.mesh_timing import bits_equal
     from wayverb_tpu_torch.waveguide import stencil_kernels as sk
     pairs = (
         ("B8", sk.weighted_step(cur, prev, code),
@@ -1539,10 +1556,12 @@ def _mesh_kernel_case(torch, tag, what, cur, prev, g, code, mask):
         err = float((got - want).abs().max())
         peak = float(want.abs().max())
         errs.append(err)
+        equal = name != "B9" or bits_equal(got, want)
+        note = f"; to the bit: bit-equal {equal}" if name == "B9" else ""
         print(f"[{tag}] {name} {tuple(cur.shape)} ({what}): max |kernel - "
               f"plain| = {err:.3e}, peak {peak:.3e} (bound {MESH_REL:g} x "
-              "peak)")
-        if not (err <= MESH_REL * peak and peak > 0):
+              f"peak{note})")
+        if not (err <= MESH_REL * peak and peak > 0 and equal):
             _fail(f"{name} disagrees with its plain version: {what}")
     return errs
 
@@ -1550,7 +1569,12 @@ def _mesh_kernel_case(torch, tag, what, cur, prev, g, code, mask):
 def phase_mesh_kernels_vs_plain(torch, structure, card):
     """B8, B9, B12 against their plain versions: odd and tile-like dims with
     random 13-bit codes and masks, then the columns hall's shape with random
-    codes and with the hall's own weight code and interior mask."""
+    codes and with the hall's own weight code and interior mask; B9 to the
+    bit, and on the hall's own code also at 1e38 with ±inf and NaN, all −0,
+    and its slices of Y·Z < 32, of one and two rows and of odd Y."""
+    from wayverb_tpu_torch.tools.mesh_timing import (bare_warps, bits_equal,
+                                                     case_g)
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     rnd = lambda dims: torch.randn(*dims, generator=gen,  # noqa: E731
                                    device="cuda")
@@ -1577,22 +1601,50 @@ def phase_mesh_kernels_vs_plain(torch, structure, card):
         torch, "17 mesh", "the columns hall's own weight code and mask",
         rnd(hall), rnd(hall), rnd(hall), structure.weight_code,
         structure.interior_mask)
+    code = structure.weight_code
+    warps = bare_warps(code)
+    print(f"[17 mesh] B9 on the hall's own code: {int(warps.sum())} of "
+          f"{warps.numel()} warps bare")
+    if not 0 < int(warps.sum()) < warps.numel():
+        _fail("the columns hall's code gives B9 no bare or no general warp")
+    for cut, kind, what in (
+            (None, "1e38 inf nan", "g at 1e38 with inf and NaN"),
+            (None, "all -0", "g all -0"),
+            ((slice(0, 4), slice(60, 63), slice(100, 105)), "random",
+             "a slice of it with Y*Z < 32"),
+            ((slice(170, 171),), "random", "one row of it"),
+            ((slice(170, 172),), "random", "two rows of it"),
+            ((slice(100, 140), slice(0, 67)), "1e38 inf nan",
+             "40 rows of odd Y, g at 1e38 with inf and NaN")):
+        c = code if cut is None else code[cut].contiguous()
+        g = case_g(kind, tuple(c.shape), gen)
+        got = sk.weighted_step_bwd(g, c)
+        want = sk._weighted_step_bwd_plain(g, c)
+        torch.cuda.synchronize()
+        equal = bits_equal(got, want)
+        print(f"[17 mesh] B9 {tuple(c.shape)} (the hall's own code, {what}): "
+              f"bit-equal {equal}")
+        if not equal:
+            _fail(f"B9 differs from its plain version: {what}")
     return [max(a, b) for a, b in zip(worst, errs)]
 
 
-def mesh_kernel_bounds(n):
-    """Bounds per step at ``n`` nodes, from the shapes alone.  B8: cur,
-    prev, int32 code in, out out; 6 multiplies and 6 adds, then two
-    multiplies and a subtract.  B9: g, code in, gcur out; 6 multiplies, 6
-    adds, a multiply.  B12: cur, prev, mask in, out out; 6 adds, a multiply,
-    a subtract, a multiply."""
-    return {"b8": _bound(16 * n, 15 * n), "b9": _bound(12 * n, 13 * n),
-            "b12": _bound(16 * n, 9 * n)}
+def mesh_kernel_bounds(dims):
+    """(bound_ms, bound_by) per step of B8, B9 and B12 on a grid of
+    ``dims``, from ``mesh_timing.mesh_bounds``: B8 reads cur, prev and the
+    int32 code and writes out, 15 operations a node; B9 reads g and the
+    code and writes gcur, 13 operations a node; B12 reads cur, prev and the
+    mask and writes out, 9 operations a node."""
+    from wayverb_tpu_torch.tools.mesh_timing import mesh_bounds
+    return {k: (us / 1e3, by) for k, (us, by) in mesh_bounds(dims).items()}
 
 
 def phase_mesh_kernel_times(torch, structure, card):
     """B8, B9, B12 alone at the columns hall's shape, and their plain
-    versions (CUDA events), with the hall's own code and mask."""
+    versions (CUDA events), with the hall's own code and mask; B9's
+    registers, local bytes, CTAs an SM and the share of its warps on the
+    bare path."""
+    from wayverb_tpu_torch.tools.mesh_timing import bare_warps
     from wayverb_tpu_torch.waveguide import stencil_kernels as sk
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     code, mask = structure.weight_code, structure.interior_mask
@@ -1601,7 +1653,7 @@ def phase_mesh_kernel_times(torch, structure, card):
     cur, prev, g = (torch.randn(*dims, generator=gen, device="cuda")
                     for _ in range(3))
     out = torch.empty_like(cur)
-    bounds = mesh_kernel_bounds(n)
+    bounds = mesh_kernel_bounds(dims)
     times = {}
     for name, per_node, kernel, plain in (
             ("b8", 16, lambda: sk.weighted_step(cur, prev, code, out=out),
@@ -1617,7 +1669,13 @@ def phase_mesh_kernel_times(torch, structure, card):
               f"{k_us:.2f} us/step ({per_node * n / k_us / 1e3:.1f} GB/s at "
               f"{per_node} B/node), plain version {p_us:.2f} us/step, bound "
               f"{1e3 * bounds[name][0]:.2f} us by {bounds[name][1]} [{card}]")
-    return times, bounds
+    occ = sk.bwd_occupancy(dims=dims)
+    share = float(bare_warps(code).float().mean())
+    print(f"[18 mesh] B9: {share:.4f} of its warps on the hall's code take "
+          f"the bare path; {occ['registers']} registers, "
+          f"{occ['local_bytes']} B local, {occ['ctas_per_sm']} CTAs of "
+          f"{occ['threads']} an SM, {occ['grid']} CTAs a launch [{card}]")
+    return times, bounds, {**occ, "bare_warp_share": share}
 
 
 def _mesh_counts():
@@ -1970,11 +2028,45 @@ def phase_general_gradient(torch, mesh, card):
         torch, "22 profile",
         lambda: _general_grads(torch, mesh, src, rcv, steps, COLUMNS_FS),
         steps, (t_fwd + t_bwd) / steps, card)
+    b9 = tail = None
+    if prof is not None:
+        keys = [k for k in prof[3] if "mesh_weighted_step_bwd_kernel" in k]
+        b9 = {"device_us": steps * sum(prof[3][k] for k in keys),
+              "launches": sum(prof[4][k] for k in keys)}
+        tail = _prev_cotangent_tail(torch, mesh.structure.weight_code,
+                                    b9["launches"])
+        print(f"[22 profile] B9 in the window's backward: "
+              f"{b9['device_us']:.1f} us on the device in {b9['launches']} "
+              f"launches ({b9['device_us'] / max(b9['launches'], 1):.2f} us "
+              f"a launch); the eager -bit12*g cotangent of prev, profiled "
+              f"alone {b9['launches']} times on the hall's code: "
+              f"{tail['device_us_per_step']:.2f} us a step on the device in "
+              f"{tail['kernels_per_step']:.1f} kernels [{card}]")
     return counts, {"steps": steps, "forward_s": t_fwd, "backward_s": t_bwd,
                     "peak_memory_bytes": peak_mem,
                     "profile": None if prof is None else {
                         "device_busy_us_per_step": prof[0],
-                        "kernels_per_step": prof[1], "idle_share": prof[2]}}
+                        "kernels_per_step": prof[1], "idle_share": prof[2],
+                        "b9_backward": b9, "prev_cotangent_tail": tail}}
+
+
+def _prev_cotangent_tail(torch, code, calls):
+    """The backward's eager ĝprev = −bit12·g (``_prev_cotangent``) under
+    the profiler, ``calls`` times on ``code`` and a random g: device µs and
+    device kernels a step."""
+    from torch.profiler import ProfilerActivity, profile
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    g = torch.randn(*code.shape, device="cuda")
+    sk._prev_cotangent(g, code)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sk._prev_cotangent(g, code)
+        torch.cuda.synchronize()
+    us, kernels = _device_us(prof)
+    return {"device_us_per_step": (us or 0.0) / max(calls, 1),
+            "kernels_per_step": kernels / max(calls, 1)}
 
 
 def phase_general_grad_card_vs_cpu(torch, card):
@@ -2641,20 +2733,6 @@ def shard_kernel_bounds(xl, Y, Z):
             for k, (us, by) in shard_bounds((xl, Y, Z)).items()}
 
 
-def _b11_case_g(torch, what, dims, rnd):
-    """g of a B11 case: random, at 1e38 with ±inf and NaN sprinkled in, or
-    all −0."""
-    if "-0" in what:
-        return torch.full(dims, -0.0, device="cuda")
-    g = rnd(*dims)
-    if "1e38" in what:
-        g = g * 1e38
-        flat = g.view(-1)
-        flat[::7], flat[::11], flat[::13] = (float("inf"), float("-inf"),
-                                             float("nan"))
-    return g
-
-
 def phase_shard_kernels(torch, structure, card):
     """B10 and B11 against their plain versions on the card, random inputs
     with non-zero halos: the columns hall's shard shape, one and two rows,
@@ -2663,7 +2741,8 @@ def phase_shard_kernels(torch, structure, card):
     with ±inf and NaN, all −0, and its slices of Y·Z < 32 and of one and
     two rows; then their times at the shard shape and B11's registers,
     local bytes and CTAs an SM."""
-    from wayverb_tpu_torch.tools.mesh_timing import bare_warps, bits_equal
+    from wayverb_tpu_torch.tools.mesh_timing import (bare_warps, bits_equal,
+                                                     case_g)
     from wayverb_tpu_torch.waveguide import stencil_kernels as sk
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     X, Y, Z = structure.weight_code.shape
@@ -2705,15 +2784,16 @@ def phase_shard_kernels(torch, structure, card):
                     or (i == 1 and not equal):
                 _fail(f"{name} disagrees with its plain version: {what}")
 
-    more = [(hall, "the hall's shard code, g at 1e38 with inf and NaN"),
-            (hall, "the hall's shard code, g all -0"),
-            (hall[:4, 60:63, 100:105].contiguous(),
+    more = [(hall, "1e38 inf nan",
+             "the hall's shard code, g at 1e38 with inf and NaN"),
+            (hall, "all -0", "the hall's shard code, g all -0"),
+            (hall[:4, 60:63, 100:105].contiguous(), "random",
              "a slice of it with Y*Z < 32"),
-            (hall[40:41].contiguous(), "one row of it"),
-            (hall[40:42].contiguous(), "two rows of it")]
-    for code, what in more:
+            (hall[40:41].contiguous(), "random", "one row of it"),
+            (hall[40:42].contiguous(), "random", "two rows of it")]
+    for code, kind, what in more:
         dims = tuple(code.shape)
-        g = _b11_case_g(torch, what, dims, rnd)
+        g = case_g(kind, dims, gen)
         got = sk.weighted_step_sharded_bwd(g, code)
         want = sk._weighted_step_sharded_bwd_plain(g, code)
         torch.cuda.synchronize()
@@ -3105,13 +3185,39 @@ def phase_box_sharded(torch, card):
             and grad_counts["box_fused_step"] == SHARDS * n
             and 0 < grad_counts["box_fused_step_bwd"] <= SHARDS * n):
         _fail("the sharded shoebox gradient failed its checks")
+    b5_shard = _b5_shard_time(torch, spec, card)
     result = {"dims": list(spec.dims), "shards": SHARDS, "steps": steps,
               "wall_ms_per_step": 1e3 * wall / steps,
               "rel_err_vs_single": err / peak, "grad_rel_err": rel,
               "peak_memory_bytes": peak_mem,
-              "launches": counts, "grad_launches": grad_counts}
+              "launches": counts, "grad_launches": grad_counts,
+              "b5_shard": b5_shard}
     print(json.dumps({"phase": "33 box sharded", **result}))
     return result
+
+
+def _b5_shard_time(torch, spec, card):
+    """B5 alone on the second of the shoebox hall's x-shards, as the
+    sharded gradient launches it (halo cotangents out), with the stream
+    held; its bound."""
+    from wayverb_tpu_torch.waveguide.box_fused import (_plane_shapes,
+                                                       fused_step_bwd)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    X, Y, Z = spec.dims
+    dims = (X // SHARDS, Y, Z)
+    g = torch.randn(*dims, generator=gen, device="cuda")
+    ginner = tuple(torch.randn(*s, generator=gen, device="cuda")
+                   for s in _plane_shapes(*dims))
+    geom = spec.geom_array(x_offset=dims[0])
+    us, host_us = _device_time_us(torch, lambda: fused_step_bwd(geom, g,
+                                                                ginner), 100)
+    bound_ms, by = b5_bound(dims)
+    print(f"[33 box sharded] B5 alone at the shard shape {dims} with halos: "
+          f"{us:.2f} us a launch on the device ({host_us:.1f} us a call on "
+          f"the host), bound {1e3 * bound_ms:.2f} us by {by}, "
+          f"{us / (1e3 * bound_ms):.2f}x [{card}]")
+    return {"shape": list(dims), "ms": us / 1e3, "host_ms": host_us / 1e3,
+            "bound_ms": bound_ms, "bound_by": by}
 
 
 def phase_sharded_trace(torch, card):
@@ -3330,7 +3436,7 @@ def main():
     col_dims = list(col_mesh.descriptor.dimensions)
     b8_err, b9_err, b12_err = phase_mesh_kernels_vs_plain(
         torch, col_mesh.structure, card)
-    mesh_times, mesh_bounds = phase_mesh_kernel_times(
+    mesh_times, mesh_bounds, b9_occ = phase_mesh_kernel_times(
         torch, col_mesh.structure, card)
     torch.cuda.empty_cache()
     columns = phase_columns_hall(torch, col_mesh, col_timings, col_setup_s,
@@ -3509,14 +3615,20 @@ def main():
         "library_ms": None,
         "ms_is_per": "step",
         "launches_on": on,
-    } for name, key, line, err, shape, on in (
+        **extra,
+    } for name, key, line, err, shape, on, extra in (
         ("mesh_weighted_step", "b8", 172, b8_err, col_dims,
-         "Engine.run on the columns hall"),
+         "Engine.run on the columns hall", {}),
         ("mesh_weighted_step_bwd", "b9", 195, b9_err, col_dims,
-         "the columns hall's 64-step gradient"),
+         "the columns hall's 64-step gradient",
+         {**{k: b9_occ[k] for k in ("registers", "local_bytes",
+                                    "ctas_per_sm", "bare_warp_share")},
+          "backward_device_ms": (
+              general_grad["profile"]["b9_backward"]["device_us"] / 1e3
+              if general_grad["profile"] else None)}),
         ("mesh_interior_step", "b12", 35, b12_err, col_dims,
          "canonical on the thin box (the region path); timed at the "
-         "columns hall's shape"))), *({
+         "columns hall's shape", {}))), *({
         "name": name,
         "route": "cuda",
         "source": f"wayverb_tpu_torch/csrc/{name}.cu",

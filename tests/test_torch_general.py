@@ -133,6 +133,36 @@ def _kernel_case(dims, seed):
 # ---------------------------------------------------------------------------
 # the three kernels' plain versions
 
+def test_launch_geometries_refuse_what_their_kernels_cannot_cover():
+    """Each family of mesh kernels refuses, before it builds or launches
+    anything, the grids its own launch cannot cover: ``mesh_stencil.cuh``'s
+    (⌈Z/128⌉, ⌈Y/2⌉, X) (B8, B10, B12) and ``mesh_adjoint.cuh``'s
+    (⌈Y·Z/CTA⌉, ⌈X/walk⌉) with 32-bit node indices (B9, B11)."""
+    assert tsk._stencil_geometry(343, 139, 259) is None
+    for walk in (tsk.BWD_WALK, tsk.SHARD_BWD_WALK):
+        adjoint = tsk._adjoint_geometry(walk)
+        assert adjoint(343, 139, 259) is None
+        # x rows: one CTA row each, or one a walk
+        assert tsk._stencil_geometry(65536, 1, 1) is not None
+        assert adjoint(65536, 1, 1) is None
+        assert adjoint(65535 * walk + 1, 1, 1) is not None
+        # y rows: pairs of rows, or none (the (y, z) plane is flat)
+        assert tsk._stencil_geometry(1, 131071, 1) is not None
+        assert adjoint(1, 131071, 1) is None
+        big = (2 ** 31 // (139 * 259) + 1, 139, 259)
+        assert "32-bit" in adjoint(*big)
+    g = torch.empty(big, device="meta")
+    code = torch.empty(big, dtype=torch.int32, device="meta")
+    adjoint = tsk._adjoint_geometry(tsk.BWD_WALK)
+    with pytest.raises(ValueError, match="32-bit"):
+        tsk._launch("weighted_step_bwd", "mesh_weighted_step_bwd",
+                    "wv_mesh_weighted_step_bwd_f32", (g, code, g), adjoint)
+    with pytest.raises(ValueError, match="empty"):
+        tsk._launch("weighted_step_bwd", "mesh_weighted_step_bwd",
+                    "wv_mesh_weighted_step_bwd_f32",
+                    (g[:0], code[:0], g[:0]), adjoint)
+
+
 @pytest.mark.parametrize("dims,against", [
     ((16, 8, 128), "jnp"), ((16, 8, 128), "pallas_interpret"),
     ((6, 7, 9), "jnp")])

@@ -344,8 +344,8 @@ def test_run_general_sharded_flags_nan(meshes):
 
 
 # ---------------------------------------------------------------------------
-# B11's order of work (csrc/mesh_adjoint.cuh): warps of 32 (y, z) nodes, a
-# bare path where every neighbour weighs exactly 1
+# the order of work of B11 and B9 (csrc/mesh_adjoint.cuh): warps of 32 (y, z)
+# nodes, a bare path where every neighbour weighs exactly 1
 
 @pytest.fixture(scope="module")
 def columns_shard_code():
@@ -381,11 +381,12 @@ def _loop_bare_warps(code):
     return torch.from_numpy(want)
 
 
-def _kernel_order(g, code):
+def _kernel_order(g, code, halos=True):
     """B11 in plain torch, in the kernel's order: a node of a bare warp
     (``mesh_timing.bare_warps``) sums its six neighbours' g from +0 with no
     weight, every other node adds w_opp(dd)·g, dd = 0..5; then λ²·acc.  The
-    halo rows (λ²·w)·g of rows 0 and X − 1."""
+    halo rows (λ²·w)·g of rows 0 and X − 1.  With ``halos=False`` B9: ĝcur
+    alone."""
     from wayverb_tpu_torch.tools.mesh_timing import bare_warps
     X, Y, Z = g.shape
     general = torch.zeros_like(g)
@@ -398,14 +399,16 @@ def _kernel_order(g, code):
     node_bare = bare_warps(code)[:, torch.arange(Y * Z) // 32]
     gcur = tsk.COURANT_SQ * torch.where(node_bare.reshape(X, Y, Z),
                                         bare_sum, general)
+    if not halos:
+        return gcur
     ghlo = tsk.COURANT_SQ * tsk._weight(code[:1], 0, g.dtype) * g[:1]
     ghhi = tsk.COURANT_SQ * tsk._weight(code[-1:], 1, g.dtype) * g[-1:]
     return gcur, (ghlo, ghhi)
 
 
 def _order_codes(shard):
-    """(name, code): the columns shard, slices of it (one and two rows,
-    Y·Z < 32, odd Y), an interior block with a weight-2 and a weight-0
+    """(name, code): the columns hall's code (a shard, or the whole hall),
+    slices of it (one and two rows, Y·Z < 32, odd Y), an interior block with a weight-2 and a weight-0
     neighbour in warps that would be bare without them (warp 9 of rows 4
     and 2), and random codes."""
     rng = np.random.default_rng(40)
@@ -414,7 +417,7 @@ def _order_codes(shard):
     block[2, 5, 10] &= ~(1 << 2)       # weight 0 toward -y, (2, 4, 10)
     rand = lambda *s: torch.from_numpy(  # noqa: E731
         rng.integers(0, 1 << 13, size=s).astype(np.int32))
-    return [("columns shard", shard), ("one row", shard[5:6].contiguous()),
+    return [("columns code", shard), ("one row", shard[5:6].contiguous()),
             ("two rows", shard[5:7].contiguous()),
             ("odd Y", shard[:, :33].contiguous()),
             ("Y*Z < 32", shard[:4, 10:13, 30:35].contiguous()),
@@ -433,26 +436,56 @@ def test_adjoint_bare_warps_match_a_loop_classification(columns_shard_code):
     assert 0.05 < share < 0.95
 
 
+def _order_gs(rng, shape):
+    """(name, g): random, at 1e38 with ±inf and NaN (sums that overflow,
+    0·inf at weight-0 neighbours), and all −0, drawn with numpy."""
+    with np.errstate(over="ignore"):
+        big = rng.normal(size=shape).astype(np.float32) * np.float32(1e38)
+    flat = big.reshape(-1)
+    flat[::7], flat[::11], flat[::13] = np.inf, -np.inf, np.nan
+    return [("random", rng.normal(size=shape).astype(np.float32)),
+            ("1e38 inf nan", big), ("-0", np.full(shape, -0.0, np.float32))]
+
+
 def test_adjoint_kernel_order_equals_plain_to_the_bit(columns_shard_code):
     """The kernel's order and bare classification (``_kernel_order``) equal
     ``_weighted_step_sharded_bwd_plain`` to the bit (NaN for NaN, −0 apart
-    from +0): random g, g at 1e38 with ±inf and NaN (sums that overflow,
-    0·inf at weight-0 neighbours), and all −0; on every code of
-    ``_order_codes``."""
+    from +0): random g, g at 1e38 with ±inf and NaN, and all −0; on every
+    code of ``_order_codes``."""
     from wayverb_tpu_torch.tools.mesh_timing import bits_equal
     rng = np.random.default_rng(41)
     for name, code in _order_codes(columns_shard_code):
-        shape = tuple(code.shape)
-        with np.errstate(over="ignore"):
-            big = rng.normal(size=shape).astype(np.float32) * np.float32(1e38)
-        flat = big.reshape(-1)
-        flat[::7], flat[::11], flat[::13] = np.inf, -np.inf, np.nan
-        for what, g in (
-                ("random", rng.normal(size=shape).astype(np.float32)),
-                ("1e38 inf nan", big),
-                ("-0", np.full(shape, -0.0, np.float32))):
+        for what, g in _order_gs(rng, tuple(code.shape)):
             g = torch.from_numpy(g)
             want = tsk._weighted_step_sharded_bwd_plain(g, code)
             got = _kernel_order(g, code)
             for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
                 assert bits_equal(a, b), (name, what)
+
+
+@pytest.fixture(scope="module")
+def columns_code():
+    """The columns hall's whole weight code at a 400 Hz cutoff, no x
+    alignment (as the card tests build it for B9)."""
+    from wayverb_tpu_torch.tools.mesh_timing import columns_code
+    return columns_code("cpu", cutoff=400.0)
+
+
+def test_unsharded_adjoint_kernel_order_equals_plain_to_the_bit(
+        columns_code):
+    """B9 runs B11's walk without halo outputs: its order and bare
+    classification (``_kernel_order(halos=False)``) equal
+    ``_weighted_step_bwd_plain`` to the bit on the whole hall's code (bare
+    and general warps, g at the grid's ends taken as 0 as beyond a shard),
+    its slices, synthetic and random codes; random g, g at 1e38 with ±inf
+    and NaN, and all −0."""
+    from wayverb_tpu_torch.tools.mesh_timing import bare_warps, bits_equal
+    warps = bare_warps(columns_code)
+    assert 0 < int(warps.sum()) < warps.numel()
+    rng = np.random.default_rng(42)
+    for name, code in _order_codes(columns_code):
+        for what, g in _order_gs(rng, tuple(code.shape)):
+            g = torch.from_numpy(g)
+            got = _kernel_order(g, code, halos=False)
+            assert bits_equal(got, tsk._weighted_step_bwd_plain(g, code)), \
+                (name, what)

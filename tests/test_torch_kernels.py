@@ -831,17 +831,25 @@ def test_weighted_step_kernel_matches_plain(cuda_device, dims):
     assert float((buf - want).abs().max()) <= ATOL
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dims", MESH_DIMS)
-def test_weighted_step_bwd_kernel_matches_plain(cuda_device, dims):
+def _b9_bit_equal(g, code):
+    """B9 (one launch) against its plain version, to the bit
+    (``bits_equal``: NaN for NaN, −0 apart from +0)."""
+    from wayverb_tpu_torch.tools.mesh_timing import bits_equal
     from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
-    g, _, code, _ = _mesh_case(dims, cuda_device, seed=1)
     before = tsk.weighted_step_bwd.launches
     got = tsk.weighted_step_bwd(g, code)
     assert tsk.weighted_step_bwd.launches == before + 1
     want = tsk._weighted_step_bwd_plain(g, code)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= ATOL
+    assert bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", MESH_DIMS)
+def test_weighted_step_bwd_kernel_matches_plain(cuda_device, dims):
+    """B9 on random codes, to the bit."""
+    g, _, code, _ = _mesh_case(dims, cuda_device, seed=1)
+    _b9_bit_equal(g, code)
 
 
 @pytest.mark.cuda
@@ -1061,16 +1069,11 @@ def columns_shard_code():
     return columns_shard_code("cuda", cutoff=400.0)
 
 
-def _b11_case_g(case, shape, gen):
-    g = torch.randn(*shape, generator=gen, device="cuda")
-    if case == "1e38 inf nan":
-        g = g * 1e38
-        flat = g.view(-1)
-        flat[::7], flat[::11], flat[::13] = (float("inf"), float("-inf"),
-                                             float("nan"))
-    elif case == "all -0":
-        g = torch.full(shape, -0.0, device="cuda")
-    return g
+def _case_g(case, shape, gen):
+    """g of a B9 or B11 case (``mesh_timing.case_g``)."""
+    from wayverb_tpu_torch.tools.mesh_timing import case_g
+    kind = case if case in ("1e38 inf nan", "all -0") else "random"
+    return case_g(kind, shape, gen)
 
 
 B11_CASES = [("columns shard", None), ("1e38 inf nan", None),
@@ -1093,7 +1096,7 @@ def test_weighted_step_sharded_bwd_kernel_cases(cuda_device,
     if cut is not None:
         code = code[cut].contiguous()
     gen = torch.Generator(device=cuda_device).manual_seed(14)
-    g = _b11_case_g(case, tuple(code.shape), gen)
+    g = _case_g(case, tuple(code.shape), gen)
     if case == "columns shard":
         assert 0 < int(bare_warps(code).sum()) < bare_warps(code).numel()
     _b11_bit_equal(g, code)
@@ -1137,6 +1140,77 @@ def test_weighted_step_sharded_bwd_follows_a_changed_code(
     after = bare_warps(code)
     assert not after[x1, s1] and not after[x2, s2]
     _b11_bit_equal(g, code)
+
+
+@pytest.fixture(scope="module")
+def columns_code():
+    """The small columns hall's whole weight code (400 Hz, meshed as
+    ``_small_columns_hall`` meshes it, no x alignment): walls, columns and
+    a bare interior."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from wayverb_tpu_torch.tools.mesh_timing import columns_code
+    return columns_code("cuda", cutoff=400.0)
+
+
+B9_CASES = [("columns hall", None), *B11_CASES[1:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,cut", B9_CASES, ids=[c for c, _ in B9_CASES])
+def test_weighted_step_bwd_kernel_cases(cuda_device, columns_code, case,
+                                        cut):
+    """B9 to the bit on a real mesh's whole weight code, where bare warps
+    meet walls and columns: random g, g at 1e38 with ±inf and NaN, all −0,
+    and slices of the hall (Y·Z < 32, X = 1 and 2, odd Y)."""
+    from wayverb_tpu_torch.tools.mesh_timing import bare_warps
+    code = columns_code
+    if cut is not None:
+        code = code[cut].contiguous()
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    g = _case_g(case, tuple(code.shape), gen)
+    if case == "columns hall":
+        assert 0 < int(bare_warps(code).sum()) < bare_warps(code).numel()
+    _b9_bit_equal(g, code)
+
+
+@pytest.mark.cuda
+def test_weighted_step_bwd_occupancy(cuda_device):
+    """What the card makes of B9: no local memory, at most 32 registers
+    (its launch bounds: 2,048 threads an SM), and CTAs of (y, z) nodes each
+    walking ``BWD_WALK`` x rows (the wrapper's launch check) cover the
+    columns hall."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    dims = (343, 139, 259)
+    occ = tsk.bwd_occupancy(cuda_device, dims)
+    assert occ["local_bytes"] == 0, occ
+    assert 0 < occ["registers"] <= 32, occ
+    assert occ["ctas_per_sm"] * occ["threads"] >= 2048, occ
+    assert occ["grid"] == -(-139 * 259 // occ["threads"]) \
+        * -(-343 // tsk.BWD_WALK), occ
+
+
+@pytest.mark.cuda
+def test_weighted_step_bwd_follows_a_changed_code(cuda_device, columns_code):
+    """Each launch of B9 decides its bare warps from the code it is given:
+    with a neighbour of weight 2 and one of weight 0 put into two bare
+    warps, those warps leave the bare path and B9 equals the plain version
+    of the changed code to the bit."""
+    from wayverb_tpu_torch.tools.mesh_timing import bare_warps
+    code = columns_code.clone()
+    Z = code.shape[2]
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    g = torch.randn(*code.shape, generator=gen, device="cuda")
+    _b9_bit_equal(g, code)
+    marked = bare_warps(code).nonzero()
+    assert len(marked) > 2
+    (x1, s1), (x2, s2) = marked[len(marked) // 3], marked[2 * len(marked) // 3]
+    p1, p2 = 32 * int(s1) + 5, 32 * int(s2) + 17
+    code[int(x1) - 1, p1 // Z, p1 % Z] |= 1 << 7
+    code[int(x2), p2 // Z + 1, p2 % Z] &= ~((1 << 2) | (1 << 8))
+    after = bare_warps(code)
+    assert not after[x1, s1] and not after[x2, s2]
+    _b9_bit_equal(g, code)
 
 
 @pytest.mark.cuda

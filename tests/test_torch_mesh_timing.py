@@ -26,6 +26,38 @@ def test_shard_bounds_at_the_columns_hall_shard():
         1e6 * 4 * (3 * 63 + 2 * 63) / roofline.HBM_BYTES_PER_S)
 
 
+def test_mesh_bounds_at_the_columns_hall():
+    """B9 at (343, 139, 259): g and the code in, ĝcur out (12 B a node),
+    44.23 µs by bytes at 3.35 TB/s; B8 and B12 16 B a node, 58.98 µs; the
+    per-node counts of ``chip_smoke.py`` phase 18."""
+    n = 343 * 139 * 259
+    b = mt.mesh_bounds((343, 139, 259))
+    assert b["b9"] == roofline.bound_us(12 * n, 13 * n)
+    assert b["b9"][1] == "bytes"
+    assert b["b9"][0] == pytest.approx(44.23, abs=5e-3)
+    assert b["b8"] == roofline.bound_us(16 * n, 15 * n)
+    assert b["b12"] == roofline.bound_us(16 * n, 9 * n)
+    assert b["b8"][0] == pytest.approx(58.98, abs=5e-3)
+    # the shard adjoint's ĝcur moves B9's bytes; the halo rows add to them
+    xl = mt.shard_bounds((86, 139, 259))["b11"][0]
+    assert xl > mt.mesh_bounds((86, 139, 259))["b9"][0]
+
+
+def test_case_g_kinds():
+    gen = torch.Generator().manual_seed(5)
+    assert torch.equal(mt.case_g("all -0", (2, 3, 4), gen).view(torch.int32),
+                       torch.full((2, 3, 4), -0.0).view(torch.int32))
+    g = mt.case_g("1e38 inf nan", (3, 5, 7), gen).view(-1)
+    assert torch.isnan(g[::13]).all() and float(g[11]) == float("-inf")
+    assert float(g[7]) == float("inf")
+    finite = g[torch.isfinite(g)]
+    assert float(finite.abs().max()) > 1e37
+    r = mt.case_g("random", (4, 4), gen)
+    assert r.shape == (4, 4) and bool(torch.isfinite(r).all())
+    with pytest.raises(ValueError):
+        mt.case_g("ones", (2,), gen)
+
+
 def test_bits_equal_tells_signed_zeros_apart_and_matches_nans():
     a = torch.tensor([0.0, 1.0, float("nan"), float("inf")])
     assert mt.bits_equal(a, a.clone())
@@ -38,11 +70,24 @@ def test_bits_equal_tells_signed_zeros_apart_and_matches_nans():
 def test_arguments_and_the_card():
     assert mt.parse_args([]).kernel == "b11"
     assert mt.parse_args(["--kernel", "b11"]).kernel == "b11"
+    assert mt.parse_args(["--kernel", "b9"]).kernel == "b9"
     with pytest.raises(SystemExit):
-        mt.parse_args(["--kernel", "b9"])
+        mt.parse_args(["--kernel", "b8"])
     with mock.patch.object(torch.cuda, "is_available", return_value=False):
-        with pytest.raises(SystemExit, match="CUDA"):
-            mt.main(["--kernel", "b11"])
+        for kernel in ("b9", "b11"):
+            with pytest.raises(SystemExit, match="CUDA"):
+                mt.main(["--kernel", kernel])
+
+
+def test_b9_equal_on_the_cpu_takes_the_plain_version():
+    """``b9_equal`` compares the wrapper with the plain version; on CPU
+    tensors both are the plain version."""
+    gen = torch.Generator().manual_seed(4)
+    g = mt.case_g("1e38 inf nan", (3, 5, 40), gen)
+    code = torch.full((3, 5, 40), 0x103F, dtype=torch.int32)
+    with mock.patch.object(torch.cuda, "synchronize"):
+        out = mt.b9_equal(g, code)
+    assert out == {"equal": True, "max_abs_err": 0.0}
 
 
 def test_b11_equal_on_the_cpu_takes_the_plain_version():

@@ -1,6 +1,6 @@
-// Device code of the general mesh's adjoint in `cur`, by threads walking x
-// (mesh_weighted_step_haloed_bwd.cu; written so that the unsharded adjoint,
-// mesh_weighted_step_bwd.cu, can call it without halo outputs).
+// Device code of the general mesh's adjoint in `cur`, by threads walking x:
+// the shard adjoint mesh_weighted_step_haloed_bwd.cu calls it with halo
+// outputs, the unsharded adjoint mesh_weighted_step_bwd.cu without.
 //
 //   gcur[n] = lambda^2 * sum_dd w_opp(dd)(n + e_dd) * g[n + e_dd]
 //
@@ -8,7 +8,7 @@
 // -z, +z) and w_d = bit(d) + bit(6 + d) of the weight code (mesh_stencil.cuh).
 //
 // Layout.  A thread owns one node p = y * Z + z of the flattened (y, z)
-// plane and walks kAdjWalk consecutive x rows of it, keeping g and the code
+// plane and walks kWalk consecutive x rows of it, keeping g and the code
 // at x - 1, x and x + 1 in registers: per node and row it loads g and the
 // code at x + 1 (streamed) and at the four y and z neighbours (lines the
 // warp and its neighbours load anyway, from L1).  A warp is 32 consecutive
@@ -36,10 +36,15 @@
 //   - Aliasing: the outputs are __restrict__ and never overlap the inputs
 //     (the wrapper allocates them), so every load of a row may be issued
 //     before its stores.
-//   - Registers: 32 a thread at 8 CTAs of 256 an SM, no spills.  They are
-//     tight: the same walk with its loads nested under one `if (live)`
-//     spilled 8 B and ran 19.5 us against 18.3; 6 CTAs an SM (40
-//     registers) ran 19.2.  The occupancy test holds 0 B local.
+//   - Registers: 32 a thread at 2,048 threads an SM (each kernel's launch
+//     bounds), no spills.  They are tight: the same walk with its loads
+//     nested under one `if (live)` spilled 8 B and ran 19.5 us against
+//     18.3 at the shard; 6 CTAs of 256 an SM (40 registers) ran 19.2.  The
+//     occupancy tests hold 0 B local.
+//
+// Each kernel chooses its launch, measured at its own shape (PERF.md §6):
+// kThreads nodes of a row a CTA, kWalk x rows a thread; the shard adjoint
+// 256 and 4, the adjoint of the whole grid 512 and 8.
 
 #pragma once
 
@@ -48,10 +53,6 @@
 #include "mesh_stencil.cuh"
 
 namespace wv {
-
-constexpr int kAdjThreads = 256;  // nodes of a row a CTA
-constexpr int kAdjWalk = 4;       // x rows a thread walks
-constexpr int kAdjCtasPerSm = 8;  // 2,048 threads an SM: <= 32 registers
 
 // n / d for 0 <= n < 2^31 by a multiply (Granlund and Montgomery), the
 // constants made on the host.
@@ -76,10 +77,10 @@ __device__ __forceinline__ int fast_div(int n, FastDiv f) {
       f.s);
 }
 
-// The launch: CTAs of kAdjThreads nodes along a row, kAdjWalk x rows each.
+// The launch: CTAs of kThreads nodes along a row, kWalk x rows each.
+template <int kThreads, int kWalk>
 inline dim3 adjoint_grid(int X, int Y, int Z) {
-  return dim3((Y * Z + kAdjThreads - 1) / kAdjThreads,
-              (X + kAdjWalk - 1) / kAdjWalk, 1);
+  return dim3((Y * Z + kThreads - 1) / kThreads, (X + kWalk - 1) / kWalk, 1);
 }
 
 // All six weights of a neighbour's code are exactly 1.
@@ -93,20 +94,20 @@ __device__ __forceinline__ float adjoint_term(float acc, int code, int opp,
   return __fadd_rn(acc, __fmul_rn(mesh_weight(code, opp), gn));
 }
 
-// One thread's node over its kAdjWalk rows.  kHalos: also write the halo
-// cotangents lambda^2 * w_0 * g of row 0 into ghlo and lambda^2 * w_1 * g
-// of row X - 1 into ghhi, (1, Y, Z) each.
-template <bool kHalos>
+// One thread's node over its kWalk rows, in CTAs of kThreads.  kHalos: also
+// write the halo cotangents lambda^2 * w_0 * g of row 0 into ghlo and
+// lambda^2 * w_1 * g of row X - 1 into ghhi, (1, Y, Z) each.
+template <bool kHalos, int kThreads, int kWalk>
 __device__ __forceinline__ void adjoint_walk(
     const float* __restrict__ g, const int* __restrict__ code,
     float* __restrict__ gcur, float* __restrict__ ghlo,
     float* __restrict__ ghhi, int X, int Y, int Z, FastDiv fz) {
   const int YZ = Y * Z;
-  const int p = blockIdx.x * kAdjThreads + threadIdx.x;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
   const bool live = p < YZ;
   const int y = fast_div(p, fz);
   const int z = p - y * Z;
-  const int x0 = blockIdx.y * kAdjWalk;
+  const int x0 = blockIdx.y * kWalk;
   int i = x0 * YZ + p;  // node (x, y, z)
 
   // g and the code at x0 - 1 and x0
@@ -121,7 +122,7 @@ __device__ __forceinline__ void adjoint_walk(
     c0 = code[i];
   }
 #pragma unroll
-  for (int t = 0; t < kAdjWalk; ++t) {
+  for (int t = 0; t < kWalk; ++t) {
     const int x = x0 + t;
     if (x >= X) break;  // uniform across the CTA
     float gp = 0.f, gym = 0.f, gyp = 0.f, gzm = 0.f, gzp = 0.f;

@@ -46,14 +46,19 @@
 
 namespace {
 
-__global__ void __launch_bounds__(wv::kAdjThreads, wv::kAdjCtasPerSm)
+constexpr int kThreads = 256;  // nodes of a row a CTA
+constexpr int kWalk = 4;       // x rows a thread walks
+constexpr int kCtasPerSm = 8;  // 2,048 threads an SM: <= 32 registers
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 mesh_weighted_step_haloed_bwd_kernel(const float* __restrict__ g,
                                      const int* __restrict__ code,
                                      float* __restrict__ gcur,
                                      float* __restrict__ ghlo,
                                      float* __restrict__ ghhi, int X, int Y,
                                      int Z, wv::FastDiv fz) {
-  wv::adjoint_walk<true>(g, code, gcur, ghlo, ghhi, X, Y, Z, fz);
+  wv::adjoint_walk<true, kThreads, kWalk>(g, code, gcur, ghlo, ghhi, X, Y, Z,
+                                          fz);
 }
 
 }  // namespace
@@ -66,7 +71,7 @@ int wv_mesh_weighted_step_haloed_bwd_f32(const float* g, const int* code,
                                          float* gcur, float* ghlo, float* ghhi,
                                          int X, int Y, int Z, void* stream) {
   mesh_weighted_step_haloed_bwd_kernel<<<
-      wv::adjoint_grid(X, Y, Z), wv::kAdjThreads, 0,
+      wv::adjoint_grid<kThreads, kWalk>(X, Y, Z), kThreads, 0,
       static_cast<cudaStream_t>(stream)>>>(g, code, gcur, ghlo, ghhi, X, Y,
                                            Z, wv::make_fast_div(Z));
   return static_cast<int>(cudaGetLastError());
@@ -84,9 +89,10 @@ int wv_mesh_weighted_step_haloed_bwd_occupancy(const int* dims, int* out) {
   out[0] = attrs.numRegs;
   out[1] = static_cast<int>(attrs.localSizeBytes);
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], mesh_weighted_step_haloed_bwd_kernel, wv::kAdjThreads, 0);
-  out[3] = wv::kAdjThreads;
-  const dim3 grid = wv::adjoint_grid(dims[0], dims[1], dims[2]);
+      &out[2], mesh_weighted_step_haloed_bwd_kernel, kThreads, 0);
+  out[3] = kThreads;
+  const dim3 grid =
+      wv::adjoint_grid<kThreads, kWalk>(dims[0], dims[1], dims[2]);
   out[4] = static_cast<int>(grid.x * grid.y * grid.z);
   return static_cast<int>(e);
 }

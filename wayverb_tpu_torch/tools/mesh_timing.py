@@ -1,12 +1,29 @@
-"""Time the general mesh's shard kernels at the columns hall's shard shape:
-with ``--kernel b11`` the shard adjoint B11.
+"""Time the general mesh's adjoint kernels on the columns hall's own weight
+code: with ``--kernel b9`` the adjoint B9 at the whole hall, with
+``--kernel b11`` the shard adjoint B11 at a shard of it.
 
+    python -m wayverb_tpu_torch.tools.mesh_timing --kernel b9
     python -m wayverb_tpu_torch.tools.mesh_timing --kernel b11
 
-On the card, at the second of four x-shards of the columns hall
-(``procedural_hall(2, 4, 1)`` meshed at the engine's rate for a 1500 Hz
-cutoff with x aligned to 4, as ``Engine(device_mesh=…)`` meshes it: a shard
-of (86, 139, 259)), ``--kernel b11``:
+On the card, at the columns hall (``procedural_hall(2, 4, 1)`` meshed at
+the engine's rate for a 1500 Hz cutoff, as ``chip_smoke.py`` phase 19
+meshes it: (343, 139, 259)), ``--kernel b9``:
+
+* builds ``csrc/mesh_weighted_step_bwd.cu`` and prints ptxas's registers,
+  stack and spills, and what the card makes of the kernel
+  (``stencil_kernels.bwd_occupancy``; None on a tree that lacks it);
+* counts the share of the kernel's warps that take its bare path on the
+  hall's code (``bare_warps``);
+* holds B9 to the bit against ``_weighted_step_bwd_plain`` on the hall's
+  code (random g, g at 1e38 with ±inf and NaN, all −0) and on a random
+  code;
+* times B9 with the stream held, beside the wrapper's host µs a call, the
+  plain version's µs, B8 (the forward step) at the same shape, and both
+  bounds (``mesh_bounds``).
+
+At the second of four x-shards of the columns hall (meshed as above with x
+aligned to 4, as ``Engine(device_mesh=…)`` meshes it: a shard of (86, 139,
+259)), ``--kernel b11``:
 
 * builds ``csrc/mesh_weighted_step_haloed_bwd.cu`` and prints ptxas's
   registers, stack and spills, and what the card makes of the kernel
@@ -45,6 +62,19 @@ SEED = 20261017
 REPS = 200
 
 
+def mesh_bounds(dims) -> dict:
+    """{kernel: (µs, "bytes" or "operations")} of one step on a grid of
+    ``dims`` (``chip_smoke.py`` reports them too).  B8: cur, prev and the
+    int32 code in, out out; 6 multiplies and 6 adds, then two multiplies
+    and a subtract a node.  B9: g and the code in, ĝcur out; 6 multiplies, 6
+    adds and a multiply a node.  B12: cur, prev and the mask in, out out; 6
+    adds, a multiply, a subtract and a multiply a node."""
+    n = dims[0] * dims[1] * dims[2]
+    return {"b8": roofline.bound_us(16 * n, 15 * n),
+            "b9": roofline.bound_us(12 * n, 13 * n),
+            "b12": roofline.bound_us(16 * n, 9 * n)}
+
+
 def shard_bounds(dims) -> dict:
     """{kernel: (µs, "bytes" or "operations")} of one launch on a shard of
     ``dims`` (``chip_smoke.py`` reports them too).  B10: cur, prev, the
@@ -67,11 +97,27 @@ def bits_equal(a, b) -> bool:
                             torch.where(nan, 0, b.view(torch.int32))))
 
 
-def columns_shard_code(device="cuda", shard: int = 1,
-                       cutoff: float = COLUMNS_CUTOFF):
-    """The int32 weight code of x-shard ``shard`` of the columns hall
-    meshed for ``cutoff`` Hz and split in ``SHARDS``, as ``chip_smoke.py``
-    phase 29 takes it (the tests take it at 400 Hz)."""
+def case_g(what: str, shape, gen):
+    """g of a bit-equality case, on ``gen``'s device: ``"random"`` normal,
+    ``"1e38 inf nan"`` normal × 1e38 with ±inf and NaN sprinkled in (sums
+    that overflow, 0·inf at weight-0 neighbours), or ``"all -0"``."""
+    if what == "all -0":
+        return torch.full(shape, -0.0, device=gen.device)
+    g = torch.randn(*shape, generator=gen, device=gen.device)
+    if what == "1e38 inf nan":
+        g = g * 1e38
+        flat = g.view(-1)
+        flat[::7], flat[::11], flat[::13] = (float("inf"), float("-inf"),
+                                             float("nan"))
+    elif what != "random":
+        raise ValueError(f"case_g: no case {what!r}")
+    return g
+
+
+def columns_code(device="cuda", cutoff: float = COLUMNS_CUTOFF, align=None):
+    """The int32 weight code of the columns hall meshed for ``cutoff`` Hz:
+    as ``chip_smoke.py`` phase 19 meshes it with ``align`` None, as
+    ``Engine(device_mesh=…)`` does with ``(SHARDS, 1, 1)``."""
     from wayverb_tpu_torch.raytracer.scenes import procedural_hall
     from wayverb_tpu_torch.waveguide import run as wgrun
     from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
@@ -79,18 +125,26 @@ def columns_shard_code(device="cuda", shard: int = 1,
     mesh = wgrun.compute_mesh(procedural_hall(2, 4, 1)[0],
                               np.full((1, 8), ABSORPTION),
                               grid_spacing(340.0, 1.0 / fs), fs,
-                              align=(SHARDS, 1, 1), device=device)
-    code = mesh.structure.weight_code
+                              align=align, device=device)
+    return mesh.structure.weight_code
+
+
+def columns_shard_code(device="cuda", shard: int = 1,
+                       cutoff: float = COLUMNS_CUTOFF):
+    """The int32 weight code of x-shard ``shard`` of the columns hall
+    meshed for ``cutoff`` Hz and split in ``SHARDS``, as ``chip_smoke.py``
+    phase 29 takes it (the tests take it at 400 Hz)."""
+    code = columns_code(device, cutoff, align=(SHARDS, 1, 1))
     xl = code.shape[0] // SHARDS
     return code[shard * xl:(shard + 1) * xl].contiguous()
 
 
 def bare_warps(code):
-    """Which of B11's warps take its bare path: (X, ⌈Y·Z/32⌉) bool, warp s
-    of row x holding the nodes p = 32·s … 32·s + 31 of the flattened (y, z)
-    plane (``csrc/mesh_adjoint.cuh``); true where all 32 exist and each sees
-    six neighbours in the grid whose codes give all six weights exactly 1.
-    Those warps sum g without decoding."""
+    """Which warps of B9 and B11 take their bare path: (X, ⌈Y·Z/32⌉) bool,
+    warp s of row x holding the nodes p = 32·s … 32·s + 31 of the flattened
+    (y, z) plane (``csrc/mesh_adjoint.cuh``); true where all 32 exist and
+    each sees six neighbours in the grid whose codes give all six weights
+    exactly 1.  Those warps sum g without decoding."""
     X, Y, Z = code.shape
     one = (code & 0xFFF) == 0x3F
     node = torch.zeros_like(one)
@@ -101,6 +155,17 @@ def bare_warps(code):
     flat = torch.zeros((X, 32 * warps), dtype=torch.bool, device=code.device)
     flat[:, :Y * Z] = node.reshape(X, Y * Z)
     return flat.reshape(X, warps, 32).all(-1)
+
+
+def b9_equal(g, code) -> dict:
+    """B9 and its plain version on (g, code): bit-equality and the largest
+    |kernel − plain|."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    got = sk.weighted_step_bwd(g, code)
+    want = sk._weighted_step_bwd_plain(g, code)
+    torch.cuda.synchronize()
+    return {"equal": bits_equal(got, want),
+            "max_abs_err": float((got - want).abs().nan_to_num().max())}
 
 
 def b11_equal(g, code) -> dict:
@@ -164,23 +229,68 @@ def main_b11() -> dict:
     return row
 
 
+def main_b9() -> dict:
+    """The ``--kernel b9`` mode: one JSON line."""
+    from wayverb_tpu_torch.tools.mega_timing import (device_time_us,
+                                                     ptxas_lines)
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    t0 = time.perf_counter()
+    ptxas = ptxas_lines("mesh_weighted_step_bwd")
+    code = columns_code()
+    dims = tuple(code.shape)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    random_code = torch.randint(0, 1 << 13, dims, generator=gen,
+                                device="cuda", dtype=torch.int32)
+    checks = {f"hall, {what}": b9_equal(case_g(what, dims, gen), code)
+              for what in ("random", "1e38 inf nan", "all -0")}
+    checks["random code"] = b9_equal(case_g("random", dims, gen),
+                                     random_code)
+    g = case_g("random", dims, gen)
+    us, host_us = device_time_us(lambda: sk.weighted_step_bwd(g, code), REPS)
+    plain_us, _ = device_time_us(
+        lambda: sk._weighted_step_bwd_plain(g, code), 20)
+    cur, prev = (case_g("random", dims, gen) for _ in range(2))
+    out = torch.empty_like(cur)
+    b8_us, _ = device_time_us(
+        lambda: sk.weighted_step(cur, prev, code, out=out), REPS)
+    bounds = mesh_bounds(dims)
+    equal = all(c["equal"] for c in checks.values())
+    row = {"kernel": "b9", "shape": list(dims), "ptxas": ptxas,
+           # trees before the redesign (a parent checked beside it) have
+           # no occupancy query
+           "occupancy": (sk.bwd_occupancy(dims=dims)
+                         if hasattr(sk, "bwd_occupancy") else None),
+           "bare_warp_share": float(bare_warps(code).float().mean()),
+           "equal_plain": equal, "checks": checks, "us_per_launch": us,
+           "host_us_per_call": host_us,
+           "plain_us": plain_us, "bound_us": bounds["b9"][0],
+           "bound_by": bounds["b9"][1],
+           "time_over_bound": us / bounds["b9"][0],
+           "b8_us_per_launch": b8_us, "b8_bound_us": bounds["b8"][0],
+           "wall_s": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    if not equal:
+        raise SystemExit("mesh_timing: B9 differs from its plain version")
+    return row
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m wayverb_tpu_torch.tools.mesh_timing",
-        description="Time a general-mesh shard kernel at the columns hall's "
-                    "shard shape.")
-    p.add_argument("--kernel", choices=("b11",), default="b11")
+        description="Time a general-mesh adjoint kernel on the columns "
+                    "hall's weight code: B9 at the hall, B11 at a shard.")
+    p.add_argument("--kernel", choices=("b9", "b11"), default="b11")
     return p.parse_args(argv)
 
 
 def main(argv=None):
-    parse_args(argv)
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mesh_timing: needs a CUDA device")
     from wayverb_tpu_torch.tools.probe_resident import \
         card_name_and_power_limit
     print(card_name_and_power_limit(), flush=True)
-    return main_b11()
+    return main_b9() if args.kernel == "b9" else main_b11()
 
 
 if __name__ == "__main__":

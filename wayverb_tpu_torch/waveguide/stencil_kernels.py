@@ -89,6 +89,12 @@ def _weighted_step_bwd_plain(g, weight_code):
     return COURANT_SQ * acc
 
 
+def _prev_cotangent(g, weight_code):
+    """ĝprev = −bit12·g: the adjoint of both weighted steps in ``prev``,
+    elementwise plain tensor code, as in the TPU version."""
+    return -_is_interior(weight_code, g.dtype) * g
+
+
 def _interior_step_plain(current, previous, interior_mask):
     """The plain torch version of the masked 7-point update (includes
     reentrant nodes): the reference's ``stencil.interior_step``."""
@@ -108,18 +114,47 @@ def _check(what: str, name: str, t, ref, dtype=torch.float32):
             f"(contiguous={t.is_contiguous()})")
 
 
-def _launch(what: str, name: str, entry: str, tensors):
+# x rows a thread walks in the adjoint kernels (kWalk of
+# csrc/mesh_weighted_step_bwd.cu and csrc/mesh_weighted_step_haloed_bwd.cu)
+BWD_WALK = 8
+SHARD_BWD_WALK = 4
+
+
+def _stencil_geometry(X, Y, Z):
+    """Why ``mesh_stencil.cuh``'s launch, CTAs of 128 z × 2 y of one x row
+    on a grid of (⌈Z/128⌉, ⌈Y/2⌉, X), cannot cover the grid, or None."""
+    if X > 65535 or (Y + 1) // 2 > 65535:
+        return "is outside what the kernel's launch geometry covers"
+    return None
+
+
+def _adjoint_geometry(walk: int):
+    """``geometry(X, Y, Z)``: why ``mesh_adjoint.cuh``'s launch, CTAs of
+    (y, z) nodes each walking ``walk`` x rows on a grid of (⌈Y·Z/CTA⌉,
+    ⌈X/walk⌉) with 32-bit node indices, cannot cover the grid, or None."""
+    def geometry(X, Y, Z):
+        if X * Y * Z >= 2 ** 31:
+            return "has 2^31 nodes or more; the kernel's indices are 32-bit"
+        if -(-X // walk) > 65535:
+            return "is outside what the kernel's launch geometry covers"
+        return None
+    return geometry
+
+
+def _launch(what: str, name: str, entry: str, tensors,
+            geometry=_stencil_geometry):
     """Launch ``entry`` of ``csrc/<name>.cu`` on ``tensors`` (inputs, then
     outputs; the first is (X, Y, Z) and sets the grid), on the current
-    stream of their device."""
+    stream of their device.  ``geometry(X, Y, Z)`` says why the kernel's
+    launch cannot cover a grid (None when it can)."""
     ref = tensors[0]
     if ref.dim() != 3:
         raise ValueError(f"{what}: fields must be (X, Y, Z), got "
                          f"{tuple(ref.shape)}")
     X, Y, Z = ref.shape
-    if X > 65535 or (Y + 1) // 2 > 65535 or X * Y * Z == 0:
-        raise ValueError(f"{what}: grid {(X, Y, Z)} is outside what the "
-                         "kernel's launch geometry covers")
+    why = "is empty" if X * Y * Z == 0 else geometry(X, Y, Z)
+    if why is not None:
+        raise ValueError(f"{what}: grid {(X, Y, Z)} {why}")
     lib = load_entry(name, entry, len(tensors))
     err = getattr(lib, entry)(
         *(t.data_ptr() for t in tensors), X, Y, Z,
@@ -199,7 +234,8 @@ def weighted_step_bwd(g, weight_code):
         _check(what, "weight_code", weight_code, g, torch.int32)
         res = torch.empty_like(g)
         _launch(what, "mesh_weighted_step_bwd",
-                "wv_mesh_weighted_step_bwd_f32", (g, weight_code, res))
+                "wv_mesh_weighted_step_bwd_f32", (g, weight_code, res),
+                _adjoint_geometry(BWD_WALK))
         weighted_step_bwd.launches += 1
         return res
     if g.device.type != "cpu":
@@ -225,7 +261,7 @@ class _WeightedStep(torch.autograd.Function):
         weight_code, = ctx.saved_tensors
         gcur = weighted_step_bwd(g, weight_code) \
             if ctx.needs_input_grad[0] else None
-        gprev = -_is_interior(weight_code, g.dtype) * g \
+        gprev = _prev_cotangent(g, weight_code) \
             if ctx.needs_input_grad[1] else None
         return gcur, gprev, None
 
@@ -378,14 +414,12 @@ def weighted_step_sharded_bwd(g, weight_code):
         g = g.contiguous()
         _check(what, "g", g, g)
         _check(what, "weight_code", weight_code, g, torch.int32)
-        if g.numel() >= 2 ** 31:
-            raise ValueError(f"{what}: {tuple(g.shape)} has 2^31 nodes or "
-                             "more; the kernel's indices are 32-bit")
         gcur = torch.empty_like(g)
         ghlo, ghhi = torch.empty_like(g[:1]), torch.empty_like(g[:1])
         _launch(what, "mesh_weighted_step_haloed_bwd",
                 "wv_mesh_weighted_step_haloed_bwd_f32",
-                (g, weight_code, gcur, ghlo, ghhi))
+                (g, weight_code, gcur, ghlo, ghhi),
+                _adjoint_geometry(SHARD_BWD_WALK))
         weighted_step_sharded_bwd.launches += 1
         return gcur, (ghlo, ghhi)
     if g.device.type != "cpu":
@@ -397,13 +431,13 @@ def weighted_step_sharded_bwd(g, weight_code):
 weighted_step_sharded_bwd.launches = 0
 
 
-def shard_bwd_occupancy(device="cuda", dims=(86, 139, 259)) -> dict:
-    """What the card makes of the shard adjoint's kernel (B11): registers a
-    thread, local memory (spills) a thread in bytes, CTAs resident on one
-    SM, threads a CTA, and the CTAs one launch runs on a shard of ``dims``
-    (default: the columns hall's shard)."""
-    lib = load("mesh_weighted_step_haloed_bwd")
-    fn = lib.wv_mesh_weighted_step_haloed_bwd_occupancy
+def _occupancy(name: str, device, dims) -> dict:
+    """What the card makes of the kernel of ``csrc/<name>.cu`` (its entry
+    ``wv_<name>_occupancy``): registers a thread, local memory (spills) a
+    thread in bytes, CTAs resident on one SM, threads a CTA, and the CTAs
+    one launch runs on a grid of ``dims``."""
+    lib = load(name)
+    fn = getattr(lib, f"wv_{name}_occupancy")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     lib.wv_cuda_error_string.argtypes = [ctypes.c_int]
@@ -412,10 +446,22 @@ def shard_bwd_occupancy(device="cuda", dims=(86, 139, 259)) -> dict:
     with torch.cuda.device(device):
         err = fn((ctypes.c_int * 3)(*dims), out)
     if err != 0:
-        raise RuntimeError("wv_mesh_weighted_step_haloed_bwd_occupancy "
-                           "failed: " + lib.wv_cuda_error_string(err).decode())
+        raise RuntimeError(f"wv_{name}_occupancy failed: "
+                           + lib.wv_cuda_error_string(err).decode())
     return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads",
                      "grid"), out))
+
+
+def bwd_occupancy(device="cuda", dims=(343, 139, 259)) -> dict:
+    """``_occupancy`` of the adjoint's kernel (B9) on a grid of ``dims``
+    (default: the columns hall's)."""
+    return _occupancy("mesh_weighted_step_bwd", device, dims)
+
+
+def shard_bwd_occupancy(device="cuda", dims=(86, 139, 259)) -> dict:
+    """``_occupancy`` of the shard adjoint's kernel (B11) on a shard of
+    ``dims`` (default: the columns hall's shard)."""
+    return _occupancy("mesh_weighted_step_haloed_bwd", device, dims)
 
 
 class _WeightedStepSharded(torch.autograd.Function):
@@ -435,6 +481,6 @@ class _WeightedStepSharded(torch.autograd.Function):
         gcur = ghlo = ghhi = None
         if need[0] or need[3] or need[4]:
             gcur, (ghlo, ghhi) = weighted_step_sharded_bwd(g, weight_code)
-        gprev = -_is_interior(weight_code, g.dtype) * g if need[1] else None
+        gprev = _prev_cotangent(g, weight_code) if need[1] else None
         return (gcur if need[0] else None, gprev, None,
                 ghlo if need[3] else None, ghhi if need[4] else None)
