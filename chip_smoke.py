@@ -35,8 +35,11 @@ Drives the port through its public entry points on the card and fails
    source and receiver taps, to the bit; the phase's wall;
 10. the hybrid engine on the card against the same run on the CPU, with the
     same random draws;
-11. B5 (the fused step's adjoint) against its plain version at the seven
-    shapes of phase 3, and its time at the hall shape;
+11. B5 (the fused step's adjoint) against its plain version to the bit
+    (``bits_equal``: −0 apart from +0) at the seven shapes of phase 3, on
+    1e38 / ±inf / NaN cotangents and on all −0 at the hall, and its time at
+    the hall with the stream held, beside the wrapper's host time, its
+    registers, local bytes, CTAs an SM and its warps' paths;
 12. B6 (the grad-mode chunk: B2's outputs plus the residual block, to the
     bit) and B7 (the chunk's adjoint, K = 128) against their plain versions
     at three shapes, the hall from random state among them, the error per
@@ -186,7 +189,7 @@ ABSORPTION = 0.1
 SEED = 20261016
 MEGA_VS_FUSED_REL = 1e-4    # mega vs fused path over 1024 steps, of peak
 HYBRID_REL = 1e-3           # hybrid IR card vs CPU, of peak
-BWD_REL = 1e-5             # B5, B6 residuals, B7 vs plain, of the largest
+BWD_REL = 1e-5             # B6 residuals, B7 vs plain, of the largest
 GRAD_REL = 1e-4            # gradients between routes and card vs CPU
 CHUNK = 128
 GRAD_STEPS = 640           # the hall's backward workload: 5 chunks
@@ -961,21 +964,13 @@ def _bound(n_bytes, flops):
     return us / 1e3, by
 
 
-def b5_bound(dims):
-    """(bound_ms, bound_by) of one B5 step on a field (or shard) of
-    ``dims``: g and the six inner cotangents in; gcur, gprev, the six plane
-    cotangents and the two halo rows out; 8 operations a node."""
-    X, Y, Z = dims
-    n = X * Y * Z
-    natural = 2 * (Y * Z + X * Z + X * Y)
-    return _bound(4 * (3 * n + 2 * natural + 2 * Y * Z), 8 * n)
-
-
 def kernel_bounds(spec, order, k):
     """Bounds per step (B5) or per sub-step of a K = CHUNK chunk (B2, B6,
-    B7) at ``spec``, from the shapes alone (B1's is ``mega_timing.b1_bound``).
+    B7) at ``spec``, from the shapes alone (B1's and B5's are
+    ``mega_timing.b1_bound`` and ``b5_bound``).
     Stencil: 6 adds, a multiply and a subtract per node; the adjoint's node
     update: 6 adds, a multiply, an add and a negation."""
+    from wayverb_tpu_torch.tools.mega_timing import b5_bound
     from wayverb_tpu_torch.waveguide.box_fused import stacked_plane_shape
     X, Y, Z = spec.dims
     n = X * Y * Z
@@ -983,7 +978,8 @@ def kernel_bounds(spec, order, k):
     plane = 6 * Umax * Vmax
     f = 4                                               # bytes per float32
     out = {}
-    out["b5"] = b5_bound(spec.dims)
+    b5_us, b5_by = b5_bound(spec.dims)
+    out["b5"] = (b5_us / 1e3, b5_by)
     # a chunk: cur, prev, state, planes in and out, signal in, taps out
     chunk_io = f * (4 * n + 2 * (order + 3) * plane + CHUNK * (1 + k))
     out["b2"] = _bound(chunk_io / CHUNK, 8 * n + 40 * plane)
@@ -1012,9 +1008,14 @@ def _rel_err(got, want):
 
 def phase_b5_vs_plain(torch, hall_spec, card):
     """fused_step_bwd (CUDA kernel B5) against _fused_step_bwd_plain on the
-    same tensors, at the shapes B1 is checked at."""
-    from wayverb_tpu_torch.waveguide.box_fused import (
-        BoxSpec, _fused_step_bwd_plain, _plane_shapes, fused_step_bwd)
+    same tensors, to the bit (``bits_equal``: NaN for NaN, −0 apart from
+    +0) in gcur, gprev, the six plane cotangents and both halo cotangents,
+    at the shapes B1 is checked at, on random, 1e38 / ±inf / NaN and all −0
+    cotangents.  Returns the largest finite |kernel − plain| (0.0 when all
+    agree to the bit)."""
+    from wayverb_tpu_torch.tools.mega_timing import b5_equal
+    from wayverb_tpu_torch.tools.mesh_timing import case_g
+    from wayverb_tpu_torch.waveguide.box_fused import BoxSpec, _plane_shapes
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     s16 = BoxSpec(dims=(16, 16, 128), ilo=(2, 2, 2), ihi=(13, 13, 125),
                   face_surface=(0,) * 6)
@@ -1024,55 +1025,64 @@ def phase_b5_vs_plain(torch, hall_spec, card):
                   face_surface=(0,) * 6)
     hx, hy, hz = hall_spec.dims
     cases = [
-        (s16, 0, (8, 9, 64), 0, "no injection"),
-        (s16, 0, (8, 9, 64), 1, "hard source deep inside"),
-        (s16, 0, (2, 9, 64), 2, "soft source on the inner x plane"),
-        (s16, 0, (9, 4, 125), 1, "source at a thread-block edge"),
-        (s16x, 4, (10, 7, 40), 1, "x offset 4: the low x plane is elsewhere"),
-        (s37, 0, (18, 14, 26), 1, "unaligned 37x29x53"),
-        (hall_spec, 0, (hx // 2, hy // 2, hz // 2), 1, "hall shape"),
+        (s16, 0, (8, 9, 64), 0, "random", "no injection"),
+        (s16, 0, (8, 9, 64), 1, "random", "hard source deep inside"),
+        (s16, 0, (2, 9, 64), 2, "random", "soft source on the inner x plane"),
+        (s16, 0, (9, 4, 125), 1, "random", "source at a thread-block edge"),
+        (s16x, 4, (10, 7, 40), 1, "random",
+         "x offset 4: the low x plane is elsewhere"),
+        (s37, 0, (18, 14, 26), 1, "random", "unaligned 37x29x53"),
+        (hall_spec, 0, (hx // 2, hy // 2, hz // 2), 1, "random",
+         "hall shape"),
+        (s37, 0, (18, 14, 26), 1, "1e38 inf nan",
+         "unaligned, 1e38 with inf and NaN"),
+        (hall_spec, 0, (hx // 2, hy // 2, hz // 2), 1, "all -0",
+         "hall shape, all -0"),
     ]
     worst = 0.0
-    for spec, xo, src, mode, what in cases:
+    for spec, xo, src, mode, kind, what in cases:
         X, Y, Z = spec.dims
         X -= xo
-        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
-        g = rnd(X, Y, Z)
-        ginner = tuple(rnd(*s) for s in _plane_shapes(X, Y, Z))
-        args = (spec.geom_array(x_offset=xo), g, ginner, src + (mode,))
-        got = fused_step_bwd(*args)
-        want = _fused_step_bwd_plain(*args)
-        torch.cuda.synchronize()
-        flat = lambda r: (r[0], r[1], *r[2], *r[3])  # noqa: E731
-        err = max(float((a - b).abs().max())
-                  for a, b in zip(flat(got), flat(want)))
-        peak = float(g.abs().max())
-        worst = max(worst, err)
-        print(f"[11 B5] {(X, Y, Z)} mode {mode} ({what}): max |kernel - "
-              f"plain| = {err:.3e} over gcur, gprev, 6 planes, 2 halos "
-              f"(bound {BWD_REL:g} x {peak:.3f})")
-        if not err <= BWD_REL * peak:
+        g = case_g(kind, (X, Y, Z), gen)
+        ginner = tuple(case_g(kind, s, gen) for s in _plane_shapes(X, Y, Z))
+        res = b5_equal((spec.geom_array(x_offset=xo), g, ginner,
+                        src + (mode,)))
+        worst = max(worst, res["max_abs_err"])
+        print(f"[11 B5] {(X, Y, Z)} mode {mode} ({what}): to the bit in "
+              f"gcur, gprev, 6 planes, 2 halos: {res['equal']} (differ: "
+              f"{res['differ']}; max finite |kernel - plain| = "
+              f"{res['max_abs_err']:.3e})")
+        if not res["equal"]:
             _fail(f"B5 disagrees with its plain version: {what}")
     return worst
 
 
 def phase_b5_time(torch, spec, card):
+    """B5 alone at the hall with a hard source at the centre, with the
+    stream held (a launch is shorter than the wrapper's host time), beside
+    the plain version, its registers, local bytes, CTAs an SM and the
+    shares of its warps' paths."""
+    from wayverb_tpu_torch.tools.mega_timing import (b5_case, b5_warp_shares,
+                                                     device_time_us)
     from wayverb_tpu_torch.waveguide.box_fused import (
-        _fused_step_bwd_plain, _plane_shapes, fused_step_bwd)
+        _fused_step_bwd_plain, fused_step_bwd, step_bwd_occupancy)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    g = torch.randn(*spec.dims, generator=gen, device="cuda")
-    ginner = tuple(torch.randn(*s, generator=gen, device="cuda")
-                   for s in _plane_shapes(*spec.dims))
-    inj = tuple(d // 2 for d in spec.dims) + (1,)
-    geom = spec.geom_array()
-    k_us = _cuda_time_us(torch, lambda: fused_step_bwd(geom, g, ginner, inj),
-                         100)
-    p_us = _cuda_time_us(torch, lambda: _fused_step_bwd_plain(
-        geom, g, ginner, inj), 20)
-    print(f"[11 B5] alone at {spec.dims}: kernel {k_us:.2f} us/step "
-          f"({12 * g.numel() / k_us / 1e3:.1f} GB/s at 12 B/node), plain "
-          f"version {p_us:.2f} us/step [{card}]")
-    return k_us, p_us
+    args = b5_case(spec, 0, spec.dims[0], gen)
+    k_us, host_us = device_time_us(lambda: fused_step_bwd(*args), 200)
+    p_us = _cuda_time_us(torch, lambda: _fused_step_bwd_plain(*args), 20)
+    occ = step_bwd_occupancy(dims=spec.dims)
+    shares = b5_warp_shares(args[0], spec.dims, args[3])
+    rate = 12 * args[1].numel() / k_us / 1e3
+    print(f"[11 B5] alone at {spec.dims}: kernel {k_us:.2f} us a launch on "
+          f"the device with the stream held ({rate:.1f} GB/s at 12 B/node; "
+          f"{host_us:.1f} us a call on the host), plain "
+          f"version {p_us:.2f} us; {occ['registers']} registers, "
+          f"{occ['local_bytes']} B local, {occ['ctas_per_sm']} CTAs of "
+          f"{occ['threads']} an SM, {occ['grid']} CTAs; (warp, row) pairs "
+          + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+          + f" [{card}]")
+    return {"us": k_us, "host_us": host_us, "plain_us": p_us,
+            "occupancy": occ, "warp_shares": shares}
 
 
 def _grad_chunk_case(torch, tag, what, spec, fb, fa, src, taps, gen):
@@ -3200,6 +3210,7 @@ def _b5_shard_time(torch, spec, card):
     """B5 alone on the second of the shoebox hall's x-shards, as the
     sharded gradient launches it (halo cotangents out), with the stream
     held; its bound."""
+    from wayverb_tpu_torch.tools.mega_timing import b5_bound
     from wayverb_tpu_torch.waveguide.box_fused import (_plane_shapes,
                                                        fused_step_bwd)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
@@ -3211,13 +3222,13 @@ def _b5_shard_time(torch, spec, card):
     geom = spec.geom_array(x_offset=dims[0])
     us, host_us = _device_time_us(torch, lambda: fused_step_bwd(geom, g,
                                                                 ginner), 100)
-    bound_ms, by = b5_bound(dims)
+    bound_us, by = b5_bound(dims)
     print(f"[33 box sharded] B5 alone at the shard shape {dims} with halos: "
           f"{us:.2f} us a launch on the device ({host_us:.1f} us a call on "
-          f"the host), bound {1e3 * bound_ms:.2f} us by {by}, "
-          f"{us / (1e3 * bound_ms):.2f}x [{card}]")
+          f"the host), bound {bound_us:.2f} us by {by}, "
+          f"{us / bound_us:.2f}x [{card}]")
     return {"shape": list(dims), "ms": us / 1e3, "host_ms": host_us / 1e3,
-            "bound_ms": bound_ms, "bound_by": by}
+            "bound_ms": bound_us / 1e3, "bound_by": by}
 
 
 def phase_sharded_trace(torch, card):
@@ -3391,7 +3402,7 @@ def main():
     torch.cuda.empty_cache()
 
     b5_err = phase_b5_vs_plain(torch, mesh.box_spec, card)
-    b5_us, b5_plain_us = phase_b5_time(torch, mesh.box_spec, card)
+    b5_time = phase_b5_time(torch, mesh.box_spec, card)
     b6_err, b7_err, grad_case = phase_grad_chunks_vs_plain(torch, mesh, box,
                                                            dx, card)
     b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us, b7_occ = \
@@ -3572,11 +3583,20 @@ def main():
         "shape": list(hall_dims),
         "launches": counted["box_fused_step_bwd"],
         "max_abs_err": b5_err,
-        "ms": b5_us / 1e3,
-        "plain_ms": b5_plain_us / 1e3,
+        "bits_equal": True,
+        "err_is": "every output to the bit (NaN for NaN, -0 apart from +0) "
+                  "in all nine cases of phase 11, or the phase fails",
+        "ms": b5_time["us"] / 1e3,
+        "plain_ms": b5_time["plain_us"] / 1e3,
         "bound_ms": bounds["b5"][0], "bound_by": bounds["b5"][1],
         "library_ms": None,
         "ms_is_per": "step",
+        "host_ms_per_call": b5_time["host_us"] / 1e3,
+        **{k: b5_time["occupancy"][k]
+           for k in ("registers", "local_bytes", "ctas_per_sm")},
+        "warp_shares": b5_time["warp_shares"],
+        "shard": {k: box_sharded["b5_shard"][k]
+                  for k in ("shape", "ms", "host_ms", "bound_ms")},
     }, {
         "name": f"box_mega_chunk grad mode (K={CHUNK})",
         "route": "cuda",

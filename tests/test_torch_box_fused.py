@@ -286,6 +286,201 @@ def test_kernel_order_matches_plain(rng, dims, x_off, rows, src, mode):
         assert torch.equal(g, w), q
 
 
+def _shifted(t, axis, d):
+    """A (Y, Z) plane read at index + d along ``axis``: +0 where that lies
+    off the plane."""
+    out = torch.zeros_like(t)
+    n = t.shape[axis] - abs(d)
+    if n > 0:
+        out.narrow(axis, max(-d, 0), n).copy_(t.narrow(axis, max(d, 0), n))
+    return out
+
+
+def _gtot_row(g, ginner, geom, x, rule):
+    """Unmasked Gtot on row x by one of the kernel's rules
+    (``mega_timing.B5_PATHS``): 0 bare (g + 0.f), 1 z only (g + 0.f, then
+    the inner z cotangents where z lies on an inner z plane), 2 x only (g,
+    the two inner x cotangents, + 0.f), 3 general (g and the six
+    inner-plane adds)."""
+    _, Y, Z = g.shape
+    y = torch.arange(Y).view(Y, 1)
+    z = torch.arange(Z).view(1, Z)
+    if rule < 2:
+        t = g[x] + 0.0
+        if rule == 1:
+            t = torch.where(z == geom[7], t + ginner[4][x][:, None], t)
+            t = torch.where(z == geom[8], t + ginner[5][x][:, None], t)
+        return t
+    zero = torch.zeros(())
+    gx = geom[0] + x
+    t = g[x]
+    if rule == 2:
+        t = t + (ginner[0] if gx == geom[3] else zero)
+        return t + (ginner[1] if gx == geom[4] else zero) + 0.0
+    t = t + (ginner[0] if gx == geom[3] else zero)
+    t = t + (ginner[1] if gx == geom[4] else zero)
+    t = t + torch.where(y == geom[5], ginner[2][x][None, :], zero)
+    t = t + torch.where(y == geom[6], ginner[3][x][None, :], zero)
+    t = t + torch.where(z == geom[7], ginner[4][x][:, None], zero)
+    t = t + torch.where(z == geom[8], ginner[5][x][:, None], zero)
+    return t
+
+
+def _row_walk_step_bwd(geom, g, ginner, inj_idx):
+    """The adjoint computed as the CUDA kernel B5 computes it: threads of
+    (y, z) nodes walking ``BWD_WALK`` x rows with Gtot at x − 1, x and x + 1
+    carried from row to row, each built by the rule of the row that loads
+    it (a walk's first two by its first row's), and each node's row on the
+    path of its warp (``mega_timing.b5_node_paths``): bare (the six g
+    summed, gprev = −(g + 0.f)), z only (the z tests and z planes only), x
+    only (the row's tests only) or general.  Unwritten elements stay NaN.  Returns (gcur, gprev, gplanes6,
+    (ghlo, ghhi))."""
+    from wayverb_tpu_torch.tools.mega_timing import b5_node_paths
+    X, Y, Z = g.shape
+    third = torch.tensor(tbf.COURANT_SQ, dtype=torch.float32)
+    zero = torch.zeros(())
+    y = torch.arange(Y).view(Y, 1)
+    z = torch.arange(Z).view(1, Z)
+    ilo0, ihi0, ilo1, ihi1, ilo2, ihi2 = geom[3:9]
+    blo0, bhi0 = ilo0 - 1, ihi0 + 1
+    paths = b5_node_paths(geom, (X, Y, Z), inj_idx)
+    sx, sy, sz, mode = inj_idx
+    src = (sx - geom[0], sy, sz) if mode == 1 else None
+    nan = lambda *s: torch.full(s, float("nan"))  # noqa: E731
+    gcur, gprev = nan(X, Y, Z), nan(X, Y, Z)
+    gpl = [nan(*s) for s in tbf._plane_shapes(X, Y, Z)]
+    ghlo, ghhi = nan(1, Y, Z), nan(1, Y, Z)
+
+    def by_path(x, path):
+        # Gtot on row x, each node's by its own path's rule
+        rows = [_gtot_row(g, ginner, geom, x, r) for r in range(4)]
+        out = rows[3]
+        for r in (2, 1, 0):
+            out = torch.where(path == r, rows[r], out)
+        return out
+
+    def in_box(gx):
+        return ((ilo0 <= gx <= ihi0) & (y >= ilo1) & (y <= ihi1) & (z >= ilo2)
+                & (z <= ihi2))
+
+    for x in range(X):
+        path = paths[x]
+        if x % tbf.BWD_WALK == 0:
+            gm = by_path(x - 1, path) if x > 0 else torch.zeros(Y, Z)
+            g0 = by_path(x, path)
+        gp = by_path(x + 1, path) if x + 1 < X else torch.zeros(Y, Z)
+        gx = geom[0] + x
+        # bare
+        acc = torch.zeros(Y, Z)
+        for term in (gm, gp, _shifted(g[x], 0, -1), _shifted(g[x], 0, 1),
+                     _shifted(g[x], 1, -1), _shifted(g[x], 1, 1)):
+            acc = acc + term
+        cur_b, prev_b = third * acc, -g0
+        # z only
+        zt = _gtot_row(g, ginner, geom, x, 1)
+        zin = (z >= ilo2) & (z <= ihi2)
+        acc = torch.zeros(Y, Z)
+        for term in (torch.where(zin, gm, zero), torch.where(zin, gp, zero),
+                     torch.where(zin, _shifted(zt, 0, -1), zero),
+                     torch.where(zin, _shifted(zt, 0, 1), zero),
+                     torch.where((z - 1 >= ilo2) & (z - 1 <= ihi2),
+                                 _shifted(zt, 1, -1), zero),
+                     torch.where((z + 1 >= ilo2) & (z + 1 <= ihi2),
+                                 _shifted(zt, 1, 1), zero)):
+            acc = acc + term
+        cur_z, prev_z = third * acc, -torch.where(zin, g0, zero)
+        # x only: the row's inside tests; y and z neighbours only inside
+        in_0 = ilo0 <= gx <= ihi0
+        acc = torch.zeros(Y, Z)
+        xt = _gtot_row(g, ginner, geom, x, 2)
+        for term in ((gm if x > 0 and ilo0 <= gx - 1 <= ihi0 else zero),
+                     (gp if x + 1 < X and ilo0 <= gx + 1 <= ihi0 else zero)):
+            acc = acc + term
+        if in_0:
+            for term in (_shifted(xt, 0, -1), _shifted(xt, 0, 1),
+                         _shifted(xt, 1, -1), _shifted(xt, 1, 1)):
+                acc = acc + term
+        cur_x, prev_x = third * acc, -(g0 if in_0 else torch.zeros(Y, Z))
+        # general
+        inside = in_box(gx)
+        gen = torch.where(inside, _gtot_row(g, ginner, geom, x, 3), zero)
+        acc = torch.zeros(Y, Z)
+        for term in (torch.where((x > 0) & in_box(gx - 1), gm, zero),
+                     torch.where((x + 1 < X) & in_box(gx + 1), gp, zero),
+                     _shifted(gen, 0, -1), _shifted(gen, 0, 1),
+                     _shifted(gen, 1, -1), _shifted(gen, 1, 1)):
+            acc = acc + term
+        G = torch.where(inside, g0, zero)
+        cur_g, prev_g = third * acc, -G
+        if src is not None and src[0] == x:
+            cur_g[src[1], src[2]] = prev_g[src[1], src[2]] = 0.0
+        for out, by in ((gcur, (cur_b, cur_z, cur_x, cur_g)),
+                        (gprev, (prev_b, prev_z, prev_x, prev_g))):
+            row = by[3]
+            for r in (2, 1, 0):
+                row = torch.where(path == r, by[r], row)
+            out[x] = row
+        # planes, from the general nodes, the z-only nodes for z and the
+        # x-only nodes for x and the halos
+        general = path == 3
+        x_rows = general | (path == 2)
+        on_x = gx in (blo0, bhi0)
+        if gx == blo0:
+            gpl[0] = torch.where(x_rows, g0, gpl[0])
+        if gx == bhi0:
+            gpl[1] = torch.where(x_rows, g0, gpl[1])
+        on_z = (z == ilo2 - 1) | (z == ihi2 + 1)
+        for q, c in ((2, ilo1 - 1), (3, ihi1 + 1)):
+            val = torch.where(on_z[0] | on_x, zero, g0[c])
+            gpl[q][x] = torch.where(general[c], val, gpl[q][x])
+        for q, c in ((4, ilo2 - 1), (5, ihi2 + 1)):
+            val = torch.where(general[:, c], zero if on_x else g0[:, c],
+                              torch.where(path[:, c] == 1, g0[:, c],
+                                          gpl[q][x]))
+            gpl[q][x] = val
+        if x == 0:
+            for q, b in ((0, blo0), (1, bhi0)):
+                if not 0 <= b - geom[0] < X:
+                    gpl[q] = torch.where(x_rows, zero, gpl[q])
+            ghlo[0] = torch.where(x_rows, third * G, ghlo[0])
+        if x == X - 1:
+            ghhi[0] = torch.where(x_rows, third * G, ghhi[0])
+        gm, g0 = g0, gp
+    return gcur, gprev, tuple(gpl), (ghlo, ghhi)
+
+
+# (dims, x offset, rows, source (global x, y, z), mode, cotangents)
+BWD_ORDER_CASES = [case + ("random",) for case in ORDER_CASES] + [
+    ((20, 16, 128), 4, 16, (12, 9, 64), 1, "all -0"),
+    ((37, 29, 53), 20, 2, (21, 14, 26), 1, "all -0"),
+    ((37, 29, 53), 0, 37, (18, 14, 26), 2, "1e38 inf nan"),
+    ((20, 16, 128), 8, 1, (8, 9, 64), 1, "1e38 inf nan"),
+]
+
+
+@pytest.mark.parametrize("dims,x_off,rows,src,mode,kind", BWD_ORDER_CASES)
+def test_adjoint_kernel_order_matches_plain(dims, x_off, rows, src, mode,
+                                            kind):
+    """B5's order of work and choice of warp paths in plain torch
+    (``_row_walk_step_bwd``) equals ``_fused_step_bwd_plain`` to the bit
+    (``bits_equal``: −0 apart from +0, NaN for NaN) in gcur, gprev, the six
+    plane cotangents and both halo cotangents."""
+    from wayverb_tpu_torch.tools.mesh_timing import bits_equal, case_g
+    lo = (2, 3, 2) if dims[1] == 29 else (2, 2, 2)
+    spec = tbf.BoxSpec(dims=dims, ilo=(x_off and 6 or lo[0],) + lo[1:],
+                       ihi=tuple(d - 3 for d in dims), face_surface=(0,) * 6)
+    gen = torch.Generator().manual_seed(sum(src) + mode)
+    shape = (rows,) + dims[1:]
+    g = case_g(kind, shape, gen)
+    ginner = tuple(case_g(kind, s, gen) for s in tbf._plane_shapes(*shape))
+    args = (spec.geom_array(x_offset=x_off), g, ginner, src + (mode,))
+    flat = lambda r: (r[0], r[1], *r[2], *r[3])  # noqa: E731
+    got = flat(_row_walk_step_bwd(*args))
+    want = flat(tbf._fused_step_bwd_plain(*args))
+    for q, (a, b) in enumerate(zip(got, want)):
+        assert bits_equal(a, b), q
+
+
 def _to_torch(a):
     if isinstance(a, list):
         return tuple(torch.from_numpy(x) for x in a)

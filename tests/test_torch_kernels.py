@@ -26,7 +26,7 @@ from test_torch_mt_split import B3_SCENES, _b3_scene  # noqa: E402
 
 ATOL = 1e-5          # the bound tests/test_box_fused.py holds Pallas to
 MEGA_REL = 1e-5      # B2 against its plain version, per unit of peak
-BWD_REL = 1e-5       # B5, B6's residuals and B7 against plain, of the largest
+BWD_REL = 1e-5       # B6's residuals and B7 against plain, of the largest
 GRAD_REL = 1e-4      # whole-path gradients, of the largest component
 
 
@@ -271,39 +271,98 @@ def _rel(got, want):
         max(float(want.abs().max()), 1e-30)
 
 
+# (dims, box (ilo, ihi) or None for the interior [2, dim - 3], shard (x
+# offset, rows) or None, source (global x, y, z), mode, cotangents): B5's
+# warps are 32 consecutive nodes of the flattened (y, z) plane, each on the
+# bare, z-only or general path in each row
+FUSED_BWD_CASES = [
+    ((16, 16, 128), None, None, (8, 9, 64), 0, "random"),
+    ((16, 16, 128), None, None, (8, 9, 64), 1, "random"),
+    ((37, 29, 53), None, None, (2, 14, 26), 2, "random"),
+    ((37, 29, 53), None, (30, 7), (33, 14, 26), 1, "random"),  # no low x
+    ((37, 29, 53), None, (10, 9), (12, 14, 26), 1, "random"),  # no x plane
+    # sums that overflow, inf and NaN; all -0 (G = g + 0.f is +0)
+    ((37, 29, 53), None, None, (18, 14, 26), 1, "1e38 inf nan"),
+    ((37, 29, 53), None, (10, 9), (12, 14, 26), 1, "1e38 inf nan"),
+    ((16, 16, 128), None, None, (8, 9, 64), 1, "all -0"),
+    ((37, 29, 53), None, (30, 7), (33, 14, 26), 1, "all -0"),
+    # Y·Z < 32: one warp with dead lanes (planes at the grid's edge)
+    ((9, 4, 7), ((2, 1, 2), (6, 2, 4)), None, (4, 2, 3), 1, "random"),
+    ((9, 4, 7), ((2, 1, 2), (6, 2, 4)), (3, 2), (4, 2, 3), 1, "all -0"),
+    # shards of one and two rows
+    ((37, 29, 53), None, (20, 1), (20, 14, 26), 1, "random"),
+    ((37, 29, 53), None, (0, 1), (0, 14, 26), 1, "random"),
+    ((37, 29, 53), None, (20, 2), (21, 14, 26), 1, "random"),
+    # a source on each side of a warp edge: p = 32 * 24 at (14, 26)
+    ((37, 29, 53), None, None, (18, 14, 25), 1, "random"),
+    ((16, 16, 128), None, None, (8, 9, 31), 1, "random"),
+    ((16, 16, 128), None, None, (8, 9, 32), 1, "random"),
+    # the hall with its centre source, and its second shard of four
+    (HALL, None, None, (112, 112, 128), 1, "random"),
+    (HALL, None, (56, 56), (84, 112, 128), 1, "all -0"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims,rows,src,mode", [
-    ((16, 16, 128), None, (8, 9, 64), 0),
-    ((16, 16, 128), None, (8, 9, 64), 1),
-    ((37, 29, 53), None, (2, 14, 26), 2),
-    ((37, 29, 53), (30, 7), (33, 14, 26), 1),    # a shard without the low x
-    ((37, 29, 53), (10, 9), (12, 14, 26), 1),    # a shard without any x plane
-])
-def test_fused_step_bwd_kernel_matches_plain(cuda_device, dims, rows, src,
-                                             mode):
-    """B5 on random cotangents against ``_fused_step_bwd_plain``: gcur,
-    gprev, the six plane cotangents and the two halo cotangents, one
-    launch."""
-    inside = np.zeros(dims, dtype=bool)
-    inside[2:-2, 2:-2, 2:-2] = True
-    spec = tbf.spec_from_inside(inside)
-    off, X = rows or (0, dims[0])
+@pytest.mark.parametrize("dims,box,shard,src,mode,kind", FUSED_BWD_CASES)
+def test_fused_step_bwd_kernel_matches_plain(cuda_device, dims, box, shard,
+                                             src, mode, kind):
+    """B5 against ``_fused_step_bwd_plain`` to the bit (``bits_equal``: NaN
+    for NaN, −0 apart from +0) in gcur, gprev, the six plane cotangents and
+    the two halo cotangents; one launch."""
+    from wayverb_tpu_torch.tools.mesh_timing import bits_equal, case_g
+    ilo, ihi = box or ((2, 2, 2), tuple(d - 3 for d in dims))
+    off, X = shard or (0, dims[0])
     shape = (X,) + dims[1:]
+    geom = (off, 0, 0, ilo[0], ihi[0], ilo[1], ihi[1], ilo[2], ihi[2])
     gen = torch.Generator(device=cuda_device).manual_seed(2)
-    rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
-                                 device=cuda_device)
-    g = rnd(*shape)
-    ginner = tuple(rnd(*s) for s in tbf._plane_shapes(*shape))
-    args = (spec.geom_array(off), g, ginner, src + (mode,))
+    g = case_g(kind, shape, gen)
+    ginner = tuple(case_g(kind, s, gen) for s in tbf._plane_shapes(*shape))
+    args = (geom, g, ginner, src + (mode,))
     before = tbf.fused_step_bwd.launches
     got = tbf.fused_step_bwd(*args)
     assert tbf.fused_step_bwd.launches == before + 1
     want = tbf._fused_step_bwd_plain(*args)
     torch.cuda.synchronize()
     flat = lambda r: (r[0], r[1], *r[2], *r[3])  # noqa: E731
-    for a, b in zip(flat(got), flat(want)):
-        assert tuple(a.shape) == tuple(b.shape)
-        assert float((a - b).abs().max()) <= BWD_REL * float(g.abs().max())
+    for q, (a, b) in enumerate(zip(flat(got), flat(want))):
+        assert bits_equal(a, b), q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [HALL, (56,) + HALL[1:]])
+def test_fused_step_bwd_occupancy(cuda_device, dims):
+    """What the card makes of B5: no local memory, at most 32 registers
+    (its launch bounds: 2,048 threads an SM), and CTAs of (y, z) nodes each
+    walking ``BWD_WALK`` x rows (the wrapper's launch check) cover the
+    field, at the hall and at its shard."""
+    X, Y, Z = dims
+    occ = tbf.step_bwd_occupancy(cuda_device, dims)
+    assert occ["local_bytes"] == 0, occ
+    assert 0 < occ["registers"] <= 32, occ
+    assert occ["ctas_per_sm"] * occ["threads"] >= 2048, occ
+    assert occ["grid"] == -(-Y * Z // occ["threads"]) \
+        * -(-X // tbf.BWD_WALK), occ
+
+
+def test_fused_step_bwd_refuses_fields_of_2_31_nodes():
+    """B5's node indices are 32-bit: the wrapper refuses a field of 2^31
+    nodes or more, one with more x rows than its launch covers (65,535
+    walks of ``BWD_WALK`` rows) and an empty one, before it builds or
+    launches anything.  No card needed: the geometry check runs first."""
+    assert tbf._bwd_geometry(*HALL) is None
+    big = (2 ** 31 // (HALL[1] * HALL[2]) + 1,) + HALL[1:]
+    assert "32-bit" in tbf._bwd_geometry(*big)
+    assert tbf._bwd_geometry(big[0] - 1, *big[1:]) is None
+    assert tbf._bwd_geometry(65535 * tbf.BWD_WALK, 1, 1) is None
+    assert "launch" in tbf._bwd_geometry(65535 * tbf.BWD_WALK + 1, 1, 1)
+    assert tbf._bwd_geometry(0, 224, 256) == "is empty"
+    g = torch.empty(big, device="meta")
+    ginner = tuple(torch.empty(s, device="meta")
+                   for s in tbf._plane_shapes(*big))
+    geom = (0, 0, 0, 2, big[0] - 3, 2, 221, 2, 253)
+    with pytest.raises(ValueError, match="32-bit"):
+        tbf._fused_step_bwd_cuda(geom, g, ginner, (0, 0, 0, 0))
 
 
 def _chunk_case(device, mode, on_plane, K=8, order=6, box=None, taps=None):

@@ -1,8 +1,8 @@
 """Time the shoebox kernels at the hall: the chunk kernel B2 (and B6, its
 grad mode), with ``--kernel b7`` the chunk's adjoint B7, with ``--kernel
-b1`` the fused step B1.
+b1`` the fused step B1, with ``--kernel b5`` the fused step's adjoint B5.
 
-    python -m wayverb_tpu_torch.tools.mega_timing [--kernel b1|b7]
+    python -m wayverb_tpu_torch.tools.mega_timing [--kernel b1|b5|b7]
 
 On the card, at the concert-hall shoebox of ``bench.py`` (224, 224, 256)
 meshed at the engine's rate, with the hall run's hard source at the centre
@@ -37,6 +37,18 @@ the shard; and times B1 at both shapes with the stream held
 (``device_time_us``: a step takes less time on the card than its wrapper
 takes on the host), beside the wrapper's host µs a call, the plain
 version's µs at the hall and each shape's bound (``tools/roofline.py``).
+
+``--kernel b5`` builds ``csrc/box_fused_step_bwd.cu`` (ptxas's report),
+reads ``box_fused.step_bwd_occupancy`` at each shape (null on a tree
+without it), gives the shares of the (warp, row) pairs on each of B5's
+three paths (``b5_warp_shares``), holds B5 to the bit (``bits_equal``: −0
+apart from +0, NaN for NaN) against ``_fused_step_bwd_plain`` in gcur,
+gprev, the six plane cotangents and both halo cotangents, on random,
+1e38 / ±inf / NaN and all −0 cotangents with a hard source in the block, at
+the hall and at the sharded hall's shard shape (56, 224, 256), the second
+of four shards; and times B5 at both shapes with the stream held, beside
+the wrapper's host µs a call, the plain version's µs at the hall and each
+shape's bound (``b5_bound``).
 
 One JSON line, after the card's name and power limit.  Without a card it
 fails.
@@ -249,6 +261,144 @@ def main_b1():
         raise SystemExit("mega_timing: B1 differs from its plain version")
 
 
+def b5_bound(dims):
+    """(µs, "bytes" or "operations") of one B5 launch on a field (or shard)
+    of ``dims``: g and the six inner cotangents in; gcur, gprev, the six
+    plane cotangents and the two halo rows out; 8 operations a node."""
+    from wayverb_tpu_torch.tools import roofline
+    X, Y, Z = dims
+    n = X * Y * Z
+    natural = 2 * (Y * Z + X * Z + X * Y)
+    return roofline.bound_us(4 * (3 * n + 2 * natural + 2 * Y * Z), 8 * n)
+
+
+B5_PATHS = ("bare", "z_only", "x_only", "general")
+
+
+def b5_warp_paths(geom, dims, inj_idx=(0, 0, 0, 0)):
+    """The path B5 takes in each warp and row (``csrc/box_fused_step_bwd.cu``):
+    an (X, ⌈Y·Z/32⌉) int64 tensor indexing ``B5_PATHS``, warp s holding the
+    nodes p = 32·s … 32·s + 31 of the flattened (y, z) plane.  A warp whose
+    32 nodes all exist with y two or more inside the y walls is bare if
+    their z are two inside the z walls too, else z only, in a row two or
+    more inside in x that is not row 0 or X − 1; in the other rows a bare
+    warp is x only.  Every other pair is general, and so is the pair that
+    holds a hard source."""
+    X, Y, Z = dims
+    x_off, (ilo0, ihi0, ilo1, ihi1, ilo2, ihi2) = geom[0], geom[3:9]
+    warps = -(-Y * Z // 32)
+    p = torch.arange(32 * warps)
+    y, z = p // Z, p % Z
+    y_in = (p < Y * Z) & (y >= ilo1 + 2) & (y <= ihi1 - 2)
+    z_in = (z >= ilo2 + 2) & (z <= ihi2 - 2)
+    bare = (y_in & z_in).view(warps, 32).all(1)
+    z_only = y_in.view(warps, 32).all(1)
+    in_yz = torch.where(bare, 0, torch.where(z_only, 1, 3))
+    x = torch.arange(X)
+    row_in = ((x_off + x >= ilo0 + 2) & (x_off + x <= ihi0 - 2) & (x > 0)
+              & (x < X - 1))
+    paths = torch.where(row_in[:, None], in_yz[None, :],
+                        torch.where(in_yz == 0, 2, 3)[None, :])
+    sx, sy, sz, mode = inj_idx
+    if mode == 1 and 0 <= sx - x_off < X and 0 <= sy < Y and 0 <= sz < Z:
+        paths[sx - x_off, (sy * Z + sz) // 32] = 3
+    return paths
+
+
+def b5_node_paths(geom, dims, inj_idx=(0, 0, 0, 0)):
+    """The path of each node of an (X, Y, Z) field in B5: its warp's in its
+    row (``b5_warp_paths``)."""
+    X, Y, Z = dims
+    paths = b5_warp_paths(geom, dims, inj_idx)
+    return paths.repeat_interleave(32, 1)[:, :Y * Z].reshape(X, Y, Z)
+
+
+def b5_warp_shares(geom, dims, inj_idx=(0, 0, 0, 0)) -> dict:
+    """The share of B5's (warp, row) pairs on each path
+    (``b5_warp_paths``)."""
+    paths = b5_warp_paths(geom, dims, inj_idx)
+    return {name: float((paths == k).float().mean())
+            for k, name in enumerate(B5_PATHS)}
+
+
+def b5_case(spec, x_offset: int, rows: int, gen, kind="random"):
+    """Inputs of one B5 launch on ``rows`` x rows of ``spec`` from local
+    row 0 = global row ``x_offset``: g and the six inner cotangents of
+    ``kind`` (``mesh_timing.case_g``) on ``gen``'s device and a hard source
+    at the centre of the block: (geom, g, ginner, inj_idx)."""
+    from wayverb_tpu_torch.tools.mesh_timing import case_g
+    from wayverb_tpu_torch.waveguide.box_fused import _plane_shapes
+    _, Y, Z = spec.dims
+    shape = (rows, Y, Z)
+    g = case_g(kind, shape, gen)
+    ginner = tuple(case_g(kind, s, gen) for s in _plane_shapes(*shape))
+    return (spec.geom_array(x_offset=x_offset), g, ginner,
+            (x_offset + rows // 2, Y // 2, Z // 2, 1))
+
+
+def b5_equal(args) -> dict:
+    """B5 (``fused_step_bwd``) and its plain version on ``args``: whether
+    gcur, gprev, the six plane cotangents and both halo cotangents agree to
+    the bit, the names of those that do not, and the largest finite
+    |kernel − plain|."""
+    from wayverb_tpu_torch.tools.mesh_timing import bits_equal
+    from wayverb_tpu_torch.waveguide.box_fused import (_fused_step_bwd_plain,
+                                                       fused_step_bwd)
+    flat = lambda r: (r[0], r[1], *r[2], *r[3])  # noqa: E731
+    got = flat(fused_step_bwd(*args))
+    want = flat(_fused_step_bwd_plain(*args))
+    if got[0].is_cuda:
+        torch.cuda.synchronize()
+    names = ("gcur", "gprev", *(f"gplane{q}" for q in range(6)), "ghlo",
+             "ghhi")
+    differ = [n for n, a, b in zip(names, got, want) if not bits_equal(a, b)]
+    err = max(float((a - b).abs().nan_to_num(0.0, 0.0, 0.0).max())
+              for a, b in zip(got, want))
+    return {"equal": not differ, "differ": differ, "max_abs_err": err}
+
+
+def b5_shape(spec, x_offset, rows, gen, plain_reps=0) -> dict:
+    """B5 on one shape: to the bit against the plain version on each kind
+    of cotangent, its device and host µs a launch, the plain version's µs
+    (when ``plain_reps``), its bound, its warp paths and what the card
+    makes of the kernel there (None on a tree without the query)."""
+    from wayverb_tpu_torch.waveguide import box_fused as bf
+    checks = {kind: b5_equal(b5_case(spec, x_offset, rows, gen, kind))
+              for kind in ("random", "1e38 inf nan", "all -0")}
+    args = b5_case(spec, x_offset, rows, gen)
+    us, host_us = device_time_us(lambda: bf.fused_step_bwd(*args), 200)
+    dims = (rows,) + tuple(spec.dims[1:])
+    bound = b5_bound(dims)
+    row = {"shape": list(dims), "x_offset": x_offset,
+           "equal_plain": all(c["equal"] for c in checks.values()),
+           "checks": checks, "us_per_launch": us,
+           "host_us_per_call": host_us, "bound_us": bound[0],
+           "bound_by": bound[1], "time_over_bound": us / bound[0],
+           "warp_shares": b5_warp_shares(args[0], dims, args[3]),
+           "occupancy": (bf.step_bwd_occupancy(dims=dims)
+                         if hasattr(bf, "step_bwd_occupancy") else None)}
+    if plain_reps:
+        row["plain_us"] = events_us(
+            lambda: bf._fused_step_bwd_plain(*args), plain_reps)
+    return row
+
+
+def main_b5():
+    """The ``--kernel b5`` mode: one JSON line."""
+    t0 = time.perf_counter()
+    ptxas = ptxas_lines("box_fused_step_bwd")
+    spec = hall_case()[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    X = spec.dims[0]
+    hall = b5_shape(spec, 0, X, gen, plain_reps=10)
+    shard = b5_shape(spec, X // 4, X // 4, gen)
+    print(json.dumps({"kernel": "b5", "ptxas": ptxas, "hall": hall,
+                      "shard": shard, "wall_s": time.perf_counter() - t0}),
+          flush=True)
+    if not (hall["equal_plain"] and shard["equal_plain"]):
+        raise SystemExit("mega_timing: B5 differs from its plain version")
+
+
 def profile(run, marker) -> dict:
     """``run()`` once more after a warm-up, under torch.profiler: {kernel
     name: [launches, device µs]}, the launches of kernels whose name holds
@@ -357,20 +507,24 @@ def main_b7():
         raise SystemExit("mega_timing: B7 differs from its plain version")
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m wayverb_tpu_torch.tools.mega_timing",
-        description="Time the chunk kernels B2/B6 (default), B7 or the "
-                    "fused step B1 at the hall.")
-    p.add_argument("--kernel", choices=("b1", "b2", "b7"), default="b2")
-    args = p.parse_args(argv)
+        description="Time the chunk kernels B2/B6 (default), B7, the fused "
+                    "step B1 or its adjoint B5 at the hall.")
+    p.add_argument("--kernel", choices=("b1", "b2", "b5", "b7"),
+                   default="b2")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mega_timing: needs a CUDA device")
     print(card_name_and_power_limit(), flush=True)
-    if args.kernel == "b7":
-        return main_b7()
-    if args.kernel == "b1":
-        return main_b1()
+    modes = {"b1": main_b1, "b5": main_b5, "b7": main_b7}
+    if args.kernel in modes:
+        return modes[args.kernel]()
     from wayverb_tpu_torch.waveguide.box_mega import chunk_occupancy
     t0 = time.perf_counter()
     ptxas = ptxas_lines()

@@ -376,22 +376,27 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def step_occupancy(device="cuda", dims=(224, 224, 256)) -> dict:
-    """What the card makes of the step kernel: registers a thread, local
-    memory (spills) a thread in bytes, CTAs resident on one SM, threads a
-    CTA, and the CTAs one step launches on a field of ``dims``."""
-    lib = _kernel_lib()
-    fn = lib.wv_box_fused_step_occupancy
+def _occupancy(lib, entry: str, device, dims) -> dict:
+    """``entry(dims, out)`` of ``lib`` on ``device``: registers a thread,
+    local memory (spills) a thread in bytes, CTAs resident on one SM,
+    threads a CTA, and the CTAs one launch takes on a field of ``dims``."""
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
         err = fn((ctypes.c_int * 3)(*dims), out)
     if err != 0:
-        raise RuntimeError("wv_box_fused_step_occupancy failed: "
+        raise RuntimeError(f"{entry} failed: "
                            + lib.wv_cuda_error_string(err).decode())
     return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads",
                      "grid"), out))
+
+
+def step_occupancy(device="cuda", dims=(224, 224, 256)) -> dict:
+    """What the card makes of the step kernel B1 (``_occupancy``)."""
+    return _occupancy(_kernel_lib(), "wv_box_fused_step_occupancy", device,
+                      dims)
 
 
 def _check_field(name, t, ref):
@@ -619,12 +624,39 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+def step_bwd_occupancy(device="cuda", dims=(224, 224, 256)) -> dict:
+    """What the card makes of the adjoint kernel B5 (``_occupancy``)."""
+    return _occupancy(_bwd_kernel_lib(), "wv_box_fused_step_bwd_occupancy",
+                      device, dims)
+
+
+# x rows a thread of the adjoint kernel walks (kWalk of
+# csrc/box_fused_step_bwd.cu)
+BWD_WALK = 2
+
+
+def _bwd_geometry(X, Y, Z):
+    """Why the adjoint kernel's launch, CTAs of (y, z) nodes each walking
+    ``BWD_WALK`` x rows on a grid of (⌈Y·Z/CTA⌉, ⌈X/BWD_WALK⌉) with 32-bit
+    node indices, cannot cover a field of (X, Y, Z), or None."""
+    if X * Y * Z == 0:
+        return "is empty"
+    if X * Y * Z >= 2 ** 31:
+        return "has 2^31 nodes or more; the kernel's indices are 32-bit"
+    if -(-X // BWD_WALK) > 65535:
+        return "is outside what the kernel's launch geometry covers"
+    return None
+
+
 def _fused_step_bwd_cuda(geom, g, ginner, inj_idx):
     """Launch the adjoint kernel (csrc/box_fused_step_bwd.cu) on g's
     stream."""
     X, Y, Z = g.shape
     if g.dtype != torch.float32:
         raise ValueError(f"fused_step_bwd: g must be float32, got {g.dtype}")
+    why = _bwd_geometry(X, Y, Z)
+    if why is not None:
+        raise ValueError(f"fused_step_bwd: a field of {(X, Y, Z)} {why}")
     if geom[1] != 0 or geom[2] != 0:
         raise ValueError("fused_step_bwd: y/z offsets must be zero")
     shapes = _plane_shapes(X, Y, Z)
@@ -676,7 +708,8 @@ def fused_step_bwd(geom, g, ginner, inj_idx=NO_INJECT[0]):
 
     Returns (gcur, gprev, gplanes6, (ghlo, ghhi)).  CPU tensors run
     ``_fused_step_bwd_plain``; CUDA tensors launch the CUDA kernel (counted
-    in ``fused_step_bwd.launches``) or raise.
+    in ``fused_step_bwd.launches``) or raise, as for a field of 2^31 nodes
+    or more (``_bwd_geometry``).
     """
     if g.is_cuda:
         return _fused_step_bwd_cuda(geom, g, ginner, inj_idx)
