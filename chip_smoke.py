@@ -149,7 +149,23 @@ Drives the port through its public entry points on the card and fails
     resident grid too large for shared memory refused before any launch;
     then the sweep of ``python -m wayverb_tpu_torch.tools.probe_resident``
     (µs a sub-step by shape, mode and K) with its launches counted;
-36. one JSON line of per-kernel results, then the last line,
+36. every capsule, every band: phase 9's hall with
+    ``WaveguideParameters(bands=4)`` and per-band absorption through
+    ``Engine.run`` (one ``canonical`` a band, 4 x 8 B2 launches), with the
+    seconds of each phase and of each band, the peak memory against one
+    band's run at the same absorption (at most 1.1x), every band finite and
+    stable, the bands contiguous and their late energy falling as
+    absorption rises; then
+    ``render_all`` with ``Null``, ``Microphone(0.5)`` and both ears of
+    ``Hrtf``;
+37. the multiband engine (``bands=2``) on the test_combined box, card
+    against CPU with the same draws, rendered with ``Hrtf(channel=0)`` and
+    ``Null``: at phase 10's absorption within its bounds, at the multiband
+    hall's reported (the stochastic tail's known divergence there);
+    ``Hrtf.attenuation`` on 65,536 directions, card against CPU to the
+    bit; ``canonical_multiband`` on four shards of ``cuda:0`` on the
+    shoebox hall, 2 bands x 32 steps, against the single-device run;
+38. one JSON line of per-kernel results, then the last line,
     ``{"ok": true, "device": {...}}``.
 
 A kernel's ``bound_ms`` is the least time the card could take for the same
@@ -816,16 +832,50 @@ def phase_t30_mega(torch, mesh, fused_out, sabine, src, rcv, card):
 # the hybrid engine
 
 def _engine(torch, box, cutoff, device, absorption=ABSORPTION,
-            scattering=0.1):
+            scattering=0.1, bands=1):
+    """A shoebox engine; ``absorption`` is one value or one per band."""
     from wayverb_tpu_torch.combined import engine as eng
     from wayverb_tpu_torch.core.geometry import box_scene
     from wayverb_tpu_torch.core.surfaces import Surface
-    surfaces = Surface(absorption=torch.full((1, 8), absorption),
-                       scattering=torch.full((1, 8), scattering))
+    surfaces = Surface(
+        absorption=torch.broadcast_to(torch.tensor(absorption), (1, 8)),
+        scattering=torch.full((1, 8), scattering))
     return eng.Engine(box_scene(box), surfaces,
                       eng.WaveguideParameters(cutoff=cutoff,
-                                              usable_portion=0.6),
+                                              usable_portion=0.6,
+                                              bands=bands),
                       scene_box=box, device=device)
+
+
+class _RunMarks:
+    """``Engine.run``'s state callback: the seconds of each phase (each
+    ended by a synchronise), the peak device memory of the whole run, and
+    the waveguide leg's own peak above what was allocated when it began
+    (the ray leg's memory grows with the bounces it traces)."""
+
+    def __init__(self, torch):
+        self.cuda, self.marks, self.mem = torch.cuda, [], {}
+        self.cuda.reset_peak_memory_stats()
+
+    def __call__(self, name):
+        self.cuda.synchronize()
+        self.marks.append((name, time.perf_counter()))
+        if name == "running_waveguide":
+            self.mem["before_waveguide"] = self.cuda.max_memory_allocated()
+            self.mem["waveguide_base"] = self.cuda.memory_allocated()
+            self.cuda.reset_peak_memory_stats()
+        elif name == "finishing":
+            self.mem["waveguide"] = self.cuda.max_memory_allocated() \
+                - self.mem["waveguide_base"]
+
+    def seconds(self):
+        return {self.marks[i][0]: self.marks[i + 1][1] - self.marks[i][1]
+                for i in range(len(self.marks) - 1)}
+
+    def peaks(self):
+        """(whole run, waveguide leg) peak bytes; call after the run."""
+        return (max(self.mem["before_waveguide"],
+                    self.cuda.max_memory_allocated()), self.mem["waveguide"])
 
 
 def phase_hybrid_hall(torch, hall_spec, card):
@@ -847,15 +897,11 @@ def phase_hybrid_hall(torch, hall_spec, card):
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     params = eng.RaytracerParameters()
-    marks = []
-
-    def mark(name):
-        torch.cuda.synchronize()
-        marks.append((name, time.perf_counter()))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     mega_chunk.launches = 0
     fused_step.launches = 0
+    mark = _RunMarks(torch)
     mark("start")
     results = e.run(src, rcv, gen, params, waveguide_time=0.3,
                     state_callback=mark)
@@ -869,8 +915,7 @@ def phase_hybrid_hall(torch, hall_spec, card):
     both = eng.render_all(results, [Null(), Microphone(shape=0.5)], gen,
                           output_sample_rate=44100.0)
     torch.cuda.synchronize()
-    secs = {marks[i][0]: marks[i + 1][1] - marks[i][1]
-            for i in range(len(marks) - 1)}
+    secs = mark.seconds()
     trace_s = secs["running_raytracer"]
     depth = eng.optimum_depth(e.surfaces)
     print(f"[9 hybrid] hall {box.max_corner} m, mesh "
@@ -951,6 +996,295 @@ def phase_hybrid_card_vs_cpu(torch, card):
     if not err <= HYBRID_REL * peak:
         _fail("hybrid IR on the card differs from the CPU run")
     return err / peak
+
+
+# ---------------------------------------------------------------------------
+# every capsule, every band: the multiband waveguide and the Hrtf capsule
+
+# per-band absorption of the multiband hall; 4 bands are the hrtf bands
+# below the 500 Hz cutoff (edges 20, 47, 112, 267 Hz; the fifth starts at
+# 632 Hz)
+MULTIBAND_ABSORPTION = (0.4, 0.2, 0.1, 0.05, 0.05, 0.05, 0.05, 0.05)
+MULTIBAND_BANDS = 4
+MULTIBAND_MEMORY = 1.1     # multiband peak memory over the single band's
+HRTF_DIRECTIONS = 1 << 16
+
+
+def phase_multiband_hall(torch, card):
+    """Phase 9's hybrid hall with ``WaveguideParameters(bands=4)`` and
+    per-band absorption: ``Engine.run`` (one ``canonical`` a band, each on
+    B2), then ``render_all`` with both ears of ``Hrtf``.  Checks every
+    band finite and stable, contiguous band ranges, the late energy of a
+    band falling as its absorption rises, 4 x 8 B2 launches, the four
+    capsules' IRs, and the peak memory, of the whole run and of the
+    waveguide leg above its start, within 1.1x a single band's run at the
+    same absorption (made first, so that its ray leg traces the same
+    bounces): the bands do not hold one another's fields."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Hrtf, Microphone, Null
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import fused_step
+    from wayverb_tpu_torch.waveguide.box_mega import DEFAULT_CHUNK, mega_chunk
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    dx = grid_spacing(340.0, 1.0 / FS)
+    box = _hall_box(dx)
+    src, rcv = _hall_positions(box, dx)
+    params = eng.RaytracerParameters()
+    control = _engine(torch, box, 500.0, "cuda",
+                      absorption=MULTIBAND_ABSORPTION)
+    mark = _RunMarks(torch)
+    control.run(src, rcv, torch.Generator(device="cuda").manual_seed(SEED + 4),
+                params, waveguide_time=0.3, state_callback=mark)
+    single_peak = mark.peaks()
+    del control
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    e = _engine(torch, box, 500.0, "cuda", absorption=MULTIBAND_ABSORPTION,
+                bands=MULTIBAND_BANDS)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    band_s = []
+
+    # each band's waveguide seconds: the engine's multiband leg calls
+    # run.canonical once a band
+    canonical = wgrun.canonical
+
+    def timed_canonical(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = canonical(*args, **kwargs)
+        torch.cuda.synchronize()
+        band_s.append(time.perf_counter() - t)
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    wgrun.canonical = timed_canonical
+    try:
+        mega_chunk.launches = 0
+        fused_step.launches = 0
+        mark = _RunMarks(torch)
+        mark("start")
+        results = e.run(src, rcv, gen, params, waveguide_time=0.3,
+                        state_callback=mark)
+        mark("end")
+        launches = {"box_mega_chunk": mega_chunk.launches,
+                    "box_fused_step": fused_step.launches}
+    finally:
+        wgrun.canonical = canonical
+    peak_mem = mark.peaks()
+    secs = mark.seconds()
+    bands = results.waveguide_bands
+    steps = bands[0].pressure.shape[0]
+    expect = MULTIBAND_BANDS * -(-steps // DEFAULT_CHUNK)
+    print(f"[36 multiband hall] hall {box.max_corner} m, mesh "
+          f"{e.mesh.descriptor.dimensions}, {MULTIBAND_BANDS} bands, "
+          f"absorption {MULTIBAND_ABSORPTION}, engine setup {setup:.2f} s; "
+          f"{params.rays} rays x {eng.optimum_depth(e.surfaces)} bounces; "
+          f"seconds: trace {secs['running_raytracer']:.3f}, image sources "
+          f"{secs['finding_image_sources']:.3f}, waveguide "
+          f"{secs['running_waveguide']:.3f} ({steps} steps a band), finish "
+          f"{secs['finishing']:.3f} [{card}]")
+    print(f"[36 multiband hall] waveguide seconds a band "
+          f"{[round(t, 4) for t in band_s]}; launches {launches} (expected "
+          f"{expect} B2, none of B1); peak memory of the run "
+          f"{peak_mem[0] / 2**20:.1f} MiB against one band's at the same "
+          f"absorption {single_peak[0] / 2**20:.1f}: "
+          f"{peak_mem[0] / single_peak[0]:.4f}x, of the waveguide leg above "
+          f"its start {peak_mem[1] / 2**20:.1f} MiB against one band's "
+          f"{single_peak[1] / 2**20:.1f}: {peak_mem[1] / single_peak[1]:.4f}x "
+          f"(bound {MULTIBAND_MEMORY} on both) [{card}]")
+
+    late = []
+    for b in bands:
+        p = b.pressure.float()
+        late.append(float(torch.sum(p[steps // 2:] ** 2)))
+        finite = bool(torch.isfinite(p).all()) and \
+            bool(torch.isfinite(b.intensity).all())
+        if not (finite and bool(b.stable)):
+            _fail(f"multiband hall: band {b.valid_hz} not finite or not "
+                  "stable")
+    ranges = [b.valid_hz for b in bands]
+    contiguous = ranges[0][0] == 20.0 and all(
+        lo[1] == hi[0] for lo, hi in zip(ranges, ranges[1:]))
+    # the bands in the order of rising absorption: late energy must fall
+    order = sorted(range(len(bands)), key=lambda b: MULTIBAND_ABSORPTION[b])
+    falls = all(late[a] > late[b] for a, b in zip(order, order[1:]))
+    print(f"[36 multiband hall] bands "
+          f"{[(round(lo, 2), round(hi, 2)) for lo, hi in ranges]} Hz, "
+          f"contiguous {contiguous}; late energy (sum p^2 over the second "
+          f"half) {[f'{x:.4e}' for x in late]}: falls as absorption rises "
+          f"{falls} [{card}]")
+
+    t_render = time.perf_counter()
+    capsules = [Null(), Microphone(shape=0.5), Hrtf(channel=0),
+                Hrtf(channel=1)]
+    irs = eng.render_all(results, capsules, gen, output_sample_rate=44100.0)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t_render
+    ears = float((irs[2] - irs[3]).abs().max())
+    peak = float(irs.abs().max())
+    finite = bool(torch.isfinite(irs).all())
+    print(f"[36 multiband hall] render_all(Null, Microphone(0.5), Hrtf(0), "
+          f"Hrtf(1)) {t_render:.3f} s: {tuple(irs.shape)}, finite {finite}, "
+          f"max |.| {peak!r}, max |left - right| {ears:.4e} [{card}]")
+    if not (contiguous and falls and launches["box_mega_chunk"] == expect
+            and launches["box_fused_step"] == 0
+            and peak_mem[0] <= MULTIBAND_MEMORY * single_peak[0]
+            and peak_mem[1] <= MULTIBAND_MEMORY * single_peak[1]
+            and irs.shape[0] == 4 and irs.dim() == 2 and finite
+            and peak == 1.0 and ears > 0.0):
+        _fail("the multiband hall failed its checks")
+    result = {"setup_s": setup, "seconds": secs, "band_waveguide_s": band_s,
+              "steps": steps, "launches": launches,
+              "peak_memory_bytes": peak_mem[0],
+              "waveguide_peak_memory_bytes": peak_mem[1],
+              "single_band_peak_memory_bytes": single_peak[0],
+              "single_band_waveguide_peak_memory_bytes": single_peak[1],
+              "late_energy": late, "render_all_s": t_render,
+              "ears_max_abs_diff": ears}
+    print(json.dumps({"phase": "36 multiband hall", **result}))
+    return result
+
+
+def _multiband_card_vs_cpu(torch, absorption, card):
+    """The test_combined box with ``bands=2`` at ``absorption`` on the card
+    and on the CPU, same CPU generators: each band's pressure, and the IR
+    rendered with ``Hrtf(channel=0)`` and with ``Null``, card against CPU
+    as a share of the CPU's peak, with the image-source head and the
+    stochastic tail of the ``Null`` IR apart (each of its own peak)."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Hrtf, Null
+    from wayverb_tpu_torch.core.geometry import Box
+    from wayverb_tpu_torch.imagesource.postprocess import \
+        postprocess as is_postprocess
+    from wayverb_tpu_torch.raytracer import stochastic
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    box = Box((0.0, 0.0, 0.0), (5.56, 3.97, 2.81))
+    src, rcv = (2.09, 2.12, 2.12), (2.09, 3.08, 0.96)
+    params = eng.RaytracerParameters(rays=1 << 13, max_time=1.5)
+    runs, secs = [], []
+    for device in ("cuda", "cpu"):
+        mega_chunk.launches = 0
+        t0 = time.perf_counter()
+        e = _engine(torch, box, 400.0, device, absorption=absorption,
+                    bands=2)
+        r = e.run(src, rcv, torch.Generator().manual_seed(SEED), params,
+                  waveguide_time=0.25)
+        env = r.environment
+        out = {"bands": [b.pressure.cpu() for b in r.waveguide_bands]}
+        for name, method in (("hrtf", Hrtf(channel=0)), ("null", Null())):
+            out[name] = eng.render(r, method, 16000.0, torch.Generator()
+                                   .manual_seed(SEED + 1)).cpu()
+        out["head"] = is_postprocess(r.image_source, Null(), r.receiver,
+                                     env.speed_of_sound, 16000.0).cpu()
+        out["tail"] = stochastic.postprocess(
+            r.stochastic_histogram, r.histogram_sample_rate, Null(),
+            r.room_volume, env, 16000.0,
+            torch.Generator().manual_seed(SEED + 1)).cpu()
+        runs.append(out)
+        secs.append(time.perf_counter() - t0)
+        if (mega_chunk.launches > 0) != (device == "cuda"):
+            _fail(f"multiband hybrid on {device}: unexpected waveguide "
+                  "route")
+    got, want = runs
+
+    def rel(c, p, peak=None):
+        if c.shape != p.shape:
+            return float("inf")
+        peak = float(p.abs().max()) if peak is None else peak
+        return float((c - p).abs().max()) / peak
+
+    peak = float(want["null"].abs().max())
+    errs = {"bands": [rel(c, p) for c, p in zip(got["bands"],
+                                                  want["bands"])],
+            "hrtf_ir": rel(got["hrtf"], want["hrtf"]),
+            "null_ir": rel(got["null"], want["null"], peak),
+            "head": rel(got["head"], want["head"]),
+            "tail": rel(got["tail"], want["tail"]),
+            "card_s": secs[0], "cpu_s": secs[1]}
+    print(f"[37 multiband card vs cpu] test_combined box, bands=2, "
+          f"absorption {absorption}, {params.rays} rays: card {secs[0]:.2f} s "
+          f"(mega path), CPU {secs[1]:.2f} s (fused path); band pressure "
+          f"max |d| / peak {[f'{x:.3e}' for x in errs['bands']]}; IR max "
+          f"|d| / peak: Hrtf(0) {errs['hrtf_ir']:.3e}, Null "
+          f"{errs['null_ir']:.3e}; of the Null IR, the image-source head "
+          f"{errs['head']:.3e} and the stochastic tail {errs['tail']:.3e} "
+          f"of their own peaks [{card}]")
+    return errs
+
+
+def phase_multiband_card_vs_cpu(torch, card):
+    """The test_combined box of phase 10 with ``bands=2`` on the card and
+    on the CPU (same CPU generators), rendered with ``Hrtf(channel=0)``;
+    once more at the multiband hall's absorption, reported and not held
+    to a bound (ROADMAP §C: the stochastic tail parts between the card and
+    the CPU at absorption 0.05, whatever the bands and the capsule);
+    ``Hrtf``'s gains on 65,536 directions card against CPU, to the bit;
+    the sharded multiband on four shards of ``cuda:0`` on the shoebox hall
+    (32 steps, 2 bands) against the single-device ``canonical_multiband``
+    on the same mesh."""
+    from wayverb_tpu_torch.core.attenuator import Hrtf
+    from wayverb_tpu_torch.core.orientation import Orientation
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import fused_step
+    errs = _multiband_card_vs_cpu(torch, ABSORPTION, card)
+    print(f"[37 multiband card vs cpu] bounds at absorption {ABSORPTION}: "
+          f"bands {WAVEGUIDE_REL:g}, IRs {HYBRID_REL:g} of peak [{card}]")
+    if not (all(x <= WAVEGUIDE_REL for x in errs["bands"])
+            and errs["hrtf_ir"] <= HYBRID_REL
+            and errs["null_ir"] <= HYBRID_REL):
+        _fail("the multiband hybrid on the card differs from the CPU run")
+    low = _multiband_card_vs_cpu(torch, MULTIBAND_ABSORPTION, card)
+    if not all(x <= WAVEGUIDE_REL for x in low["bands"]):
+        _fail("a waveguide band on the card differs from the CPU run")
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    dirs = torch.randn(HRTF_DIRECTIONS, 3, generator=gen) \
+        * torch.rand(HRTF_DIRECTIONS, 1, generator=gen) * 10.0
+    dirs[0] = 0.0
+    unequal = 0
+    for channel in (0, 1):
+        for orientation in (Orientation(),
+                            Orientation((0.3, 0.2, 0.9), (0.1, 1.0, 0.0))):
+            h = Hrtf(orientation, channel)
+            card_g = h.attenuation(dirs.to("cuda")).cpu()
+            unequal += int((card_g != h.attenuation(dirs)).sum())
+    print(f"[37 multiband card vs cpu] Hrtf.attenuation on "
+          f"{HRTF_DIRECTIONS} directions, both ears, two orientations: "
+          f"{unequal} gains differ from the CPU's (bound 0) [{card}]")
+    if unequal:
+        _fail("Hrtf.attenuation on the card differs from the CPU")
+
+    _, dx, mesh, _ = _hall_mesh(torch)
+    if mesh.box_spec.dims[0] % SHARDS:
+        _fail("the shoebox hall's x does not divide over the shards")
+    hsrc, hrcv = _hall_positions(_hall_box(dx), dx)
+    absorption = np.asarray([MULTIBAND_ABSORPTION])
+    sim = _hall_sim_time(mesh, 32)
+    single = wgrun.canonical_multiband(mesh, absorption, hsrc, hrcv, sim, 2)
+    fused_step.launches = 0
+    t0 = time.perf_counter()
+    got = wgrun.canonical_multiband(mesh, absorption, hsrc, hrcv, sim, 2,
+                                    device_mesh=_device_mesh())
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    sharded_rel = max(float((g.pressure - s.pressure).abs().max())
+                      / float(s.pressure.abs().max())
+                      for g, s in zip(got, single))
+    print(f"[37 multiband card vs cpu] sharded multiband, hall "
+          f"{mesh.box_spec.dims} on {SHARDS} x cuda:0, 2 bands x 32 steps, "
+          f"{sharded_s:.2f} s, {fused_step.launches} B1 launches, against the "
+          f"single-device canonical_multiband: max |dp| / peak "
+          f"{sharded_rel:.3e} (bound {BOX_SHARDED_REL:g}) [{card}]")
+    if not (all(bool(g.stable) for g in got)
+            and [g.valid_hz for g in got] == [s.valid_hz for s in single]
+            and fused_step.launches == 2 * SHARDS * 32
+            and sharded_rel <= BOX_SHARDED_REL):
+        _fail("the sharded multiband differs from the single-device run")
+    return {"phase10_absorption": errs, "multiband_absorption": low,
+            "hrtf_gains_unequal": unequal, "sharded_rel_err": sharded_rel,
+            "sharded_s": sharded_s}
 
 
 # ---------------------------------------------------------------------------
@@ -3436,6 +3770,15 @@ def main():
                                                              card)
     print(f"[9 hybrid] phase wall {time.perf_counter() - t0:.2f} s [{card}]")
     phase_hybrid_card_vs_cpu(torch, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multiband = phase_multiband_hall(torch, card)
+    print(f"[36 multiband hall] phase wall {time.perf_counter() - t0:.2f} s "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    multiband["card_vs_cpu"] = phase_multiband_card_vs_cpu(torch, card)
+    print(f"[37 multiband card vs cpu] phase wall "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
     phase_grad_card_vs_cpu(torch, card)
     phase_descent(torch, card)
     torch.cuda.empty_cache()
@@ -3572,6 +3915,7 @@ def main():
         "replaces": "wayverb_tpu/waveguide/box_mega.py:534",
         "shape": list(engine_dims),
         "launches": counted["box_mega_chunk"],
+        "multiband_launches": multiband["launches"]["box_mega_chunk"],
         "max_abs_err": max(b2_err, b2_engine_err),
         **per_substep("b2", b2_us, b2_plain_us),
         **{k: b2_occ[k] for k in ("registers", "local_bytes", "ctas_per_sm")},
@@ -3740,6 +4084,7 @@ def main():
         "device_memory_ms": probe["streamed"]["us_per_step"] / 1e3,
         "device_memory_bound_ms": probe["streamed"]["bound_us"] / 1e3,
         "sweep_s": probe["sweep_s"]}],
+        "multiband_hall": multiband,
         "model_hall": model_hall, "large_hall": large_hall,
         "dda_on_card": dda, "columns_hall": columns,
         "hybrid_columns_hall": hybrid_columns,

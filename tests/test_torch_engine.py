@@ -18,6 +18,7 @@ import torch
 from test_torch_raytracer import reference_dirac_draws, reference_directions
 from wayverb_tpu.combined import engine as jeng
 from wayverb_tpu.combined import postprocess as jcp
+from wayverb_tpu.core.attenuator import Hrtf as JHrtf
 from wayverb_tpu.core.attenuator import Microphone as JMicrophone
 from wayverb_tpu.core.attenuator import Null as JNull
 from wayverb_tpu.core.geometry import Box as JBox, box_scene
@@ -102,7 +103,7 @@ def test_render_matches(engines, method):
 
 def test_render_all_matches(engines):
     """Both capsules, jointly peak-normalised; the reference folds the key
-    per capsule."""
+    per capsule.  Then all four: omni, cardioid and the two ears."""
     want, got = engines
     key = jax.random.PRNGKey(2)
     w = np.asarray(jeng.render_all(want, [JNull(), JMicrophone(shape=0.5)],
@@ -112,10 +113,17 @@ def test_render_all_matches(engines):
                         output_sample_rate=SR, draws=draws).numpy()
     assert g.shape == w.shape
     np.testing.assert_allclose(g, w, rtol=0, atol=IR_REL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.render_all(got, [Null(), Hrtf(channel=0)],
-                        torch.Generator().manual_seed(0),
-                        output_sample_rate=SR)
+    # every capsule, both ears among them
+    w = np.asarray(jeng.render_all(
+        want, [JNull(), JMicrophone(shape=0.5), JHrtf(channel=0),
+               JHrtf(channel=1)], key, output_sample_rate=SR))
+    draws = [_tail_draws(got, jax.random.fold_in(key, i)) for i in range(4)]
+    g = teng.render_all(got, [Null(), Microphone(shape=0.5), Hrtf(channel=0),
+                              Hrtf(channel=1)],
+                        output_sample_rate=SR, draws=draws).numpy()
+    assert g.shape == w.shape and g.shape[0] == 4
+    assert np.abs(g[2] - g[3]).max() > IR_REL
+    np.testing.assert_allclose(g, w, rtol=0, atol=IR_REL)
 
 
 @pytest.mark.parametrize("lengths", [(2048, 2048), (1500, 2300)])
@@ -137,9 +145,11 @@ def test_crossover_and_window_match(rng, lengths):
 
 
 def test_unported_branches_raise(engines):
-    """``bands > 1`` still raises; a ``device_mesh`` builds a mesh whose x
-    dim divides over it (the sharded runs are
-    ``tests/test_torch_sharding.py``'s)."""
+    """A ``device_mesh`` builds a mesh whose x dim divides over it (the
+    sharded runs are ``tests/test_torch_sharding.py``'s).  ``bands=2``,
+    which raised before the multiband waveguide was ported, matches the
+    reference's ``Engine(bands=2)``: each band within 2e-5 of its peak,
+    with equal ``valid_hz``."""
     _, got = engines
     box = TBox(*BOX)
     from wayverb_tpu_torch.core.geometry import box_scene as t_box_scene
@@ -152,9 +162,29 @@ def test_unported_branches_raise(engines):
                     device="cpu")
     assert e.mesh.descriptor.dimensions[0] % 3 == 0
     assert e.mesh.box_spec is not None and e.device_mesh.size == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.Engine(t_box_scene(box), surf, teng.WaveguideParameters(bands=2),
-                    scene_box=box, device="cpu")
+    wparams = dict(cutoff=400.0, usable_portion=0.6, bands=2)
+    je = jeng.Engine(box_scene(JBox(*BOX)),
+                     JSurface(absorption=jnp.full((1, 8), 0.1),
+                              scattering=jnp.full((1, 8), 0.1)),
+                     jeng.WaveguideParameters(**wparams),
+                     scene_box=JBox(*BOX))
+    te = teng.Engine(t_box_scene(box), surf,
+                     teng.WaveguideParameters(**wparams), scene_box=box,
+                     device="cpu")
+    key = jax.random.PRNGKey(0)
+    depth = teng.optimum_depth(te.surfaces)
+    want = je.run(SOURCE, RECEIVER, key, jeng.RaytracerParameters(
+        rays=RAYS, max_time=0.5), waveguide_time=0.1)
+    got = te.run(SOURCE, RECEIVER, None, teng.RaytracerParameters(
+        rays=RAYS, max_time=0.5), waveguide_time=0.1,
+        directions=reference_directions(key, RAYS, depth))
+    assert len(got.waveguide_bands) == len(want.waveguide_bands) == 2
+    for gb, wb in zip(got.waveguide_bands, want.waveguide_bands):
+        assert gb.valid_hz == wb.valid_hz and bool(gb.stable)
+        peak = np.abs(np.asarray(wb.pressure)).max()
+        np.testing.assert_allclose(gb.pressure.numpy(),
+                                   np.asarray(wb.pressure), rtol=0,
+                                   atol=2e-5 * peak)
 
 
 def test_engine_runs_on_the_card_by_default():

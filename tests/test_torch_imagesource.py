@@ -3,8 +3,8 @@
 ``tree`` takes the same (depth, R) hit history (from the JAX tracer) and
 ``exact`` the same shoebox; positions, distances and volumes agree to 1e-5
 relative (the README's lattice row holds the lattice to 1e-3).
-``postprocess`` renders the same impulses to an early IR for the omni and
-cardioid capsules.
+``postprocess`` renders the same impulses to an early IR for the omni,
+cardioid and HRTF capsules.
 """
 
 import jax
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from wayverb_tpu.core import geometry as jg
+from wayverb_tpu.core.attenuator import Hrtf as JHrtf
 from wayverb_tpu.core.attenuator import Microphone as JMicrophone
 from wayverb_tpu.core.attenuator import Null as JNull
 from wayverb_tpu.core.impulse import Impulses as JImpulses
@@ -111,7 +112,8 @@ def test_exact_matches():
 @pytest.mark.parametrize("method", ["null", "microphone"])
 def test_postprocess_matches(scene, method):
     """Impulses with 1/r applied → early IR at 16 kHz, within 1e-5 of its
-    peak; the same length."""
+    peak; the same length.  Then the same impulses heard by the right ear
+    of an ``Hrtf()`` capsule: distances from the ear, gains per band."""
     jsoup, tsoup, jsurf, tsurf, history = scene
     j_imp = j_adp(jtree.find_image_source_impulses(
         history, jsoup, jsurf, SOURCE, RECEIVER, 4).concatenate(
@@ -125,8 +127,12 @@ def test_postprocess_matches(scene, method):
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Hrtf()
+    want = np.asarray(jpp.postprocess(j_imp, JHrtf(channel=1), RECEIVER,
+                                      340.0, 16000.0))
+    got = tpp.postprocess(t_imp, Hrtf(channel=1), RECEIVER, 340.0, 16000.0)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def test_apply_distance_pressure_matches(rng):

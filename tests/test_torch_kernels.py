@@ -162,6 +162,58 @@ def test_canonical_on_the_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_canonical_multiband_on_the_card(cuda_device):
+    """Two bands on the card: each band takes the mega path, ⌈300/128⌉ = 3
+    chunk launches a band and no fused step, and equals ``canonical`` on
+    the mesh with that band's flat tables to the bit."""
+    from wayverb_tpu_torch.waveguide import boundary as bdry
+    fs = 3333.33
+    dx = grid_spacing(340.0, 1.0 / fs)
+    absorption = np.tile(np.linspace(0.3, 0.05, 8), (1, 1))
+    mesh = wgrun.shoebox_mesh(Box((0.0, 0.0, 0.0), (1.4, 1.6, 1.8)),
+                              absorption, dx, fs, device=cuda_device)
+    src, rcv = (0.7, 0.8, 0.6), (0.7, 0.8, 1.3)
+    before = tbf.fused_step.launches, tbm.mega_chunk.launches
+    bands = wgrun.canonical_multiband(mesh, absorption, src, rcv, 0.09, 2)
+    assert (tbf.fused_step.launches - before[0],
+            tbm.mega_chunk.launches - before[1]) == (0, 2 * 3)
+    for b, band in enumerate(bands):
+        assert bool(band.stable) and band.pressure.shape == (300,)
+        cb, ca = bdry.coefficient_table(
+            [bdry.to_flat_coefficients(float(absorption[0, b]))])
+        structure = dataclasses.replace(
+            mesh.structure, coef_b=torch.as_tensor(cb, device=cuda_device),
+            coef_a=torch.as_tensor(ca, device=cuda_device))
+        one = wgrun.canonical(dataclasses.replace(mesh, structure=structure),
+                              src, rcv, 0.09)
+        assert torch.equal(band.pressure, one.pressure)
+        assert torch.equal(band.intensity, one.intensity)
+
+
+@pytest.mark.cuda
+def test_hrtf_attenuation_on_the_card_equals_cpu(cuda_device):
+    """``Hrtf.attenuation`` reads the same table entries on the card as on
+    the CPU, to the bit, for both ears of a rotated head; the ear
+    positions too."""
+    from wayverb_tpu_torch.core.attenuator import Hrtf
+    from wayverb_tpu_torch.core.orientation import Orientation
+    gen = torch.Generator().manual_seed(17)
+    v = torch.randn(65536, 3, generator=gen) \
+        * torch.rand(65536, 1, generator=gen) * 10
+    v[0] = 0.0
+    for channel in (0, 1):
+        for orientation in (Orientation(),
+                            Orientation((0.3, 0.2, 0.9), (0.1, 1.0, 0.0))):
+            h = Hrtf(orientation, channel)
+            card = h.attenuation(v.to(cuda_device))
+            assert card.device.type == "cuda"
+            assert torch.equal(card.cpu(), h.attenuation(v))
+            base = torch.tensor([2.09, 3.08, 0.96])
+            assert torch.equal(h.ear_position(base.to(cuda_device)).cpu(),
+                               h.ear_position(base))
+
+
+@pytest.mark.cuda
 def test_fused_path_on_the_card_matches_cpu(cuda_device):
     """``run_waveguide_box`` (the fused path, one B1 launch per step) on
     the card against the same run on the CPU; bound 1e-5 per unit of

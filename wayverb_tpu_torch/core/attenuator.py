@@ -1,11 +1,15 @@
-"""Receiver capsule models: omni/null and polar-pattern microphone.
+"""Receiver capsule models: omni/null, polar-pattern microphone, HRTF.
 
-Port of ``Null`` and ``Microphone`` from ``wayverb_tpu.core.attenuator``.
-``Hrtf`` keeps the reference's fields, but its table waits for a later slice
-(ROADMAP A.6): constructing one raises ``NotImplementedError``.
+Port of ``wayverb_tpu.core.attenuator``.  All attenuation functions
+broadcast over a batch of incident vectors and are differentiable in them
+(the HRTF gains are table reads: their gradient in the direction is zero).
 
 Parity: reference ``core/attenuator/microphone.cpp:18-25`` (gain =
-(1-s) + s·cosθ), ``core/attenuator/null.h``.
+(1-s) + s·cosθ), ``core/attenuator/hrtf.cpp:119-139`` (az/el table lookup of
+2-channel 8-band energies; ear offset ±radius along the local x axis),
+``core/attenuator/null.h``.  The reference's IRCAM table is not copied: the
+default table is the Brown–Duda model of ``core.hrtf``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from typing import Any
 
 import torch
 
-from wayverb_tpu_torch.core.orientation import Orientation
+from wayverb_tpu_torch.core.hrtf import default_hrtf_table, table_from_energies
+from wayverb_tpu_torch.core.orientation import Orientation, angle_lut_indices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,18 +49,55 @@ class Microphone:
         return torch.where(length > 0, gain, torch.zeros_like(gain))
 
 
-_HRTF = "the Hrtf capsule is not ported yet: ROADMAP queue A, item 6"
-
-
 @dataclasses.dataclass(frozen=True)
 class Hrtf:
-    """Head-related capsule (per-direction 8-band gains, two ears): not
-    ported yet."""
+    """Head-related capsule: per-direction 8-band energies, two ears.
+
+    ``table``: (az, el, 2, bands) energy table (default: ``core.hrtf``'s
+    Brown–Duda table); ``channel``: 0=left 1=right; ``radius``: ear offset
+    from head centre in metres.
+
+    A direction is rotated by the orientation's matrix made on the host and
+    binned, both in float64, where the reference rotates and bins in
+    float32: float32 matrix products, ``atan2`` and ``asin`` round
+    differently on the card and on the CPU, and a direction near a bin edge
+    would then read another bin.  In float64 only a direction within an ulp
+    or so of an edge can still part (the card's and the host's float64
+    ``atan2`` / ``asin`` may differ in the last bit), so the card and the
+    CPU read the same entries with high probability, not by construction;
+    and a direction within float32 rounding of an edge may read another
+    entry than the reference's.
+    """
 
     orientation: Orientation = Orientation()
     channel: int = 0
     radius: float = 0.1
     table: Any = None
 
-    def __post_init__(self):
-        raise NotImplementedError(_HRTF)
+    def _table(self, device):
+        if self.table is not None:
+            return table_from_energies(self.table, device)
+        return default_hrtf_table(device)
+
+    def attenuation(self, incident):
+        """(..., bands) per-band gains for incident vectors (..., 3)."""
+        table = self._table(incident.device)
+        num_az, num_el = table.shape[0], table.shape[1]
+        length = torch.linalg.vector_norm(incident, dim=-1)
+        v = incident.to(torch.float64)
+        unit = v / torch.clamp(
+            torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-20)
+        rotation = self.orientation.matrix("cpu").to(incident.device,
+                                                     torch.float64)
+        az, el = angle_lut_indices(unit @ rotation.T, num_az, num_el)
+        gains = table[az.long(), el.long(), self.channel]
+        return torch.where(length[..., None] > 0, gains,
+                           torch.zeros_like(gains))
+
+    def ear_position(self, base_position):
+        """The ear: ``base_position`` moved ±``radius`` along the head's
+        local x axis, on the base position's device."""
+        base = torch.as_tensor(base_position, dtype=torch.float32)
+        offset = -self.radius if self.channel == 0 else self.radius
+        x_axis = self.orientation.matrix("cpu")[0].to(base.device)
+        return base + offset * x_axis

@@ -13,14 +13,19 @@ from typing import Optional
 
 import torch
 
-from wayverb_tpu_torch.core.attenuator import Microphone, Null
+from wayverb_tpu_torch.core.attenuator import Hrtf, Microphone, Null
 from wayverb_tpu_torch.core.impulse import Impulses
 from wayverb_tpu_torch.raytracer.histogram import sinc_histogram
 from wayverb_tpu_torch.signal.multiband import multiband_filter_and_mixdown
 
 
 def attenuate(method, receiver_position, impulses: Impulses):
-    """Apply a capsule model; returns (volumes (N, bands), distances (N,))."""
+    """Apply a capsule model; returns (volumes (N, bands), distances (N,)).
+
+    For HRTF the listening position shifts to the ear, changing both gain
+    direction and distance (interaural time difference), as in the
+    reference.
+    """
     receiver_position = torch.as_tensor(receiver_position,
                                         dtype=torch.float32,
                                         device=impulses.volume.device)
@@ -29,6 +34,12 @@ def attenuate(method, receiver_position, impulses: Impulses):
     if isinstance(method, Microphone):
         att = method.attenuation(impulses.position - receiver_position)
         return impulses.volume * att[:, None], impulses.distance
+    if isinstance(method, Hrtf):
+        direction = impulses.position - method.ear_position(
+            receiver_position)
+        att = method.attenuation(direction)               # (N, bands)
+        return (impulses.volume * att,
+                torch.linalg.vector_norm(direction, dim=-1))
     raise TypeError(f"unknown capsule method {type(method)}")
 
 

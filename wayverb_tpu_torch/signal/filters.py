@@ -1,15 +1,67 @@
-"""Decay analysis: Schroeder integration, line fits, reverb times.
+"""Time-domain filters and decay analysis.
 
-Port of the decay half of ``wayverb_tpu.signal.filters``.  The DF2T
-``iir_filter`` scan waits for the slice that needs it.
+Port of ``wayverb_tpu.signal.filters``.  IIR filtering runs a direct-form-II
+transposed state through a per-sample Python loop (the reference's
+``lax.scan``), the same recurrence as the waveguide's boundary filters
+(``waveguide/cl/filters.cpp``: ``filter_step_canonical``).  The module is
+the package's filtering and decay analysis for its users (``rt60_measures``
+reads EDT, T20 and T30 off a rendered IR); no path of the engine calls it,
+so it is plain torch.
 
-Parity: reference ``core/schroeder.h`` (backwards-integrated decay),
+Parity: reference ``core/filters_common.h`` (biquad), ``core/dc_blocker.h``,
+``core/schroeder.h`` (backwards-integrated decay),
 ``core/linear_regression.h``.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def filter_step(x, state, b, a):
+    """One DF2T step (the waveguide kernel's ``filter_step_canonical``).
+
+    Returns (y, new_state); everything broadcasts over leading axes with the
+    state's trailing axis = order.
+    """
+    y = (x * b[..., 0] + state[..., 0]) / a[..., 0]
+    shifted = torch.cat([state[..., 1:], torch.zeros_like(state[..., :1])],
+                        dim=-1)
+    new_state = shifted + b[..., 1:] * x[..., None] \
+        - a[..., 1:] * y[..., None]
+    return y, new_state
+
+
+def iir_filter(b, a, x, state=None):
+    """Direct-form-II-transposed IIR along the last axis of ``x``.
+
+    ``b``/``a``: (order+1,) with ``a[0]`` the normalizer.  Differentiable in
+    both the signal and the coefficients.  Returns (y, final_state).
+    """
+    b = torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    order = b.shape[0] - 1
+    if state is None:
+        state = torch.zeros(x.shape[:-1] + (order,), dtype=x.dtype,
+                            device=x.device)
+    ys = []
+    for n in range(x.shape[-1]):
+        y, state = filter_step(x[..., n], state, b, a)
+        ys.append(y)
+    return torch.stack(ys, dim=-1), state
+
+
+def biquad_cascade(sections_b, sections_a, x):
+    """Cascade of biquads (S, 3) applied serially (reference biquad chain)."""
+    y = x
+    for i in range(sections_b.shape[0]):
+        y, _ = iir_filter(sections_b[i], sections_a[i], y)
+    return y
+
+
+def dc_blocker_coefficients(r=0.995):
+    """y[n] = x[n] - x[n-1] + R y[n-1]  (reference dc_blocker.h)."""
+    return torch.tensor([1.0, -1.0, 0.0]), torch.tensor([1.0, -r, 0.0])
 
 
 def linear_regression(x, y):
@@ -50,3 +102,12 @@ def decay_time(signal, sample_rate, begin_db=-5.0, end_db=-25.0,
     den = torch.sum(w * torch.square(t - mx[..., None]), dim=-1)
     slope = num / torch.clamp(den, min=1e-30)  # dB per second (negative)
     return -full_range_db / slope
+
+
+def rt60_measures(signal, sample_rate):
+    """Common measures dict: EDT, T20, T30 from one IR."""
+    return {
+        "edt": decay_time(signal, sample_rate, 0.0, -10.0, 60.0),
+        "t20": decay_time(signal, sample_rate, -5.0, -25.0, 60.0),
+        "t30": decay_time(signal, sample_rate, -5.0, -35.0, 60.0),
+    }

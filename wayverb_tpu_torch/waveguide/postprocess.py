@@ -1,11 +1,11 @@
 """Waveguide output → audio-rate pressure signal.
 
-Port of ``wayverb_tpu.waveguide.postprocess`` for the omni and microphone
-capsules (the HRTF mixdown waits with ``Hrtf``): the per-step directional
+Port of ``wayverb_tpu.waveguide.postprocess``: the per-step directional
 receiver output is attenuated by the capsule (gain applied in intensity,
-converted back to signed pressure), resampled to the output rate, each band
-is bandpassed to its valid range (width 0.1) and summed, and a 10 Hz DC
-blocker finishes.
+converted back to signed pressure), multiband HRTF output is mixed down at
+the mesh rate, the mesh-rate signal is resampled to the output rate, each
+band is bandpassed to its valid range (width 0.1) and summed, and a 10 Hz
+DC blocker finishes.
 
 Parity: reference ``waveguide/postprocess.h:57-126`` and
 ``waveguide/attenuator.h``.
@@ -22,7 +22,8 @@ from wayverb_tpu_torch.core.attenuator import Null
 from wayverb_tpu_torch.signal.multiband import (apply_zero_phase_magnitude,
                                                 compute_bandpass_magnitude,
                                                 compute_hipass_magnitude,
-                                                compute_lopass_magnitude)
+                                                compute_lopass_magnitude,
+                                                multiband_filter_and_mixdown)
 from wayverb_tpu_torch.signal.resample import resample
 
 
@@ -34,26 +35,35 @@ class BandpassBand:
     intensity: Any       # (T, 3)
     sample_rate: float
     valid_hz: tuple      # (lo, hi)
+    stable: Any = None   # () bool tensor: no NaN/Inf during the band's run
 
 
 def attenuate(method, acoustic_impedance, intensity, pressure):
-    """Capsule gain in the intensity domain → signed pressure trace (T,).
+    """Capsule gain in the intensity domain → signed pressure trace.
 
     intensity: (T, 3) instantaneous intensity vectors; pressure: (T,).
+    Returns (T,) for null/microphone, (T, bands) for HRTF.
     """
     if isinstance(method, Null):
         return pressure
-    att = method.attenuation(-intensity)           # (T,)
+    att = method.attenuation(-intensity)           # (T,) or (T, bands)
     magnitude = torch.linalg.vector_norm(intensity, dim=-1)
-    i = magnitude * att * att
-    return torch.copysign(torch.sqrt(i * acoustic_impedance), pressure)
+    if att.dim() == pressure.dim():                # scalar gain per step
+        i = magnitude * att * att
+        return torch.copysign(torch.sqrt(i * acoustic_impedance), pressure)
+    i = magnitude[:, None] * att * att
+    return torch.copysign(torch.sqrt(i * acoustic_impedance),
+                          pressure[:, None])
 
 
 def postprocess_band(band: BandpassBand, method, acoustic_impedance,
                      output_sample_rate: float):
-    """One band → attenuated, resampled pressure at the output rate."""
+    """One band → attenuated, mixed down, resampled pressure at the
+    output rate."""
     signal = attenuate(method, acoustic_impedance, band.intensity,
                        band.pressure)
+    if signal.dim() == 2:  # HRTF: (T, bands) → mixdown at the mesh rate
+        signal = multiband_filter_and_mixdown(signal.T, band.sample_rate)
     return resample(signal, band.sample_rate, output_sample_rate)
 
 

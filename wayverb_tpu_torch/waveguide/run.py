@@ -21,7 +21,8 @@ with optional checkpointing).
 
 Canonical driver parity: ``waveguide/canonical.h:30-124`` (hard source with
 calibrated impulse at the source node, directional receiver at the receiver
-node, steps = ⌈time·fs⌉).
+node, steps = ⌈time·fs⌉); ``canonical_multiband``
+(``canonical.h:141-177``) runs it once per band with flat boundaries.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from wayverb_tpu_torch.core.environment import Environment
+from wayverb_tpu_torch.signal.multiband import band_edges
 from wayverb_tpu_torch.core.geometry import (Box, TriangleSoup, box_scene,
                                              scene_aabb)
 from wayverb_tpu_torch.waveguide import boundary as bdry
@@ -435,6 +437,63 @@ def canonical(mesh: Mesh, source_position, receiver_position,
     intensity, pressure = result["outputs"]
     return WaveguideOutput(pressure=pressure, intensity=intensity,
                            sample_rate=fs, stable=result["stable"])
+
+
+def canonical_multiband(mesh: Mesh, soup_surface_absorption, source_position,
+                        receiver_position, simulation_time: float,
+                        num_bands: int,
+                        environment: Environment = Environment(),
+                        dtype=torch.float32, use_vmap: bool = True,
+                        device_mesh=None):
+    """Per-band runs with flat (frequency-independent) boundaries.
+
+    Parity: reference ``canonical.h:141-177`` — band b uses
+    ``to_flat_coefficients(absorption[:, b])`` per surface and covers the
+    hrtf band-edge range [edge_b, edge_{b+1}] Hz of the absorption's band
+    count, whatever the mesh rate (the top bands may lie above it, as in
+    the reference).  Returns a list of ``postprocess.BandpassBand``, each
+    with its run's ``stable``.
+
+    Only the (S, order+1) coefficient tables change from band to band: each
+    band runs ``canonical`` on the mesh with those two tables replaced, so
+    it takes the route one band takes (B2 on a CUDA shoebox, B8 on a
+    general mesh, B12 on a thin box, the plain versions on the CPU) and
+    frees its fields before the next band starts.  With a ``device_mesh``
+    every band runs ``canonical_sharded`` (shoebox) or
+    ``canonical_general_sharded``.  ``use_vmap`` is accepted for the
+    reference's signature and changes nothing: the reference's vmapped and
+    looped forms compute the same bands, and here both are this loop.
+    """
+    from wayverb_tpu_torch.parallel.box_sharded import canonical_sharded
+    from wayverb_tpu_torch.parallel.general_sharded import \
+        canonical_general_sharded
+    from wayverb_tpu_torch.waveguide.postprocess import BandpassBand
+
+    absorption = np.asarray(soup_surface_absorption)   # (S, bands)
+    edges = band_edges(absorption.shape[1])
+    valid = [(float(edges[b]), float(edges[b + 1])) for b in range(num_bands)]
+    out = []
+    for b in range(num_bands):
+        coef_b, coef_a = bdry.coefficient_table(
+            [bdry.to_flat_coefficients(float(absorption[s, b]))
+             for s in range(absorption.shape[0])])
+        band_mesh = dataclasses.replace(mesh, structure=dataclasses.replace(
+            mesh.structure, coef_b=torch.as_tensor(coef_b, device=mesh.device),
+            coef_a=torch.as_tensor(coef_a, device=mesh.device)))
+        args = (band_mesh, source_position, receiver_position,
+                simulation_time)
+        if device_mesh is None:
+            result = canonical(*args, environment, dtype)
+        elif mesh.box_spec is not None:
+            result = canonical_sharded(*args, device_mesh, environment, dtype)
+        else:
+            result = canonical_general_sharded(*args, device_mesh,
+                                               environment, dtype)
+        out.append(BandpassBand(
+            pressure=result.pressure, intensity=result.intensity,
+            sample_rate=result.sample_rate, valid_hz=valid[b],
+            stable=result.stable))
+    return out
 
 
 def shoebox_mesh(box: Box, absorption, spacing: float, sample_rate: float,
