@@ -160,12 +160,34 @@ Drives the port through its public entry points on the card and fails
     ``Hrtf``;
 37. the multiband engine (``bands=2``) on the test_combined box, card
     against CPU with the same draws, rendered with ``Hrtf(channel=0)`` and
-    ``Null``: at phase 10's absorption within its bounds, at the multiband
-    hall's reported (the stochastic tail's known divergence there);
+    ``Null``, at phase 10's absorption and at the multiband hall's, both
+    within phase 10's bounds; the ray leg's three-vector ops card against
+    CPU on 2^20 random vectors (the library's reductions and
+    ``core.geometry``'s ``dot3``, ``norm3``, ``sqrt32``, which must agree
+    to the bit); at the low absorption the two traces behind
+    the stochastic tail split by ray (histograms bin by bin, the share of
+    rays whose triangle history agrees, those rays' histograms, tails and
+    reflection points alone, where the others first part);
     ``Hrtf.attenuation`` on 65,536 directions, card against CPU to the
     bit; ``canonical_multiband`` on four shards of ``cuda:0`` on the
     shoebox hall, 2 bands x 32 steps, against the single-device run;
-38. one JSON line of per-kernel results, then the last line,
+38. resume and cancel on the hall (224, 224, 256), run while phases 5-7's
+    mesh is built: 256 steps through ``run_cancellable`` in chunks of 64,
+    cancelled after two chunks and resumed from ``Cancelled.state``, saved
+    at step 128 with ``save_state`` and loaded back onto the card, and
+    ``iter_pressure_fields(every=64)``: each bit-equal to one
+    ``run_waveguide_box`` (256 B1 launches in each form), with the ms a
+    chunk, the seconds and bytes of the save and the load, and against
+    ``execute`` (B2);
+39. the columns hall (B8, 100 steps as 4 x 25, run while phases 17-22's
+    mesh is built) and phase 20's thin box (B12, 300 steps as 3 x 100)
+    chunked against one run, to the bit;
+40. phase 9's hall as a project file: two sources x two receivers x omni,
+    cardioid and both ears of ``Hrtf``, saved, loaded and rendered by
+    ``run_project`` into 16 WAV files, each read back; the first pair again
+    through ``Engine.run`` + ``render`` with the same generator seed, its
+    renders under ``profiler_trace``, equal to the bit;
+41. one JSON line of per-kernel results, then the last line,
     ``{"ok": true, "device": {...}}``.
 
 A kernel's ``bound_ms`` is the least time the card could take for the same
@@ -1214,12 +1236,172 @@ def _multiband_card_vs_cpu(torch, absorption, card):
     return errs
 
 
+TAIL_AGREE = 0.999         # rays whose triangle history agrees, card vs CPU
+TAIL_KEPT_L1 = 1e-5        # agreeing rays: histogram L1 card vs CPU, of total
+TAIL_KEPT_REL = 1e-4       # agreeing rays: their tail card vs CPU, of peak
+
+
+def _ray_ops_card_vs_cpu(torch, card):
+    """The ray leg's three-vector reductions on 2^20 random vectors, card
+    against CPU: the share of results whose bits differ for the library
+    ops (a last-axis ``sum``, ``vector_norm``, a float32 ``mean`` of 8,
+    ``sqrt``, each device's ``sqrt`` against the correctly rounded one)
+    and for ``core.geometry``'s ``dot3``, ``norm3`` and ``sqrt32``, which
+    must agree on all."""
+    from wayverb_tpu_torch.core.geometry import dot3, norm3, sqrt32
+    gen = torch.Generator().manual_seed(SEED + 37)
+    a = torch.randn(1 << 20, 3, generator=gen)
+    b = torch.randn(1 << 20, 3, generator=gen)
+    eight = torch.cat([a, b, a[:, :2]], dim=-1)
+    ops = {"sum(a * b, -1)": lambda x, y, e: torch.sum(x * y, dim=-1),
+           "vector_norm": lambda x, y, e: torch.linalg.vector_norm(x, dim=-1),
+           "linalg.cross": lambda x, y, e: torch.linalg.cross(x, y, dim=-1),
+           "mean of 8": lambda x, y, e: e.mean(dim=-1),
+           "sqrt": lambda x, y, e: torch.sqrt(x.abs()),
+           "x / y": lambda x, y, e: x / y,
+           "dot3": lambda x, y, e: dot3(x, y),
+           "norm3": lambda x, y, e: norm3(x),
+           "sqrt32": lambda x, y, e: sqrt32(x.abs())}
+    differ = {}
+    for name, f in ops.items():
+        on_card = f(a.cuda(), b.cuda(), eight.cuda()).cpu()
+        differ[name] = float((on_card != f(a, b, eight)).float().mean())
+    exact = torch.from_numpy(np.sqrt(a.abs().numpy()))
+    differ["sqrt on the card vs correctly rounded"] = float(
+        (torch.sqrt(a.abs().cuda()).cpu() != exact).float().mean())
+    differ["sqrt on the CPU vs correctly rounded"] = float(
+        (torch.sqrt(a.abs()) != exact).float().mean())
+    print(f"[37 ray ops] share of 2^20 random results whose bits differ, "
+          f"card vs CPU: {json.dumps(differ)} [{card}]")
+    if any(differ[k] for k in ("dot3", "norm3", "sqrt32")):
+        _fail("the ray leg's three-vector ops differ between card and CPU")
+    return differ
+
+
+def _tail_split(torch, card):
+    """The two traces behind the low-absorption tail of phase 37, card
+    against CPU with the same directions (the engine's trace: ``trace_jit``
+    at the engine's depth and rays): the histograms bin by bin, the share
+    of rays whose triangle history agrees at every bounce, and both
+    histograms traced again from those rays alone, with their tails; for
+    the others, the bounce at which each first parts and whether the two
+    triangles hit there are coplanar (one wall's two halves) or on two
+    walls (a box edge or corner); the reflection points
+    (``capture_positions``) of the agreeing rays, card against CPU, by
+    bounce."""
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Null
+    from wayverb_tpu_torch.core.environment import Environment
+    from wayverb_tpu_torch.core.geometry import (Box, box_scene,
+                                                 triangle_normals)
+    from wayverb_tpu_torch.core.orientation import random_unit_vectors
+    from wayverb_tpu_torch.core.surfaces import Surface
+    from wayverb_tpu_torch.raytracer import stochastic, tracer
+    box = Box((0.0, 0.0, 0.0), (5.56, 3.97, 2.81))
+    src, rcv = (2.09, 2.12, 2.12), (2.09, 3.08, 0.96)
+    params = eng.RaytracerParameters(rays=1 << 13, max_time=1.5)
+    surfaces = Surface(absorption=torch.tensor([MULTIBAND_ABSORPTION]),
+                       scattering=torch.full((1, 8), 0.1))
+    depth = eng.optimum_depth(surfaces)
+    rays = params.rays
+    gen = torch.Generator().manual_seed(SEED)
+    init = random_unit_vectors(rays, gen)
+    bounce = torch.stack([random_unit_vectors(rays, gen)
+                          for _ in range(depth)])
+    soup = box_scene(box)
+    env = Environment()
+
+    def traced(device, keep=None):
+        d = (init, bounce) if keep is None else (init[keep],
+                                                 bounce[:, keep])
+        r = tracer.trace_jit(
+            soup.to(device), surfaces.to(device), src, rcv, None,
+            num_rays=rays if keep is None else len(keep), depth=depth,
+            max_time=params.max_time, environment=env,
+            receiver_radius=params.receiver_radius,
+            histogram_sample_rate=params.histogram_sample_rate,
+            max_image_source_order=params.maximum_image_source_order,
+            directions=d, capture_positions=keep is not None)
+        return r
+
+    def tail(hist):
+        return stochastic.postprocess(
+            hist, params.histogram_sample_rate, Null(), box.volume(), env,
+            16000.0, torch.Generator().manual_seed(SEED + 1)).cpu()
+
+    card_t, cpu_t = traced("cuda"), traced("cpu")
+    card_h, cpu_h = card_t.histogram.cpu(), cpu_t.histogram
+    total = float(cpu_h.sum())
+    full_l1 = float((card_h - cpu_h).abs().sum()) / total
+    hc, hp = card_t.triangle_history.cpu(), cpu_t.triangle_history
+    same = torch.all(hc == hp, dim=0)
+    keep = torch.nonzero(same).flatten()
+    share = float(same.float().mean())
+    # where the others part, and on what
+    parting = torch.nonzero(~same).flatten()
+    first = torch.argmax((hc[:, parting] != hp[:, parting]).int(), dim=0)
+    normals = triangle_normals(soup)
+    ta, tb = hc[first, parting].long(), hp[first, parting].long()
+    alive = (ta >= 0) & (tb >= 0)
+    coplanar = alive & (torch.sum(normals[ta.clamp(min=0)]
+                                  * normals[tb.clamp(min=0)], dim=-1) > 0.999)
+    card_k, cpu_k = traced("cuda", keep), traced("cpu", keep)
+    if not (torch.equal(card_k.triangle_history.cpu(), hc[:, keep])
+            and torch.equal(cpu_k.triangle_history, hp[:, keep])):
+        _fail("the agreeing rays traced alone changed their histories")
+    scale = len(keep) / rays
+    kc, kp = card_k.histogram.cpu() * scale, cpu_k.histogram * scale
+    kept_l1 = float((kc - kp).abs().sum()) / total
+    kept_share = float(kp.sum()) / total
+    tc, tp = tail(kc), tail(kp)
+    kept_tail = float((tc - tp).abs().max()) / float(tp.abs().max())
+    full_tail = float((tail(card_h) - tail(cpu_h)).abs().max()) \
+        / float(tail(cpu_h).abs().max())
+    drift = (card_k.positions.cpu() - cpu_k.positions).abs() \
+        .amax(dim=(1, 2))
+    at = [b for b in (0, 7, 15, 31, 63, 127, depth - 1) if b < depth]
+    counts = torch.bincount(first, minlength=depth)
+    by_decile = [int(counts[i * depth // 10:(i + 1) * depth // 10].sum())
+                 for i in range(10)]
+    out = {"rays": rays, "depth": depth, "agree_share": share,
+           "full_hist_l1": full_l1, "full_tail_rel": full_tail,
+           "kept_hist_l1": kept_l1, "kept_energy_share": kept_share,
+           "kept_tail_rel": kept_tail,
+           "first_parting_bounce": {
+               "min": int(first.min()) if len(first) else None,
+               "median": int(first.median()) if len(first) else None,
+               "by_tenth_of_depth": by_decile},
+           "parting_coplanar_share": float(coplanar.float().mean())
+           if len(first) else None,
+           "kept_position_drift_m": {b: float(drift[b]) for b in at}}
+    print(f"[37 tail split] absorption {MULTIBAND_ABSORPTION}, {rays} rays "
+          f"x {depth} bounces, card vs CPU, same directions: full "
+          f"histograms L1 {full_l1:.3e} of their energy, tail max |d| "
+          f"{full_tail:.3e} of peak; triangle histories agree on "
+          f"{share:.4f} of the rays (bound {TAIL_AGREE:g}); those rays "
+          f"alone: histogram L1 "
+          f"{kept_l1:.3e} of the full energy (bound {TAIL_KEPT_L1:g}; they "
+          f"carry {kept_share:.4f} of it), tail max |d| {kept_tail:.3e} of "
+          f"peak (bound {TAIL_KEPT_REL:g}) [{card}]")
+    print(f"[37 tail split] the other {len(parting)} rays first part at "
+          f"bounce min {out['first_parting_bounce']['min']}, median "
+          f"{out['first_parting_bounce']['median']}, by tenth of the depth "
+          f"{by_decile}; coplanar triangles (one wall's two halves) at the "
+          f"first parting: {out['parting_coplanar_share']}; reflection "
+          f"points of the agreeing rays, card vs CPU, max |d| by bounce "
+          f"{ {b: f'{v:.2e}' for b, v in out['kept_position_drift_m'].items()} } "
+          f"m [{card}]")
+    if not (share >= TAIL_AGREE and kept_l1 <= TAIL_KEPT_L1
+            and kept_tail <= TAIL_KEPT_REL):
+        _fail("the card's rays part from the CPU's, or deposit otherwise")
+    return out
+
+
 def phase_multiband_card_vs_cpu(torch, card):
     """The test_combined box of phase 10 with ``bands=2`` on the card and
     on the CPU (same CPU generators), rendered with ``Hrtf(channel=0)``;
-    once more at the multiband hall's absorption, reported and not held
-    to a bound (ROADMAP §C: the stochastic tail parts between the card and
-    the CPU at absorption 0.05, whatever the bands and the capsule);
+    once more at the multiband hall's absorption, to the same bounds, with
+    the split of its stochastic tail by ray (``_tail_split``);
     ``Hrtf``'s gains on 65,536 directions card against CPU, to the bit;
     the sharded multiband on four shards of ``cuda:0`` on the shoebox hall
     (32 steps, 2 bands) against the single-device ``canonical_multiband``
@@ -1236,8 +1418,16 @@ def phase_multiband_card_vs_cpu(torch, card):
             and errs["null_ir"] <= HYBRID_REL):
         _fail("the multiband hybrid on the card differs from the CPU run")
     low = _multiband_card_vs_cpu(torch, MULTIBAND_ABSORPTION, card)
-    if not all(x <= WAVEGUIDE_REL for x in low["bands"]):
-        _fail("a waveguide band on the card differs from the CPU run")
+    print(f"[37 multiband card vs cpu] bounds at absorption "
+          f"{MULTIBAND_ABSORPTION}: bands {WAVEGUIDE_REL:g}, IRs "
+          f"{HYBRID_REL:g} of peak [{card}]")
+    if not (all(x <= WAVEGUIDE_REL for x in low["bands"])
+            and low["hrtf_ir"] <= HYBRID_REL
+            and low["null_ir"] <= HYBRID_REL):
+        _fail("the low-absorption multiband hybrid on the card differs from "
+              "the CPU run")
+    low["ray_ops"] = _ray_ops_card_vs_cpu(torch, card)
+    low["tail_split"] = _tail_split(torch, card)
 
     gen = torch.Generator().manual_seed(SEED + 2)
     dirs = torch.randn(HRTF_DIRECTIONS, 3, generator=gen) \
@@ -3715,6 +3905,372 @@ def phase_probe(torch, card):
             "plain_us": plain_us, "sweep_s": sweep_s}
 
 
+# ---------------------------------------------------------------------------
+# resume, cancel and the project file: the chunked runner, run_project
+
+RESUME_STEPS = 256         # the resumable hall: 4 chunks of 64
+RESUME_CHUNK = 64
+RESUME_VS_MEGA_REL = 1e-5  # chunked (B1) against execute (B2), of peak
+
+
+def _outputs_equal(torch, a, b):
+    if isinstance(a, tuple):
+        return all(_outputs_equal(torch, x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _cat_outputs(torch, pieces):
+    if isinstance(pieces[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*pieces))
+    return torch.cat(pieces)
+
+
+def _synced(torch, fn):
+    """(fn(), seconds), the clock stopped after a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_resumable_hall(torch, box, dx, mesh, card):
+    """The hall of phases 5-7 through the chunked runner: ``run_cancellable``
+    in chunks of 64, a cancel after two chunks resumed from
+    ``Cancelled.state``, a ``save_state`` at step 128 loaded back onto the
+    card and resumed, and ``iter_pressure_fields(every=64)``: each
+    bit-equal to one continuous ``run_waveguide_box`` (B1 a step), and
+    against ``execute`` (B2)."""
+    from wayverb_tpu_torch.utils.events import iter_pressure_fields
+    from wayverb_tpu_torch.waveguide import checkpoint as ck
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import fused_step
+    src, rcv = _hall_positions(box, dx)
+    source, receiver, steps, _ = wgrun.canonical_problem(
+        mesh, src, rcv, _hall_sim_time(mesh, RESUME_STEPS))
+    launches = {}
+
+    def counted(name, fn):
+        fused_step.launches = 0
+        out, secs = _synced(torch, fn)
+        launches[name] = fused_step.launches
+        return out, secs
+
+    # a short warm-up, so neither form pays the first launches' costs
+    wgrun.run_waveguide_box(mesh.structure, mesh.box_spec, source, receiver,
+                            8)
+    want, cont_s = counted("continuous", lambda: wgrun.run_waveguide_box(
+        mesh.structure, mesh.box_spec, source, receiver, steps))
+    chunk_s = []
+
+    def chunked():
+        marks = [time.perf_counter()]
+
+        def progress(step, target):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        out = ck.run_cancellable(mesh, source, receiver, steps,
+                                 keep_going=lambda: True, chunk=RESUME_CHUNK,
+                                 on_progress=progress)
+        chunk_s.extend(b - a for a, b in zip(marks, marks[1:]))
+        return out
+
+    (state, outputs), chunked_s = counted("chunked", chunked)
+    calls = iter([True, True, False])
+
+    def cancel_and_resume():
+        try:
+            ck.run_cancellable(mesh, source, receiver, steps,
+                               keep_going=lambda: next(calls),
+                               chunk=RESUME_CHUNK)
+        except ck.Cancelled as stop:
+            part = stop
+        else:
+            _fail("run_cancellable did not stop when keep_going went False")
+        rest = ck.run_cancellable(mesh, source, receiver,
+                                  steps - part.state.step,
+                                  keep_going=lambda: True,
+                                  chunk=RESUME_CHUNK, state=part.state)
+        return part, rest
+
+    (part, (_, rest)), _ = counted("cancelled", cancel_and_resume)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hall.npz")
+
+        def save_load_resume():
+            first_state, first = ck.run_chunk(
+                mesh, source, receiver, ck.initial_state(mesh, receiver),
+                steps // 2)
+            _, save_s = _synced(torch, lambda: ck.save_state(path,
+                                                             first_state))
+            loaded, load_s = _synced(torch, lambda: ck.load_state(
+                path, mesh, receiver, device="cuda"))
+            same = all(bool(torch.equal(a, b)) for a, b in zip(
+                ck.state_leaves(loaded), ck.state_leaves(first_state)))
+            _, second = ck.run_chunk(mesh, source, receiver, loaded,
+                                     steps - steps // 2)
+            return first, second, save_s, load_s, same, os.path.getsize(path)
+
+        (first, second, save_s, load_s, loaded_same, snap_bytes), _ = \
+            counted("saved", save_load_resume)
+    snaps, _ = counted("snapshots", lambda: list(iter_pressure_fields(
+        mesh, source, receiver, steps, every=RESUME_CHUNK)))
+    mega = wgrun.execute(mesh, source, receiver, steps)
+    torch.cuda.synchronize()
+
+    fields = [f for _, f, _ in snaps]
+    nonzero = all(bool(torch.any(f != 0)) for f in fields)
+    distinct = all(not bool(torch.equal(a, b))
+                   for i, a in enumerate(fields) for b in fields[i + 1:])
+    forms = {
+        "chunked": _outputs_equal(torch, outputs, want["outputs"]),
+        "cancelled": _outputs_equal(torch, _cat_outputs(
+            torch, [part.outputs, rest]), want["outputs"]),
+        "saved": _outputs_equal(torch, _cat_outputs(torch, [first, second]),
+                                want["outputs"]) and loaded_same,
+        "snapshots": _outputs_equal(torch, _cat_outputs(
+            torch, [o for _, _, o in snaps]), want["outputs"])}
+    _, pressure = outputs
+    _, mega_p = mega["outputs"]
+    peak = float(mega_p.abs().max())
+    mega_rel = float((pressure - mega_p).abs().max()) / peak
+    print(f"[38 resumable hall] {mesh.descriptor.dimensions}, {steps} steps: "
+          f"B1 launches {launches}; bit-equal to "
+          f"run_waveguide_box: {forms}; cancelled at step {part.state.step}; "
+          f"stable {bool(state.stable)}")
+    print(f"[38 resumable hall] continuous {1e3 * cont_s / steps:.4f} "
+          f"ms/step; chunked {1e3 * chunked_s / steps:.4f} ms/step, chunks "
+          f"{[round(1e3 * s, 2) for s in chunk_s]} ms each; save_state "
+          f"{save_s:.3f} s, load_state onto the card {load_s:.3f} s, "
+          f"{snap_bytes} bytes; iter_pressure_fields: {len(fields)} "
+          f"snapshots at {[s for s, _, _ in snaps]}, nonzero {nonzero}, "
+          f"distinct {distinct} after the run; against execute (B2): max "
+          f"|dp| / peak {mega_rel:.3e} (bound {RESUME_VS_MEGA_REL:g}) "
+          f"[{card}]")
+    if not (all(forms.values()) and part.state.step == 2 * RESUME_CHUNK
+            and all(n == steps for n in launches.values())
+            and bool(state.stable) and bool(want["stable"])
+            and len(fields) == steps // RESUME_CHUNK and nonzero and distinct
+            and mega_rel <= RESUME_VS_MEGA_REL):
+        _fail("the resumable hall failed its checks")
+    return {"shape": list(mesh.descriptor.dimensions), "steps": steps,
+            "chunk": RESUME_CHUNK, "b1_launches": launches,
+            "continuous_ms_per_step": 1e3 * cont_s / steps,
+            "chunked_ms_per_step": 1e3 * chunked_s / steps,
+            "chunk_ms": [1e3 * s for s in chunk_s],
+            "save_s": save_s, "load_s": load_s, "snapshot_bytes": snap_bytes,
+            "vs_execute_rel": mega_rel}
+
+
+def _resume_case(torch, tag, mesh, source, receiver, steps, chunks, counter,
+                 continuous, card):
+    """Chunked against one continuous run on a route; the route's kernel
+    must launch once a step in both."""
+    from wayverb_tpu_torch.waveguide import checkpoint as ck
+    counter.launches = 0
+    want, cont_s = _synced(torch, continuous)
+    cont_launches = counter.launches
+    counter.launches = 0
+
+    def chunked():
+        state, pieces = ck.initial_state(mesh, receiver), []
+        for n in chunks:
+            state, out = ck.run_chunk(mesh, source, receiver, state, n)
+            pieces.append(out)
+        return state, _cat_outputs(torch, pieces)
+
+    (state, got), chunked_s = _synced(torch, chunked)
+    chunk_launches = counter.launches
+    equal = _outputs_equal(torch, got, want["outputs"])
+    print(f"[{tag}] {mesh.descriptor.dimensions}, {steps} steps as "
+          f"{list(chunks)} against one run: bit-equal {equal}, stable "
+          f"{bool(state.stable)}; launches {chunk_launches} chunked, "
+          f"{cont_launches} continuous; {1e3 * chunked_s / steps:.4f} "
+          f"against {1e3 * cont_s / steps:.4f} ms/step [{card}]")
+    if not (equal and bool(state.stable)
+            and chunk_launches == cont_launches == steps):
+        _fail(f"{tag}: the chunked run differs from the continuous one")
+    return {"shape": list(mesh.descriptor.dimensions), "steps": steps,
+            "chunks": list(chunks), "launches": chunk_launches,
+            "chunked_ms_per_step": 1e3 * chunked_s / steps,
+            "continuous_ms_per_step": 1e3 * cont_s / steps}
+
+
+def phase_resumable_general(torch, col_mesh, card):
+    """The columns hall (B8) through ``run_chunk``, 100 steps as 4 x 25,
+    against one ``run_waveguide``; it runs while phases 17-22's mesh is
+    built."""
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    source, receiver, _, _ = wgrun.canonical_problem(
+        col_mesh, COLUMNS_SRC, COLUMNS_RCV, 100 / COLUMNS_FS)
+    return _resume_case(
+        torch, "39 resumable general", col_mesh, source, receiver, 100,
+        (25,) * 4, sk.weighted_step,
+        lambda: wgrun.run_waveguide(col_mesh.structure,
+                                    col_mesh.descriptor.dimensions, source,
+                                    receiver, 100), card)
+
+
+def phase_resumable_thin(torch, card):
+    """Phase 20's thin box (B12) through ``run_chunk``, 300 steps as
+    3 x 100, against one ``run_waveguide_regions``."""
+    from wayverb_tpu_torch.core.geometry import Box
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    dx = grid_spacing(340.0, 1.0 / FS)
+    mesh = wgrun.shoebox_mesh(Box((0.0, 0.0, 0.0), (1.4, 1.6, 0.5)),
+                              np.full((1, 8), ABSORPTION), dx, FS,
+                              anchor=(0.7, 0.8, 0.25 + dx / 2),
+                              device="cuda")
+    if mesh.box_spec is not None or mesh.regions is None:
+        _fail("the thin box did not route to the region path")
+    source, receiver, _, _ = wgrun.canonical_problem(
+        mesh, (0.5, 0.6, 0.2), (0.9, 1.1, 0.3), 300 / FS)
+    return _resume_case(
+        torch, "39 resumable thin", mesh, source, receiver, 300, (100,) * 3,
+        sk.interior_step,
+        lambda: wgrun.run_waveguide_regions(
+            mesh.structure, mesh.descriptor.dimensions, source, receiver,
+            300, mesh.regions), card)
+
+
+def _hall_project(out_dir):
+    """Phase 9's hall as a project: two sources, two receivers, each with
+    an omni, a cardioid and both ears of ``Hrtf``; 16-bit WAV."""
+    from wayverb_tpu_torch.combined import model as pm
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    dx = grid_spacing(340.0, 1.0 / FS)
+    box = _hall_box(dx)
+    src, rcv = (np.asarray(p, dtype=np.float64)
+                for p in _hall_positions(box, dx))
+    off = np.asarray([3.0, -2.0, 1.0])
+    point = lambda p: tuple(float(v) for v in p)  # noqa: E731  (JSON)
+    capsules = [pm.CapsuleModel("omni"),
+                pm.CapsuleModel("cardioid", shape=0.5),
+                pm.CapsuleModel("left", "hrtf", channel=0),
+                pm.CapsuleModel("right", "hrtf", channel=1)]
+    project = pm.Project(
+        sources=[pm.SourceModel("a", point(src)),
+                 pm.SourceModel("b", point(src + off))],
+        receivers=[pm.ReceiverModel("x", point(rcv), capsules=capsules),
+                   pm.ReceiverModel("y", point(rcv - off),
+                                    capsules=capsules)],
+        materials=[pm.MaterialModel("hall", [ABSORPTION] * 8, [0.1] * 8)],
+        waveguide=pm.WaveguideModel(cutoff=500.0, usable_portion=0.6),
+        output=pm.OutputModel(sample_rate=44100.0, bit_depth="pcm16",
+                              output_directory=out_dir, unique_id="hall"))
+    return box, project
+
+
+def phase_project(torch, card):
+    """A project file rendered on the card: ``Project.save``/``load``, then
+    ``run_project`` (16 WAV files), every file read back; the first pair
+    again through ``Engine.run`` + ``render`` (under ``profiler_trace``)
+    with the same generator seed.  Both runs use the deterministic algorithms
+    (``index_add_`` among them), so that pair can equal to the bit."""
+    import warnings
+
+    from wayverb_tpu_torch.combined import complete
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.combined.model import Project
+    from wayverb_tpu_torch.core.geometry import box_scene
+    from wayverb_tpu_torch.utils.audio import read_wav
+    from wayverb_tpu_torch.utils.events import profiler_trace
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    seed = SEED + 40
+    marks = []
+
+    def mark(state, progress):
+        torch.cuda.synchronize()
+        marks.append((state, time.perf_counter()))
+
+    was = torch.are_deterministic_algorithms_enabled()
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # warn_only's notes
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            box, project = _hall_project(tmp)
+            project.save(os.path.join(tmp, "hall.json"))
+            project = Project.load(os.path.join(tmp, "hall.json"))
+            mega_chunk.launches = 0
+            t0 = time.perf_counter()
+            channels = complete.run_project(
+                project, box_scene(box),
+                torch.Generator(device="cuda").manual_seed(seed),
+                scene_box=box, state_callback=mark, device="cuda")
+            total_s = time.perf_counter() - t0
+            b2 = mega_chunk.launches
+            src, rcv = project.sources[0], project.receivers[0]
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            e = eng.Engine(box_scene(box),
+                           project.surface_table(device="cuda"),
+                           eng.WaveguideParameters(cutoff=500.0,
+                                                   usable_portion=0.6),
+                           scene_box=box, device="cuda")
+            results = e.run(src.position, rcv.position, gen,
+                            eng.RaytracerParameters())
+            # the renders under the profiler: Engine.run makes ~170,000
+            # launches (a 345 MB trace, ~20 s of profiling), its renders few
+            trace_dir = os.path.join(tmp, "profile")
+            t0 = time.perf_counter()
+            with profiler_trace(trace_dir) as prof:
+                irs = [eng.render(results, c.build(), 44100.0, gen)
+                       .cpu().numpy() for c in rcv.capsules]
+            profiled_s = time.perf_counter() - t0
+            busiest = sorted(prof.key_averages(), key=lambda a: -a.count)[:4]
+            top_ops = {a.key: a.count for a in busiest}
+        finally:
+            torch.use_deterministic_algorithms(was)
+        trace_bytes = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+        read_err, read_ok = 0.0, True
+        for c in channels:
+            data, rate = read_wav(c.path)
+            read_ok = read_ok and rate == 44100.0 \
+                and data.shape == (1, c.signal.size)
+            if read_ok:
+                read_err = max(read_err,
+                               float(np.abs(data[0] - c.signal).max()))
+        wavs = [f for f in os.listdir(tmp) if f.endswith(".wav")]
+
+    times = [t for _, t in marks]
+    names = [n for n, _ in marks]
+    starts = [i for i, n in enumerate(names) if n.startswith("rendering ")]
+    setup_s = times[starts[0]] - times[0]
+    pair_s = [times[j] - times[i] for i, j in
+              zip(starts, starts[1:] + [names.index("writing files")])]
+    peak = max(float(np.abs(c.signal).max()) for c in channels)
+    pair_diff = max(float(np.abs(c.signal - ir * c.scale).max())
+                    for c, ir in zip(channels, irs))
+    pair_equal = all(np.array_equal(c.signal, ir * c.scale)
+                     for c, ir in zip(channels, irs))
+    steps = results.waveguide_bands[0].pressure.shape[0]
+    print(f"[40 project] phase 9's hall as a project, 2 sources x 2 "
+          f"receivers x 4 capsules, {project.raytracer.rays} rays: "
+          f"setup {setup_s:.3f} s, pairs {[round(s, 3) for s in pair_s]} s, "
+          f"run_project {total_s:.3f} s; B2 launches {b2} ({steps} steps a "
+          f"pair); {len(channels)} channels, {len(wavs)} WAV files; largest "
+          f"|x| over all channels {peak!r}; read back: max |d| {read_err:.3e} "
+          f"(bound 1/32767 = {1 / 32767:.3e}) [{card}]")
+    print(f"[40 project] pair ({src.name}, {rcv.name}) again by Engine.run + "
+          f"render, same seed, scaled by run_project's {channels[0].scale!r}: "
+          f"equal to the bit {pair_equal} (max |d| {pair_diff:.3e}); its "
+          f"four renders under profiler_trace {profiled_s:.3f} s, trace.json "
+          f"{trace_bytes} bytes, most frequent ops {top_ops} [{card}]")
+    if not (len(channels) == len(wavs) == 16 and abs(peak - 1.0) <= 2 ** -24
+            and read_ok
+            and read_err <= 1.0 / 32767 and pair_equal and trace_bytes > 0
+            and b2 == 4 * math.ceil(steps / CHUNK)):
+        _fail("the project on the card failed its checks")
+    return {"channels": len(channels), "files": len(wavs),
+            "setup_s": setup_s, "pair_s": pair_s, "run_project_s": total_s,
+            "b2_launches": b2, "steps_a_pair": steps,
+            "read_back_max_abs": read_err, "pair_bit_equal": pair_equal,
+            "profiled_renders_s": profiled_s, "trace_bytes": trace_bytes,
+            "profiled_top_ops": top_ops}
+
+
 def main():
     import torch
     card = phase_device(torch)
@@ -3734,6 +4290,11 @@ def main():
     print(f"[7 mega] phase wall {time.perf_counter() - t0:.2f} s [{card}]")
     del fused_out
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumable = {"hall": phase_resumable_hall(torch, box, dx, mesh, card)}
+    torch.cuda.empty_cache()
+    print(f"[38 resumable hall] phase wall {time.perf_counter() - t0:.2f} s "
+          f"[{card}]")
 
     b5_err = phase_b5_vs_plain(torch, mesh.box_spec, card)
     b5_time = phase_b5_time(torch, mesh.box_spec, card)
@@ -3805,6 +4366,7 @@ def main():
     general_grad_counts, general_grad = phase_general_gradient(
         torch, col_mesh, card)
     phase_general_grad_card_vs_cpu(torch, card)
+    resumable["general"] = phase_resumable_general(torch, col_mesh, card)
     del col_mesh
     torch.cuda.empty_cache()
 
@@ -3853,6 +4415,15 @@ def main():
     phase_sharded_trace(torch, card)
     torch.cuda.empty_cache()
     probe = phase_probe(torch, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumable["thin"] = phase_resumable_thin(torch, card)
+    print(f"[39 resumable thin] phase wall {time.perf_counter() - t0:.2f} s "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    project = phase_project(torch, card)
+    print(f"[40 project] phase wall {time.perf_counter() - t0:.2f} s "
+          f"[{card}]")
     counted = {"box_fused_step": b1_launches,
                "box_mega_chunk": launches["box_mega_chunk"],
                "box_fused_step_bwd": route_counts["box_fused_step_bwd"],
@@ -3899,6 +4470,7 @@ def main():
         "host_ms_per_call": b1_rows["hall"]["host_us_per_call"] / 1e3,
         **{k: b1_rows["hall"]["occupancy"][k]
            for k in ("registers", "local_bytes", "ctas_per_sm")},
+        "resumable_launches": resumable["hall"]["b1_launches"],
         "hall_run": {"wall_ms_per_step": 1e3 * step_s,
                      "busy_ms_per_step": (hall_window[0] / 1e3
                                           if hall_window else None),
@@ -3916,6 +4488,7 @@ def main():
         "shape": list(engine_dims),
         "launches": counted["box_mega_chunk"],
         "multiband_launches": multiband["launches"]["box_mega_chunk"],
+        "project_launches": project["b2_launches"],
         "max_abs_err": max(b2_err, b2_engine_err),
         **per_substep("b2", b2_us, b2_plain_us),
         **{k: b2_occ[k] for k in ("registers", "local_bytes", "ctas_per_sm")},
@@ -3982,7 +4555,8 @@ def main():
         **extra,
     } for name, key, line, err, shape, on, extra in (
         ("mesh_weighted_step", "b8", 172, b8_err, col_dims,
-         "Engine.run on the columns hall", {}),
+         "Engine.run on the columns hall",
+         {"resumable_launches": resumable["general"]["launches"]}),
         ("mesh_weighted_step_bwd", "b9", 195, b9_err, col_dims,
          "the columns hall's 64-step gradient",
          {**{k: b9_occ[k] for k in ("registers", "local_bytes",
@@ -3992,7 +4566,8 @@ def main():
               if general_grad["profile"] else None)}),
         ("mesh_interior_step", "b12", 35, b12_err, col_dims,
          "canonical on the thin box (the region path); timed at the "
-         "columns hall's shape", {}))), *({
+         "columns hall's shape",
+         {"resumable_launches": resumable["thin"]["launches"]}))), *({
         "name": name,
         "route": "cuda",
         "source": f"wayverb_tpu_torch/csrc/{name}.cu",
@@ -4084,7 +4659,8 @@ def main():
         "device_memory_ms": probe["streamed"]["us_per_step"] / 1e3,
         "device_memory_bound_ms": probe["streamed"]["bound_us"] / 1e3,
         "sweep_s": probe["sweep_s"]}],
-        "multiband_hall": multiband,
+        "multiband_hall": multiband, "resumable": resumable,
+        "project": project,
         "model_hall": model_hall, "large_hall": large_hall,
         "dda_on_card": dda, "columns_hall": columns,
         "hybrid_columns_hall": hybrid_columns,

@@ -235,7 +235,10 @@ def test_port_never_imports_jax():
                  "tools.probe_resident", "tools.rays_timing",
                  "tools.roofline", "waveguide.run",
                  "waveguide.setup", "waveguide.stencil",
-                 "waveguide.stencil_kernels"):
+                 "waveguide.stencil_kernels", "waveguide.checkpoint",
+                 "utils.events", "combined.model", "combined.validate",
+                 "combined.complete", "utils.audio", "waveguide.excitation",
+                 "waveguide.naive", "core.kernels", "core.reverb"):
         assert f"wayverb_tpu_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)

@@ -1746,3 +1746,100 @@ def test_probe_resident_unplaceable_raises_before_launch(cuda_device):
         *pr.impulse_fields((15, 19, 21), cuda_device), 2)
     assert value.is_cuda and bool(torch.isfinite(value))
     assert pr.resident_chunk.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["box", "regions", "general"])
+def test_run_chunk_on_the_card_equals_continuous(cuda_device, route):
+    """``checkpoint.run_chunk`` on the card, 90 steps in uneven chunks, to
+    the bit against one continuous run of the route's ``run_*`` function:
+    the fused step (B1), the masked interior step (B12) or the weighted
+    step (B8), one launch a step either way; a save and load in the middle
+    resumes to the bit."""
+    import tempfile
+
+    from wayverb_tpu_torch.waveguide import checkpoint as ck
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    from wayverb_tpu_torch.waveguide.receivers import \
+        make_directional_receiver
+    from wayverb_tpu_torch.waveguide.sources import (HardSource,
+                                                     impulse_signal)
+    fs = 3333.33
+    dx = grid_spacing(340.0, 1.0 / fs)
+    mesh = wgrun.shoebox_mesh(Box((0.0, 0.0, 0.0), (1.4, 1.6, 1.8)),
+                              np.full((1, 8), 0.1), dx, fs,
+                              device=cuda_device)
+    if route != "box":
+        mesh = dataclasses.replace(mesh, box_spec=None)
+    if route == "general":
+        mesh = dataclasses.replace(mesh, regions=None)
+    desc = mesh.descriptor
+    steps = 90
+    source = HardSource(node_idx=desc.flat_index(mesh.require_inside(
+        (0.7, 0.8, 0.5))), signal=impulse_signal(steps, 1.0, cuda_device))
+    receiver = make_directional_receiver(
+        desc, fs, 1.225, desc.position(mesh.require_inside((0.7, 0.8, 1.3))),
+        cuda_device)
+    counter = {"box": tbf.fused_step, "regions": sk.interior_step,
+               "general": sk.weighted_step}[route]
+    dims = desc.dimensions
+    if route == "box":
+        want = wgrun.run_waveguide_box(mesh.structure, mesh.box_spec, source,
+                                       receiver, steps)
+    elif route == "regions":
+        want = wgrun.run_waveguide_regions(mesh.structure, dims, source,
+                                           receiver, steps, mesh.regions)
+    else:
+        want = wgrun.run_waveguide(mesh.structure, dims, source, receiver,
+                                   steps)
+    before = counter.launches
+    state = ck.initial_state(mesh, receiver)
+    pieces = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for chunk in (1, 40, 49):
+            state, out = ck.run_chunk(mesh, source, receiver, state, chunk)
+            pieces.append(out)
+            if state.step == 41:
+                ck.save_state(f"{tmp}/s.npz", state)
+                state = ck.load_state(f"{tmp}/s.npz", mesh, receiver)
+    torch.cuda.synchronize()
+    assert counter.launches - before == steps
+    assert state.current.is_cuda and bool(state.stable)
+    got = tuple(torch.cat(p) for p in zip(*pieces))
+    for g, w in zip(got, want["outputs"]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_trace_on_the_card_equals_cpu(cuda_device):
+    """``trace`` on the card against the CPU with the same directions, 272
+    bounces at absorption 0.05 on the test_combined box: every ray keeps
+    one triangle history and its reflection points to the bit (the ray
+    leg's arithmetic is the same on both devices), and the histograms,
+    summed by ``index_add_`` in another order on the card, agree within
+    1e-6 of their energy in L1."""
+    from wayverb_tpu_torch.core.geometry import box_scene
+    from wayverb_tpu_torch.core.orientation import random_unit_vectors
+    from wayverb_tpu_torch.core.surfaces import Surface
+    from wayverb_tpu_torch.raytracer import tracer
+    soup = box_scene(Box((0.0, 0.0, 0.0), (5.56, 3.97, 2.81)))
+    surfaces = Surface(
+        absorption=torch.tensor([[0.4, 0.2, 0.1] + [0.05] * 5]),
+        scattering=torch.full((1, 8), 0.1))
+    rays, depth = 2048, 272
+    gen = torch.Generator().manual_seed(11)
+    directions = (random_unit_vectors(rays, gen),
+                  torch.stack([random_unit_vectors(rays, gen)
+                               for _ in range(depth)]))
+    runs = [tracer.trace(soup.to(device), surfaces.to(device),
+                         (2.09, 2.12, 2.12), (2.09, 3.08, 0.96), None,
+                         num_rays=rays, depth=depth, max_time=1.5,
+                         max_image_source_order=4, directions=directions,
+                         capture_positions=True)
+            for device in (cuda_device, "cpu")]
+    card, cpu = runs
+    assert torch.equal(card.triangle_history.cpu(), cpu.triangle_history)
+    assert torch.equal(card.positions.cpu(), cpu.positions)
+    total = float(cpu.histogram.sum())
+    assert float((card.histogram.cpu() - cpu.histogram).abs().sum()) <= \
+        1e-6 * total

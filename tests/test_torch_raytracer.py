@@ -264,3 +264,66 @@ def test_generator_draws_are_device_independent():
     u, s = ts.dirac_draws(100, torch.Generator().manual_seed(5), "cpu")
     assert u.shape == s.shape == (100,)
     assert set(s.tolist()) <= {-1.0, 1.0}
+
+
+def test_capture_positions_match():
+    """``trace(capture_positions=True)``: per-bounce reflection points,
+    (depth, R, 3), within 1e-5 of the box's longest side (5.56 m) of the
+    reference's over 8 bounces, on the rays whose triangle history agrees at
+    every bounce (float32 rounding, which the reference's fused multiply-
+    adds round otherwise, grows by about 2x every two bounces: 1.3e-5 m at
+    bounce 8, 1.3e-4 m at bounce 16); a dead ray stays where it died.
+    ``trace`` runs exactly ``depth`` bounces in both packages."""
+    jsoup, tsoup = _soups()
+    jsurf = JSurface(absorption=jnp.full((1, 8), 0.2),
+                     scattering=jnp.full((1, 8), 0.3))
+    tsurf = convert.surface_from_numpy(np.full((1, 8), 0.2),
+                                       np.full((1, 8), 0.3))
+    rays, depth = 256, 8
+    key = jax.random.PRNGKey(3)
+    want = jt.trace(jsoup, jsurf, SOURCE, RECEIVER, key, num_rays=rays,
+                    depth=depth, max_time=MAX_TIME, capture_positions=True)
+    got = tt.trace(tsoup, tsurf, SOURCE, RECEIVER, None, num_rays=rays,
+                   depth=depth, max_time=MAX_TIME, capture_positions=True,
+                   directions=reference_directions(key, rays, depth))
+    assert tt.trace(tsoup, tsurf, SOURCE, RECEIVER, None, num_rays=rays,
+                    depth=2, max_time=MAX_TIME).positions is None
+    assert got.positions.shape == (depth, rays, 3)
+    assert np.asarray(want.positions).shape == (depth, rays, 3)
+    same = np.all(got.triangle_history.numpy()
+                  == np.asarray(want.triangle_history), axis=0)
+    assert same.mean() >= 0.99, same.mean()
+    np.testing.assert_allclose(got.positions.numpy()[:, same],
+                               np.asarray(want.positions)[:, same], rtol=0,
+                               atol=1e-5 * 5.56)
+    # every point lies on the box's walls
+    p = got.positions.numpy()
+    lo, hi = np.asarray(BOX.min_corner), np.asarray(BOX.max_corner)
+    on_wall = np.min(np.minimum(np.abs(p - lo), np.abs(p - hi)), axis=-1)
+    assert on_wall.max() <= 1e-5
+    # a ray that dies keeps its last point
+    hist = got.triangle_history.numpy()
+    for b in range(1, depth):
+        dead = hist[b] < 0
+        np.testing.assert_array_equal(p[b][dead], p[b - 1][dead])
+
+
+def test_three_vector_ops_are_the_cpus(rng):
+    """The ray leg's three-vector reductions are elementwise ops in the
+    order the CPU's library reductions use, so on the CPU they give the
+    same bits as ``torch.sum`` / ``vector_norm`` / ``mean`` (and on the card
+    the same bits as on the CPU: ``tests/test_torch_kernels.py``); the
+    square root is the correctly rounded one (numpy's)."""
+    a = torch.from_numpy(rng.normal(size=(100_000, 3)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(100_000, 3)).astype(np.float32))
+    assert torch.equal(tg.dot3(a, b), torch.sum(a * b, dim=-1))
+    assert torch.equal(tg.sum3(a), torch.sum(a, dim=-1))
+    assert torch.equal(tg.norm3(a), torch.linalg.vector_norm(a, dim=-1))
+    x = a.abs().flatten()
+    assert np.array_equal(tg.sqrt32(x).numpy(), np.sqrt(x.numpy()))
+    # the tracer's mean scattering, band by band
+    s = torch.from_numpy(rng.uniform(0, 1, size=(5, 8)).astype(np.float32))
+    total = s[:, 0]
+    for k in range(1, 8):
+        total = total + s[:, k]
+    assert torch.equal(total / 8, s.mean(dim=-1))

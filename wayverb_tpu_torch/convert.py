@@ -6,7 +6,8 @@ exactly the same coefficient and boundary tables (the fitted boundary
 filters are the system's learnable parameters).
 ``soup_from_numpy`` and ``surface_from_numpy`` do the same for a scene's
 triangles and materials, ``ray_grid_from_numpy`` and
-``mt_triangles_from_numpy`` for the ray acceleration tables.  The caller
+``mt_triangles_from_numpy`` for the ray acceleration tables, and
+``waveguide_state_from_numpy`` for a chunked run's solver state.  The caller
 extracts the arrays; this package never imports the reference.
 """
 
@@ -21,6 +22,8 @@ from wayverb_tpu_torch.raytracer.accel import RayGrid
 from wayverb_tpu_torch.raytracer.mt_kernels import MtTriangles
 from wayverb_tpu_torch.waveguide.box_boundary import Region
 from wayverb_tpu_torch.waveguide.box_fused import BoxSpec
+from wayverb_tpu_torch.waveguide.checkpoint import (WaveguideState,
+                                                    _state_from_leaves)
 from wayverb_tpu_torch.waveguide.descriptor import MeshDescriptor
 from wayverb_tpu_torch.waveguide.run import Mesh
 from wayverb_tpu_torch.waveguide.setup import (GENERAL_TABLE_DTYPES,
@@ -111,3 +114,14 @@ def mt_triangles_from_numpy(packed, num, tile_boxes=None, perm=None,
         perm=as_t(perm, torch.int32), inv_perm=as_t(inv_perm, torch.int32),
         scene_lo=as_t(scene_lo, torch.float32),
         scene_inv_ext=as_t(scene_inv_ext, torch.float32))
+
+
+def waveguide_state_from_numpy(leaves, step: int, mesh: Mesh, receiver,
+                               dtype=torch.float32, *, device
+                               ) -> WaveguideState:
+    """A ``checkpoint.WaveguideState`` on ``device`` from the reference
+    state's leaves as numpy arrays, in the reference's order (its
+    ``save_state`` order: fields, boundary state, receiver state, stable)
+    and its ``step``; ``mesh`` and ``receiver`` give the structure."""
+    return _state_from_leaves(leaves, step, mesh, receiver, dtype,
+                              device=device)

@@ -50,10 +50,48 @@ class TriangleSoup:
                             self.surfaces.to(device))
 
 
+# Three-vector reductions as the CPU evaluates them, written as elementwise
+# ops in a fixed order so that the card gives the same bits.  On the card a
+# last-axis ``sum`` or ``vector_norm`` is one kernel that may contract or
+# reorder, and its float32 ``sqrt`` can differ from the CPU's in the last
+# bit; the ray tracer amplifies such an ulp over its bounces until card and
+# CPU rays part (``chip_smoke.py`` phase 37).  ``torch.linalg.cross``
+# gives the same bits on both devices as it is.
+
+def sum3(v):
+    """The CPU's ``torch.sum(v, dim=-1)`` of a (..., 3) tensor: (v0 + v1) +
+    v2."""
+    return v[..., 0] + v[..., 1] + v[..., 2]
+
+
+def dot3(a, b):
+    """a · b over the last axis of broadcastable (..., 3) tensors."""
+    return sum3(a * b)
+
+
+def sqrt32(x):
+    """√x of a float32 tensor, correctly rounded on every device (the
+    square root taken in float64)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def norm3(v):
+    """|v| over the last axis of a float32 (..., 3) tensor: the CPU's
+    ``vector_norm``, a fused multiply-add chain x0², + x1², + x2² (each
+    product exact in float64, each sum rounded to float32), then √.  Other
+    dtypes take ``vector_norm``."""
+    if v.dtype != torch.float32:
+        return torch.linalg.vector_norm(v, dim=-1)
+    d = v.double()
+    acc = (d[..., 0] * d[..., 0]).float()
+    for i in (1, 2):
+        acc = (d[..., i] * d[..., i] + acc.double()).float()
+    return sqrt32(acc)
+
+
 def _unit(v):
     """v / max(|v|, 1e-20) along the last axis."""
-    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
-                           min=1e-20)
+    return v / torch.clamp(norm3(v)[..., None], min=1e-20)
 
 
 def triangle_normals(soup: TriangleSoup, normalize: bool = True):
@@ -65,8 +103,8 @@ def triangle_normals(soup: TriangleSoup, normalize: bool = True):
 
 def triangle_areas(soup: TriangleSoup):
     c = soup.corners()
-    return 0.5 * torch.linalg.vector_norm(
-        torch.linalg.cross(c[:, 1] - c[:, 0], c[:, 2] - c[:, 0]), dim=-1)
+    return 0.5 * norm3(torch.linalg.cross(c[:, 1] - c[:, 0],
+                                          c[:, 2] - c[:, 0]))
 
 
 def mirror_point(point, tri_corners):
@@ -74,7 +112,7 @@ def mirror_point(point, tri_corners):
     v0 = tri_corners[..., 0, :]
     n = _unit(torch.linalg.cross(tri_corners[..., 1, :] - v0,
                                  tri_corners[..., 2, :] - v0))
-    d = torch.sum(n * (point - v0), dim=-1, keepdim=True)
+    d = dot3(n, point - v0)[..., None]
     return point - 2.0 * d * n
 
 
@@ -95,16 +133,16 @@ def ray_triangle_intersection(origin, direction, corners):
     e1 = corners[..., 1, :] - v0
     e2 = corners[..., 2, :] - v0
     pvec = _cross(direction, e2)
-    det = torch.sum(e1 * pvec, dim=-1)
+    det = dot3(e1, pvec)
     ok = torch.abs(det) > EPSILON
     inv_det = torch.where(ok, 1.0 / torch.where(ok, det,
                                                 torch.ones_like(det)),
                           torch.zeros_like(det))
     tvec = origin - v0
-    u = torch.sum(tvec * pvec, dim=-1) * inv_det
+    u = dot3(tvec, pvec) * inv_det
     qvec = _cross(tvec, e1)
-    v = torch.sum(direction * qvec, dim=-1) * inv_det
-    t = torch.sum(e2 * qvec, dim=-1) * inv_det
+    v = dot3(direction, qvec) * inv_det
+    t = dot3(e2, qvec) * inv_det
     # small barycentric slack: rays crossing exactly on a shared edge must
     # hit at least one of the adjacent triangles, or they leak out of
     # watertight scenes and die
@@ -233,7 +271,7 @@ def line_of_sight(start, end, soup: TriangleSoup, exclude_triangle=None):
     ``exclude_triangle`` skips the triangle the segment starts on.
     """
     seg = end - start
-    dist = torch.linalg.vector_norm(seg, dim=-1)
+    dist = norm3(seg)
     direction = seg / torch.clamp(dist[:, None], min=1e-20)
     t, _, any_hit = scene_intersection(start, direction, soup,
                                        exclude_triangle=exclude_triangle)
@@ -244,12 +282,12 @@ def line_segment_sphere_intersection(p0, p1, centre, radius):
     """bool (...,): does segment p0→p1 pass within ``radius`` of ``centre``?"""
     d = p1 - p0
     f = p0 - centre
-    a = torch.sum(d * d, dim=-1)
-    b = 2.0 * torch.sum(f * d, dim=-1)
-    c = torch.sum(f * f, dim=-1) - radius * radius
+    a = dot3(d, d)
+    b = 2.0 * dot3(f, d)
+    c = dot3(f, f) - radius * radius
     disc = b * b - 4.0 * a * c
     ok = disc >= 0.0
-    sq = torch.sqrt(torch.where(ok, disc, torch.zeros_like(disc)))
+    sq = sqrt32(torch.where(ok, disc, torch.zeros_like(disc)))
     denom = torch.where(a > 0, 2.0 * a, torch.ones_like(a))
     t1 = (-b - sq) / denom
     t2 = (-b + sq) / denom
@@ -260,7 +298,7 @@ def line_segment_sphere_intersection(p0, p1, centre, radius):
 def tetrahedron_volume_sum(soup: TriangleSoup):
     """Signed-volume room estimate (zhang2001; reference reverb_time.h:107)."""
     c = soup.corners()
-    six_v = torch.sum(c[:, 0] * torch.linalg.cross(c[:, 1], c[:, 2]), dim=-1)
+    six_v = dot3(c[:, 0], torch.linalg.cross(c[:, 1], c[:, 2]))
     return torch.abs(torch.sum(six_v)) / 6.0
 
 

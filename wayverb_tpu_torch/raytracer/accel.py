@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from wayverb_tpu_torch.core.geometry import (EPSILON, TriangleSoup,
+from wayverb_tpu_torch.core.geometry import (EPSILON, TriangleSoup, norm3,
                                              ray_triangle_intersection)
 from wayverb_tpu_torch.raytracer.mt_kernels import build_mt_triangles
 
@@ -189,7 +189,7 @@ def grid_line_of_sight(start, end, grid: RayGrid, soup: TriangleSoup,
                        exclude_triangle=None):
     """(R,) bool: segment start→end unobstructed (DDA closest-hit based)."""
     seg = end - start
-    dist = torch.linalg.vector_norm(seg, dim=-1)
+    dist = norm3(seg)
     direction = seg / torch.clamp(dist[:, None], min=1e-20)
     t, _, any_hit = grid_intersection(start, direction, grid, soup,
                                       exclude_triangle=exclude_triangle)

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from wayverb_tpu_torch._build import load, load_entry
-from wayverb_tpu_torch.core.geometry import EPSILON, TriangleSoup
+from wayverb_tpu_torch.core.geometry import EPSILON, TriangleSoup, norm3
 
 SLACK = 1e-4          # barycentric edge slack (geometry.ray_triangle_…)
 RB = 512              # rays per gate tile of the culled kernel
@@ -508,7 +508,7 @@ def mt_intersection(origin, direction, tris: MtTriangles,
 def mt_line_of_sight(start, end, tris: MtTriangles, exclude_triangle=None):
     """(R,) bool: segment start→end unobstructed."""
     seg = end - start
-    dist = torch.linalg.vector_norm(seg, dim=-1)
+    dist = norm3(seg)
     direction = seg / torch.clamp(dist[:, None], min=1e-20)
     t, _, any_hit = mt_intersection(start, direction, tris,
                                     exclude_triangle=exclude_triangle)

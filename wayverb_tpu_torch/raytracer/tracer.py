@@ -31,10 +31,11 @@ from typing import Any, Optional
 import torch
 
 from wayverb_tpu_torch.core.environment import Environment
-from wayverb_tpu_torch.core.geometry import (TriangleSoup, line_of_sight,
+from wayverb_tpu_torch.core.geometry import (TriangleSoup, dot3,
+                                             line_of_sight,
                                              line_segment_sphere_intersection,
-                                             scene_intersection,
-                                             triangle_normals)
+                                             norm3, scene_intersection, sqrt32,
+                                             sum3, triangle_normals)
 from wayverb_tpu_torch.core.orientation import (angle_lut_indices,
                                                 random_unit_vectors)
 from wayverb_tpu_torch.core.surfaces import Surface
@@ -57,12 +58,12 @@ def compute_optimum_reflection_number(min_absorption: float) -> int:
 def compute_ray_energy(total_rays: int, source, receiver,
                        receiver_radius: float):
     """Initial per-ray energy, a () float32 tensor."""
-    dist = torch.linalg.vector_norm(receiver - source)
+    dist = norm3(receiver - source)
     # a source inside the receiver sphere would give infinite energy; the
     # engine validates placements, this clamp keeps the math finite anyway
     dist = torch.clamp(dist, min=receiver_radius)
     sin_y = receiver_radius / torch.clamp(dist, min=receiver_radius)
-    cos_y = torch.sqrt(1.0 - sin_y * sin_y)
+    cos_y = sqrt32(1.0 - sin_y * sin_y)
     return 2.0 / (4.0 * math.pi * total_rays * dist * dist * (1.0 - cos_y))
 
 
@@ -73,6 +74,7 @@ class TraceResults:
     histogram: Any          # (bins, az, el, bands) directional energy
     triangle_history: Any   # (depth, R) int32 — hit triangle or -1
     histogram_sample_rate: float
+    positions: Any = None   # (depth, R, 3) reflection points, if captured
 
     def summed_histogram(self):
         """(bins, bands) energy histogram (directional summed out)."""
@@ -97,6 +99,7 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
           receiver_radius: float = DEFAULT_RECEIVER_RADIUS,
           histogram_sample_rate: float = DEFAULT_HISTOGRAM_SR,
           max_image_source_order: int = 0,
+          capture_positions: bool = False,
           accel=None, time_cutoff: Optional[float] = None,
           directions=None) -> TraceResults:
     """Trace ``num_rays`` rays for ``depth`` bounces on the soup's device.
@@ -109,8 +112,9 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
     ``mt_kernels.MtTriangles`` (the Möller–Trumbore kernels), on the soup's
     device; ``accel.auto_accel`` picks one for a scene and a device.
     ``time_cutoff``: deposits later than it are dropped (``trace_jit``).
-    The reference's ``capture_positions`` (reflection points for the GUI's
-    visual mode) waits for the tools slice.
+    ``capture_positions``: also return each bounce's reflection points,
+    (depth, R, 3), for the visual mode (reference
+    ``reflection_processor/visual.h``); a dead ray stays where it died.
 
     ``directions``: optional (initial (R, 3), per-bounce (depth, R, 3))
     unit vectors; otherwise they are drawn from ``generator``
@@ -153,6 +157,13 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
     starting_energy = compute_ray_energy(num_rays, source, receiver,
                                          receiver_radius)
     normals = triangle_normals(soup)                          # (T, 3)
+    # each material's mean scattering, summed band by band as the CPU's
+    # ``mean`` sums, so the card gives the same bits
+    bands_s = surfaces.scattering.unbind(-1)
+    mean_scattering = bands_s[0]
+    for band in bands_s[1:]:
+        mean_scattering = mean_scattering + band
+    mean_scattering = mean_scattering / len(bands_s)
     speed = environment.speed_of_sound
     tri_surfaces = soup.surfaces.long()
 
@@ -183,7 +194,7 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
         hist.index_add_(0, row, torch.where(mask[:, None], volumes,
                                             torch.zeros_like(volumes)))
 
-    history = []
+    history, points = [], []
     for step in range(depth):
         t, tri, hit = intersect(pos, dirs, prev_tri)
         tri = tri.long()           # the MT and DDA backends give int32 ids
@@ -199,47 +210,40 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
         outgoing = last_volume * reflectance
         last_pos = path_pos
         last_dist = path_dist
-        this_dist = last_dist + torch.linalg.vector_norm(ipt - last_pos,
-                                                         dim=-1)
+        this_dist = last_dist + norm3(ipt - last_pos)
 
         # specular detection: the segment from the previous reflection point
         # crosses the receiver sphere; energy BEFORE this wall's absorption
         crosses = line_segment_sphere_intersection(last_pos, ipt, receiver,
                                                    receiver_radius)
-        spec_dist = last_dist + torch.linalg.vector_norm(receiver - last_pos,
-                                                         dim=-1)
+        spec_dist = last_dist + norm3(receiver - last_pos)
         spec_mask = alive & crosses & (step >= max_image_source_order)
         deposit(last_pos, spec_dist, last_volume, spec_mask)
 
         # diffuse rain toward the visible receiver
         visible = los(ipt, recv_rows, tri)
         to_recv = receiver - ipt
-        to_recv_dist = torch.linalg.vector_norm(to_recv, dim=-1)
+        to_recv_dist = norm3(to_recv)
         n = normals[tri]
-        cos_angle = torch.abs(torch.sum(
-            n * to_recv / torch.clamp(to_recv_dist[:, None], min=1e-12),
-            dim=-1))
+        cos_angle = torch.abs(sum3(
+            n * to_recv / torch.clamp(to_recv_dist[:, None], min=1e-12)))
         sin_y = receiver_radius / torch.clamp(to_recv_dist,
                                               min=receiver_radius)
-        angle_correction = 1.0 - torch.sqrt(torch.clamp(1.0 - sin_y ** 2,
-                                                        min=0.0))
+        angle_correction = 1.0 - sqrt32(torch.clamp(1.0 - sin_y ** 2,
+                                                    min=0.0))
         rain_volume = (angle_correction * 2.0 * cos_angle)[:, None] * \
             outgoing * scattering
         deposit(ipt, this_dist + to_recv_dist, rain_volume, alive & visible)
 
         # next ray: lambert-mixed scattering around the specular direction
-        spec_dir = dirs - 2.0 * torch.sum(dirs * n, dim=-1, keepdim=True) * n
+        spec_dir = dirs - 2.0 * dot3(dirs, n)[:, None] * n
         # flip normal to the side the specular leaves from
-        n_oriented = n * torch.sign(
-            torch.sum(n * spec_dir, dim=-1, keepdim=True))
+        n_oriented = n * torch.sign(dot3(n, spec_dir))[:, None]
         rand = draw(step)
-        lambert = rand * torch.sign(
-            torch.sum(rand * n_oriented, dim=-1, keepdim=True))
-        s_mean = torch.mean(scattering, dim=-1, keepdim=True)
+        lambert = rand * torch.sign(dot3(rand, n_oriented))[:, None]
+        s_mean = mean_scattering[tri_surface][:, None]
         new_dir = lambert * s_mean + spec_dir * (1.0 - s_mean)
-        new_dir = new_dir / torch.clamp(
-            torch.linalg.vector_norm(new_dir, dim=-1, keepdim=True),
-            min=1e-12)
+        new_dir = new_dir / torch.clamp(norm3(new_dir)[:, None], min=1e-12)
 
         a1 = alive[:, None]
         pos = torch.where(a1, ipt, pos)
@@ -249,12 +253,15 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
         path_dist = torch.where(alive, this_dist, last_dist)
         prev_tri = torch.where(alive, tri, prev_tri)
         history.append(torch.where(alive, tri, torch.full_like(tri, -1)))
+        if capture_positions:
+            points.append(pos)
 
     return TraceResults(
         histogram=hist[:trash].reshape(bins, DIRECTIONAL_AZ, DIRECTIONAL_EL,
                                        bands),
         triangle_history=torch.stack(history).to(torch.int32),
-        histogram_sample_rate=histogram_sample_rate)
+        histogram_sample_rate=histogram_sample_rate,
+        positions=torch.stack(points) if capture_positions else None)
 
 
 def _next_pow2(n: int) -> int:

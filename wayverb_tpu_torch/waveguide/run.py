@@ -187,28 +187,29 @@ class WaveguideOutput:
 
 
 def _run_loop(body, carry, num_steps: int, checkpoint_every: int,
-              grad: bool):
-    """Drive ``body(carry, t) → (carry, outputs)`` for ``num_steps`` steps;
-    returns (carry, per-step outputs).  With ``checkpoint_every`` and a
-    gradient required, the carry is saved only every that many steps and
-    each segment is recomputed in the backward pass
-    (``torch.utils.checkpoint``)."""
+              grad: bool, start: int = 0):
+    """Drive ``body(carry, t) → (carry, outputs)`` for steps ``start`` ..
+    ``start + num_steps - 1``; returns (carry, per-step outputs).  With
+    ``checkpoint_every`` and a gradient required, the carry is saved only
+    every that many steps and each segment is recomputed in the backward
+    pass (``torch.utils.checkpoint``)."""
     per_step = []
+    stop = start + num_steps
     if checkpoint_every and num_steps > checkpoint_every and grad:
         from torch.utils.checkpoint import checkpoint
 
         def segment(carry, t0):
             outs = []
-            for t in range(t0, min(t0 + checkpoint_every, num_steps)):
+            for t in range(t0, min(t0 + checkpoint_every, stop)):
                 carry, outputs = body(carry, t)
                 outs.append(outputs)
             return carry, outs
 
-        for t0 in range(0, num_steps, checkpoint_every):
+        for t0 in range(start, stop, checkpoint_every):
             carry, outs = checkpoint(segment, carry, t0, use_reentrant=False)
             per_step.extend(outs)
     else:
-        for t in range(num_steps):
+        for t in range(start, stop):
             carry, outputs = body(carry, t)
             per_step.append(outputs)
     return carry, per_step
@@ -257,32 +258,22 @@ def _require_general_tables(structure: MeshStructure):
             "build_structure, or pass the tables to convert.mesh_from_numpy")
 
 
-def run_waveguide(structure: MeshStructure, dims, source, receiver,
-                  num_steps: int, dtype=torch.float32,
-                  checkpoint_every: int = 0) -> dict:
-    """Run the general mesh for ``num_steps`` steps.
+def make_general_body(structure: MeshStructure, dims, source, receiver):
+    """One step of the general mesh: (carry, t) → (carry, outputs).
 
-    ``source`` must expose ``inject(field_flat, t)``; ``receiver`` must
-    expose ``init_state(dtype, device)`` and ``tap(field_flat, state)``.
-    Each step is one dense kernel (``stencil_kernels.weighted_step``) and
-    the compact boundary pass.  Without a gradient two field buffers rotate
-    (the step writes the next field over the previous one); when the
-    coefficients, the source or the receiver require grad every step
-    allocates its field and injects into a copy.
-
-    ``checkpoint_every``: when > 0 and a gradient is required, reverse-mode
-    memory drops from O(num_steps) pressure fields to O(num_steps/k + k) at
-    the cost of one forward recompute.
-
-    Returns {"outputs": stacked receiver outputs, "stable": () bool tensor}.
+    carry: (cur, prev, fstate, rstate, pb, bp_last, ok); ``pb`` and
+    ``bp_last`` are the boundary pressures of ``prev`` and of ``cur``
+    (``general_carry``).  Each step is one dense kernel
+    (``stencil_kernels.weighted_step``) and the compact boundary pass.
+    Without a gradient the step writes the next field over ``prev`` and
+    injects into ``cur`` in place; when the coefficients, the source or the
+    receiver require grad every step allocates its field and injects into a
+    copy.
     """
     _require_general_tables(structure)
     dims = tuple(int(d) for d in dims)
-    device = structure.device
     num_nodes = dims[0] * dims[1] * dims[2]
     grad = requires_grad(structure, source, receiver)
-    current = torch.zeros(dims, dtype=dtype, device=device)
-    previous = torch.zeros(dims, dtype=dtype, device=device)
     expanded = expand_boundary_coefficients(structure)
     tables = prepare_boundary_tables(structure, expanded)
 
@@ -310,34 +301,71 @@ def run_waveguide(structure: MeshStructure, dims, source, receiver,
         ok = ok & torch.all(torch.isfinite(nxt))
         return (nxt, current, fstate, rstate, pb_next, bp, ok), outputs
 
-    init = (current, previous, structure.initial_filter_state(dtype),
-            receiver.init_state(dtype, device),
+    return body
+
+
+def general_carry(structure: MeshStructure, current, previous, fstate,
+                  rstate, ok):
+    """The general body's carry for a solver state: the boundary pressures
+    it carries are gathered from the two fields, which is what the body
+    carries forward (its ``bp`` is scattered into the next field as is, and
+    ``patch_tap`` mirrors the injection exactly)."""
+    return (current, previous, fstate, rstate,
             boundary_pressures(previous, structure),
-            boundary_pressures(current, structure),
-            torch.ones((), dtype=torch.bool, device=device))
-    carry, per_step = _run_loop(body, init, num_steps, checkpoint_every, grad)
+            boundary_pressures(current, structure), ok)
+
+
+def initial_general_carry(structure: MeshStructure, dims, receiver,
+                          dtype=torch.float32):
+    device = structure.device
+    field = lambda: torch.zeros(tuple(dims), dtype=dtype,  # noqa: E731
+                                device=device)
+    return general_carry(structure, field(), field(),
+                         structure.initial_filter_state(dtype),
+                         receiver.init_state(dtype, device),
+                         torch.ones((), dtype=torch.bool, device=device))
+
+
+def run_waveguide(structure: MeshStructure, dims, source, receiver,
+                  num_steps: int, dtype=torch.float32,
+                  checkpoint_every: int = 0) -> dict:
+    """Run the general mesh for ``num_steps`` steps (``make_general_body``
+    from ``initial_general_carry``).
+
+    ``source`` must expose ``inject(field_flat, t)``; ``receiver`` must
+    expose ``init_state(dtype, device)`` and ``tap(field_flat, state)``.
+
+    ``checkpoint_every``: when > 0 and a gradient is required, reverse-mode
+    memory drops from O(num_steps) pressure fields to O(num_steps/k + k) at
+    the cost of one forward recompute.
+
+    Returns {"outputs": stacked receiver outputs, "stable": () bool tensor}.
+    """
+    body = make_general_body(structure, dims, source, receiver)
+    init = initial_general_carry(structure, dims, receiver, dtype)
+    carry, per_step = _run_loop(body, init, num_steps, checkpoint_every,
+                                requires_grad(structure, source, receiver))
     return {"outputs": _stack_outputs(per_step), "stable": carry[6]}
 
 
-def run_waveguide_regions(structure: MeshStructure, dims, source, receiver,
-                          num_steps: int, regions, dtype=torch.float32
-                          ) -> dict:
-    """Run using the gather-free region boundary path (shoebox meshes).
+def make_region_body(structure: MeshStructure, dims, source, receiver,
+                     regions):
+    """One step of the region path (shoebox meshes): (carry, t) → (carry,
+    outputs).
 
-    ``regions``: sequence of ``box_boundary.Region`` (static).  Each step is
-    the masked interior kernel (``stencil_kernels.interior_step``) and the
-    26 region updates as slice arithmetic.  Three field buffers rotate when
-    no gradient is required (the regions still read the previous field
-    after the interior pass, so it cannot take the result).
+    carry: (cur, prev, region states, rstate, ok, spare).  ``regions``:
+    sequence of ``box_boundary.Region`` (static).  Each step is the masked
+    interior kernel (``stencil_kernels.interior_step``) and the 26 region
+    updates as slice arithmetic.  Three field buffers rotate when no
+    gradient is required (the regions still read the previous field after
+    the interior pass, so it cannot take the result); with a gradient
+    ``spare`` is None and every step allocates.
     """
     _require_general_tables(structure)
     dims = tuple(int(d) for d in dims)
-    device = structure.device
     num_nodes = dims[0] * dims[1] * dims[2]
     regions = list(regions)
     grad = requires_grad(structure, source, receiver)
-    field = lambda: torch.zeros(dims, dtype=dtype,  # noqa: E731
-                                device=device)
 
     def body(carry, t: int):
         current, previous, states, rstate, ok, spare = carry
@@ -353,12 +381,31 @@ def run_waveguide_regions(structure: MeshStructure, dims, source, receiver,
         return (nxt, current, states, rstate, ok,
                 None if grad else previous), outputs
 
-    init = (field(), field(),
-            initial_region_states(regions, structure.filter_order, dtype,
-                                  device),
+    return body
+
+
+def initial_region_carry(structure: MeshStructure, dims, receiver, regions,
+                         dtype=torch.float32, grad: bool = False):
+    device = structure.device
+    field = lambda: torch.zeros(tuple(dims), dtype=dtype,  # noqa: E731
+                                device=device)
+    return (field(), field(),
+            initial_region_states(list(regions), structure.filter_order,
+                                  dtype, device),
             receiver.init_state(dtype, device),
             torch.ones((), dtype=torch.bool, device=device),
             None if grad else field())
+
+
+def run_waveguide_regions(structure: MeshStructure, dims, source, receiver,
+                          num_steps: int, regions, dtype=torch.float32
+                          ) -> dict:
+    """Run using the gather-free region boundary path (shoebox meshes):
+    ``make_region_body`` from ``initial_region_carry``."""
+    grad = requires_grad(structure, source, receiver)
+    body = make_region_body(structure, dims, source, receiver, regions)
+    init = initial_region_carry(structure, dims, receiver, regions, dtype,
+                                grad)
     carry, per_step = _run_loop(body, init, num_steps, 0, grad)
     return {"outputs": _stack_outputs(per_step), "stable": carry[4]}
 
