@@ -187,7 +187,28 @@ Drives the port through its public entry points on the card and fails
     ``run_project`` into 16 WAV files, each read back; the first pair again
     through ``Engine.run`` + ``render`` with the same generator seed, its
     renders under ``profiler_trace``, equal to the bit;
-41. one JSON line of per-kernel results, then the last line,
+41. several processes, run right after phase 32: two ranks spawned as
+    ``python chip_smoke.py --rank R --world 2 --port P --out DIR``, gloo,
+    both on cuda:0 (NCCL refuses two ranks on one card), two shards each
+    through ``distributed.global_device_mesh``: the shoebox hall 64 steps
+    and phase 33's 16-step gradient (B1, B5), the columns hall 200 steps
+    and phase 31's 64-step gradient checkpointed every 16 (B10, B11), and
+    phase 29's engine, loaded with the global mesh, run + render at phase
+    32's settings under the deterministic algorithms; each forward equal
+    at 0.0 and each gradient within 1e-5 of the largest component of the
+    one-process ``["cuda:0"] * 4`` run, both ranks' IRs equal to the bit,
+    the band equal to phase 32's; ms/step beside the one-process mesh's,
+    the bytes a rank exchanges a step, the seconds of staging and waiting,
+    each rank's B1, B5, B10 and B11 launches; a rank that exits non-zero
+    or outlives 420 s fails the phase (phase 37 also holds the image
+    sources card against CPU: impulses and capsules to the bit, the head
+    within 1e-6 of its peak, with its deposit and mixdown apart);
+42. the eight waveguide validation tools of ``wayverb_tpu_torch/tools`` at
+    the reference's defaults through ``main()`` on the card: each one's
+    report, its own flags (``stable``, ``all_decaying``) gated, and B2
+    launched by the four that run ``canonical``;
+43. one JSON line of per-kernel results (B1, B5, B10 and B11 with
+    ``distributed_launches``, each rank's), then the last line,
     ``{"ok": true, "device": {...}}``.
 
 A kernel's ``bound_ms`` is the least time the card could take for the same
@@ -1397,6 +1418,94 @@ def _tail_split(torch, card):
     return out
 
 
+HEAD_REL = 1e-6            # the image-source head card vs CPU, of peak
+
+
+def _image_sources_card_vs_cpu(torch, card):
+    """The image sources of the test_combined box, card against CPU from
+    one CPU trace's triangle history (8192 rays at the multiband hall's
+    absorption, order 4): the tree, its validation and the direct
+    impulse, and each capsule's attenuation (``imagesource.postprocess``'s
+    ``attenuate``), to the bit; the head IR within 1e-6 of its peak, with
+    its two stages apart on one input: the sinc deposit
+    (``sinc_histogram``: elementwise ``cos`` and ``sinc``, which the card
+    and the CPU round differently) and the multiband mixdown (FFTs)."""
+    from wayverb_tpu_torch.core.attenuator import Hrtf, Microphone, Null
+    from wayverb_tpu_torch.core.geometry import Box, box_scene
+    from wayverb_tpu_torch.core.orientation import (Orientation,
+                                                    random_unit_vectors)
+    from wayverb_tpu_torch.core.surfaces import Surface
+    from wayverb_tpu_torch.imagesource import exact, tree
+    from wayverb_tpu_torch.imagesource import postprocess as ipp
+    from wayverb_tpu_torch.raytracer import tracer
+    from wayverb_tpu_torch.raytracer.histogram import sinc_histogram
+    from wayverb_tpu_torch.signal.multiband import \
+        multiband_filter_and_mixdown
+    soup = box_scene(Box((0.0, 0.0, 0.0), (5.56, 3.97, 2.81)))
+    surf = Surface(absorption=torch.tensor([MULTIBAND_ABSORPTION]),
+                   scattering=torch.full((1, 8), 0.1))
+    src, rcv = (2.09, 2.12, 2.12), (2.09, 3.08, 0.96)
+    gen = torch.Generator().manual_seed(SEED + 37)
+    # the paths are the histories' first four bounces: eight bounces give
+    # the same impulses as the engine's 272
+    rays, depth = 1 << 13, 8
+    dirs = (random_unit_vectors(rays, gen),
+            torch.stack([random_unit_vectors(rays, gen)
+                         for _ in range(depth)]))
+    history = tracer.trace(soup, surf, src, rcv, None, num_rays=rays,
+                           depth=depth, max_time=1.5,
+                           max_image_source_order=4,
+                           directions=dirs).triangle_history
+    methods = {"null": Null(), "cardioid": Microphone(
+        Orientation((0.3, 0.2, 0.9)), 0.5), "hrtf0": Hrtf(channel=0),
+        "hrtf1": Hrtf(channel=1)}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        imp = tree.find_image_source_impulses(
+            history, soup.to(device), surf.to(device), src, rcv,
+            max_order=4).concatenate(exact.get_direct(src, rcv,
+                                                      soup.to(device)))
+        out = {"volume": imp.volume, "position": imp.position,
+               "distance": imp.distance}
+        for name, m in methods.items():
+            v, d = ipp.attenuate(m, rcv, imp)
+            out[name + "_volume"], out[name + "_distance"] = v, d
+            out[name + "_head"] = ipp.postprocess(imp, m, rcv, 340.0,
+                                                  16000.0)
+        runs[device] = {k: t.cpu() for k, t in out.items()}
+    unequal = sorted(k for k in runs["cpu"] if not k.endswith("_head")
+                     and not torch.equal(runs["cuda"][k].view(torch.int32),
+                                         runs["cpu"][k].view(torch.int32)))
+    d = runs["cpu"]["null_distance"]
+    times = d / torch.full_like(d, 340.0)
+    bins = int(math.floor(float(times.max()) * 16000.0)) + 1
+    hist = sinc_histogram(times, runs["cpu"]["null_volume"], 16000.0, bins)
+    hist_card = sinc_histogram(times.cuda(), runs["cpu"]["null_volume"]
+                               .cuda(), 16000.0, bins).cpu()
+    mix = multiband_filter_and_mixdown(hist.T, 16000.0)
+    mix_card = multiband_filter_and_mixdown(hist.T.cuda(), 16000.0).cpu()
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    heads = {k[:-5]: rel(runs["cuda"][k], runs["cpu"][k])
+             for k in runs["cpu"] if k.endswith("_head")}
+    errs = {"impulses": int(runs["cpu"]["volume"].shape[0]),
+            "unequal": unequal, "deposit": rel(hist_card, hist),
+            "mixdown": rel(mix_card, mix), "heads": heads}
+    print(f"[37 multiband card vs cpu] image sources from one CPU history: "
+          f"{errs['impulses']} impulses; the tree, validation, direct "
+          f"impulse and four capsules' attenuation card vs CPU, outputs "
+          f"not bit-equal: {unequal or 'none'} (bound: none); the head IR "
+          f"card vs CPU max |d| / peak {heads} (bound {HEAD_REL:g}): on one "
+          f"input, the sinc deposit {errs['deposit']:.3e} (elementwise cos "
+          f"and sinc) and the mixdown {errs['mixdown']:.3e} (FFTs) [{card}]")
+    if unequal or max(heads.values()) > HEAD_REL \
+            or max(errs["deposit"], errs["mixdown"]) > HEAD_REL:
+        _fail("the image sources on the card differ from the CPU")
+    return errs
+
+
 def phase_multiband_card_vs_cpu(torch, card):
     """The test_combined box of phase 10 with ``bands=2`` on the card and
     on the CPU (same CPU generators), rendered with ``Hrtf(channel=0)``;
@@ -1428,6 +1537,7 @@ def phase_multiband_card_vs_cpu(torch, card):
               "the CPU run")
     low["ray_ops"] = _ray_ops_card_vs_cpu(torch, card)
     low["tail_split"] = _tail_split(torch, card)
+    low["image_sources"] = _image_sources_card_vs_cpu(torch, card)
 
     gen = torch.Generator().manual_seed(SEED + 2)
     dirs = torch.randn(HRTF_DIRECTIONS, 3, generator=gen) \
@@ -3626,7 +3736,7 @@ def phase_sharded_engine(torch, e, setup_s, card):
               "single_device": secs[1], "ir_rel_err": err / peak,
               "launches": launches[0]}
     print(json.dumps({"phase": "32 sharded engine", **result}))
-    return launches[0], result
+    return launches[0], result, (p1, ir1)
 
 
 def phase_box_sharded(torch, card):
@@ -4271,7 +4381,407 @@ def phase_project(torch, card):
             "profiled_top_ops": top_ops}
 
 
+# ---------------------------------------------------------------------------
+# several processes: parallel/distributed on one card
+
+DIST_RANKS = 2             # gloo ranks, both on cuda:0 (NCCL refuses that)
+DIST_SHARDS = SHARDS // DIST_RANKS   # shards a rank: 4 in all
+DIST_TIMEOUT = 120         # s: the process group's collectives
+DIST_LIMIT = 420           # s: the whole phase's children
+DIST_BOX_STEPS, DIST_BOX_GRAD_STEPS = 64, 16
+DIST_COL_STEPS, DIST_COL_GRAD_STEPS, DIST_CKPT = 200, 64, 16
+DIST_GRAD_REL = 1e-5       # of the largest one-process component
+
+
+def _dist_counts():
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    from wayverb_tpu_torch.waveguide.box_fused import (fused_step,
+                                                       fused_step_bwd)
+    return {"box_fused_step": fused_step.launches,
+            "box_fused_step_bwd": fused_step_bwd.launches,
+            "mesh_weighted_step_haloed": sk.weighted_step_sharded.launches,
+            "mesh_weighted_step_haloed_bwd":
+                sk.weighted_step_sharded_bwd.launches}
+
+
+def _dist_reset():
+    from wayverb_tpu_torch.parallel.sharding import reset_transport_stats
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    from wayverb_tpu_torch.waveguide.box_fused import (fused_step,
+                                                       fused_step_bwd)
+    fused_step.launches = fused_step_bwd.launches = 0
+    sk.weighted_step_sharded.launches = 0
+    sk.weighted_step_sharded_bwd.launches = 0
+    reset_transport_stats()
+
+
+def _dist_measure(torch, fn):
+    """``fn()`` timed from zeroed counts: (its result, seconds, launches,
+    transport)."""
+    from wayverb_tpu_torch.parallel.sharding import transport_stats
+    torch.cuda.synchronize()
+    _dist_reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _dist_counts(), \
+        dict(transport_stats)
+
+
+def _dist_grad(torch, run, structure):
+    import dataclasses
+    coef_b = structure.coef_b.detach().clone().requires_grad_(True)
+    loss = torch.sum(run(dataclasses.replace(structure,
+                                             coef_b=coef_b))["outputs"] ** 2)
+    loss.backward()
+    return coef_b.grad
+
+
+def _dist_runs(torch, devmesh, hall, box, dx, columns):
+    """The four waveguide runs of phase 41 on ``devmesh``: the shoebox hall
+    (B1 forward, B5 backward) and the columns hall (B10, B11), each as
+    (outputs or gradient, seconds, launches, transport)."""
+    from wayverb_tpu_torch.parallel import box_sharded as bsh
+    from wayverb_tpu_torch.parallel import general_sharded as gs
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    spec, desc = hall.box_spec, hall.descriptor
+    out = {}
+    src, rcv = _hall_positions(box, dx)
+    source, receiver, n, _ = wgrun.canonical_problem(
+        hall, src, rcv, _hall_sim_time(hall, DIST_BOX_STEPS))
+    bsh.run_waveguide_box_sharded(devmesh, hall.structure, spec, source,
+                                  receiver, 2)
+    out["box_forward"] = _dist_measure(
+        torch, lambda: bsh.run_waveguide_box_sharded(
+            devmesh, hall.structure, spec, source, receiver, n))
+    # phase 33's gradient: beside the low y wall and the first shard
+    # boundary
+    xb = spec.dims[0] // SHARDS
+    mid_z = (spec.ilo[2] + spec.ihi[2]) // 2
+    g_src = tuple(desc.position(np.array([xb - 1, spec.ilo[1] + 3, mid_z])))
+    g_rcv = tuple(desc.position(np.array([xb, spec.ilo[1] + 5, mid_z])))
+    source, receiver, n, _ = wgrun.canonical_problem(
+        hall, g_src, g_rcv, _hall_sim_time(hall, DIST_BOX_GRAD_STEPS))
+    receiver = _tap_receiver(receiver)
+    out["box_gradient"] = _dist_measure(torch, lambda: _dist_grad(
+        torch, lambda s: bsh.run_waveguide_box_sharded(
+            devmesh, s, spec, source, receiver, n), hall.structure))
+    dims = columns.descriptor.dimensions
+    source, receiver, n, _ = wgrun.canonical_problem(
+        columns, COLUMNS_SRC, COLUMNS_RCV,
+        (DIST_COL_STEPS - 0.5) / COLUMNS_FS)
+    gs.run_waveguide_general_sharded(devmesh, columns.structure, dims,
+                                     source, receiver, 2)
+    out["columns_forward"] = _dist_measure(
+        torch, lambda: gs.run_waveguide_general_sharded(
+            devmesh, columns.structure, dims, source, receiver, n))
+    # phase 31's gradient, checkpointed as phase 22's
+    source, receiver, n, _ = wgrun.canonical_problem(
+        columns, _beside_column(columns, 3), _beside_column(columns, 5),
+        (DIST_COL_GRAD_STEPS - 0.5) / COLUMNS_FS)
+    receiver = _tap_receiver(receiver)
+    out["columns_gradient"] = _dist_measure(torch, lambda: _dist_grad(
+        torch, lambda s: gs.run_waveguide_general_sharded(
+            devmesh, s, dims, source, receiver, n,
+            checkpoint_every=DIST_CKPT), columns.structure))
+    return out
+
+
+def _dist_host(value):
+    """Tensors (or tuples, dicts of them) moved to the host for saving."""
+    if isinstance(value, dict):
+        return {k: _dist_host(v) for k, v in value.items()}
+    if isinstance(value, (tuple, list)):
+        return type(value)(_dist_host(v) for v in value)
+    if hasattr(value, "detach"):
+        return value.detach().cpu()
+    return value
+
+
+def _rank_main(rank, world, port, out_dir):
+    """One rank of phase 41: ``distributed.initialize`` (gloo) and a
+    ``global_device_mesh`` of two shards of cuda:0 a rank; the four runs
+    of ``_dist_runs`` and the sharded engine's run + render on the columns
+    hall; everything saved to ``out_dir``.  The engine and the shoebox
+    hall's mesh are the ones the parent built, loaded from ``out_dir``,
+    the engine with the global mesh as its ``device_mesh`` (building the
+    12.4 M-node mesh in two processes at once takes a minute)."""
+    import warnings
+
+    import torch
+    sys.path.insert(0, ROOT)
+    from wayverb_tpu_torch.combined import engine as eng
+    from wayverb_tpu_torch.core.attenuator import Null
+    from wayverb_tpu_torch.parallel import distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = f"[41 rank {rank}]"
+    t0 = time.perf_counter()
+    dist.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                    timeout=DIST_TIMEOUT)
+    gmesh = dist.global_device_mesh(devices=["cuda:0"] * DIST_SHARDS)
+    print(f"{tag} process {rank} of {dist.process_count()}, coordinator "
+          f"{dist.is_coordinator()}, shards {gmesh.local_shards} of owners "
+          f"{gmesh.owners}; up in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    e = torch.load(os.path.join(out_dir, "engine.pt"), map_location="cuda:0",
+                   weights_only=False)
+    e.device_mesh = gmesh
+    box, dx, hall = torch.load(os.path.join(out_dir, "hall.pt"),
+                               map_location="cuda:0", weights_only=False)
+    print(f"{tag} the sharded engine {e.mesh.descriptor.dimensions} and the "
+          f"hall {hall.box_spec.dims} loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    res = {"owners": gmesh.owners, "local_shards": gmesh.local_shards,
+           "runs": _dist_runs(torch, gmesh, hall, box, dx, e.mesh)}
+    del hall
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # warn_only's notes
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        run = _dist_measure(torch, lambda: e.run(
+            COLUMNS_SRC, COLUMNS_RCV,
+            torch.Generator().manual_seed(SEED + 31),
+            eng.RaytracerParameters(),
+            waveguide_time=COLUMNS_STEPS / COLUMNS_FS))
+        ir = eng.render(run[0], Null(), 44100.0,
+                        torch.Generator().manual_seed(SEED + 32))
+    band = run[0].waveguide_bands[0]
+    res["engine"] = ((ir, band.pressure, band.stable),) + run[1:]
+    for name, (_, secs, counts, moved) in res["runs"].items():
+        print(f"{tag} {name}: {secs:.3f} s, launches {counts}, "
+              f"{moved['bytes_sent'] + moved['bytes_received']} bytes "
+              f"exchanged, staging {moved['staging_s']:.4f} s, waiting "
+              f"{moved['wait_s']:.4f} s", flush=True)
+    torch.save(_dist_host(res), os.path.join(out_dir, f"rank{rank}.pt"))
+    import torch.distributed
+    torch.distributed.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_distributed(torch, engine, engine_ref, card):
+    """Phase 41: two gloo ranks on cuda:0, two shards each, against the
+    one-process ``["cuda:0"] * 4`` mesh: the shoebox hall (64 steps
+    forward, a 16-step gradient), the columns hall (200 steps, a 64-step
+    gradient checkpointed every 16) and the sharded engine (phase 32's
+    run, 0.1 s of waveguide).  Forwards equal at 0.0, gradients within
+    1e-5 of the largest component, both ranks' IRs equal to the bit, and
+    a rank that fails or times out fails the phase."""
+    box, dx, hall, _ = _hall_mesh(torch)
+    ref = _dist_runs(torch, _device_mesh(), hall, box, dx, engine.mesh)
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        own = engine.device_mesh
+        engine.device_mesh = None
+        try:
+            torch.save(engine, os.path.join(tmp, "engine.pt"))
+        finally:
+            engine.device_mesh = own
+        torch.save((box, dx, hall), os.path.join(tmp, "hall.pt"))
+        del hall
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--world", str(DIST_RANKS), "--port", str(port), "--out", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=ROOT, env=env) for r in range(DIST_RANKS)]
+        outs, timed_out = [], False
+        try:
+            for p in procs:
+                left = max(DIST_LIMIT - (time.perf_counter() - t0), 1.0)
+                try:
+                    outs.append(p.communicate(timeout=left)[0])
+                except subprocess.TimeoutExpired:
+                    timed_out = True
+                    p.kill()
+                    outs.append(p.communicate()[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for r, out in enumerate(outs):
+            print("\n".join(out.strip().splitlines()[-14:]), flush=True)
+        rcs = [p.returncode for p in procs]
+        if timed_out or any(rcs):
+            _fail(f"a rank of phase 41 failed or timed out (exit codes "
+                  f"{rcs}, {wall:.1f} s of {DIST_LIMIT} s)")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(DIST_RANKS)]
+    result = {"ranks": DIST_RANKS, "shards_per_rank": DIST_SHARDS,
+              "backend": "gloo", "children_wall_s": wall, "runs": {}}
+    ok = True
+    steps = {"box_forward": DIST_BOX_STEPS, "box_gradient":
+             DIST_BOX_GRAD_STEPS, "columns_forward": DIST_COL_STEPS,
+             "columns_gradient": DIST_COL_GRAD_STEPS}
+    for name, (want, secs, counts, _) in ref.items():
+        row = {"steps": steps[name], "one_process_ms_per_step":
+               1e3 * secs / steps[name],
+               "one_process_launches": counts, "per_rank": []}
+        for r, res in enumerate(ranks):
+            got, rsecs, rcounts, moved = res["runs"][name]
+            if name.endswith("gradient"):
+                w = want.cpu()
+                scale = float(w.abs().max())
+                err = float((got - w).abs().max()) / scale
+                good = scale > 0 and err <= DIST_GRAD_REL
+            else:
+                err = max(float((g - w.cpu()).abs().max())
+                          for g, w in zip(got["outputs"], want["outputs"]))
+                good = err == 0.0 and bool(got["stable"])
+            ok &= good
+            row["per_rank"].append({
+                "max_err": err, "ms_per_step": 1e3 * rsecs / steps[name],
+                "launches": rcounts,
+                "bytes_per_step": (moved["bytes_sent"]
+                                   + moved["bytes_received"]) / steps[name],
+                "staging_s": moved["staging_s"], "wait_s": moved["wait_s"],
+                "messages": moved["messages"],
+                "reductions": moved["reductions"]})
+            print(f"[41 distributed] {name}, rank {r}: "
+                  f"{'max |Δ| / largest' if name.endswith('gradient') else 'max |Δ|'}"
+                  f" {err:.3e} against the one-process mesh; "
+                  f"{1e3 * rsecs / steps[name]:.3f} ms/step (one process "
+                  f"{1e3 * secs / steps[name]:.3f}); "
+                  f"{row['per_rank'][-1]['bytes_per_step']:.0f} bytes a "
+                  f"step exchanged, {moved['staging_s']:.4f} s staging, "
+                  f"{moved['wait_s']:.4f} s waiting; launches {rcounts} "
+                  f"[{card}]")
+        result["runs"][name] = row
+    expect = {"box_forward": ("box_fused_step", DIST_SHARDS * DIST_BOX_STEPS),
+              "columns_forward": ("mesh_weighted_step_haloed",
+                                  DIST_SHARDS * DIST_COL_STEPS)}
+    for name, (kernel, n) in expect.items():
+        ok &= all(res["runs"][name][2][kernel] == n for res in ranks)
+    ok &= all(0 < res["runs"]["box_gradient"][2]["box_fused_step_bwd"]
+              <= DIST_SHARDS * DIST_BOX_GRAD_STEPS
+              and 0 < res["runs"]["columns_gradient"][2][
+                  "mesh_weighted_step_haloed_bwd"]
+              <= DIST_SHARDS * DIST_COL_GRAD_STEPS for res in ranks)
+    (ir0, p0, st0), esecs, ecounts, emoved = ranks[0]["engine"]
+    ir1, p1 = ranks[1]["engine"][0][:2]
+    p_ref, ir_ref = engine_ref
+    p_err = float((p0 - p_ref.cpu()).abs().max())
+    ir_ranks_equal = torch.equal(ir0, ir1) and torch.equal(p0, p1)
+    ir_err = float((ir0 - ir_ref.cpu()).abs().max()) \
+        / float(ir_ref.abs().max()) if ir0.shape == ir_ref.shape \
+        else float("inf")
+    print(f"[41 distributed] the sharded engine with device_mesh="
+          f"global_device_mesh(): the columns hall, {COLUMNS_STEPS} waveguide steps: both ranks' "
+          f"IRs equal to the bit {ir_ranks_equal}; waveguide band max |Δp| "
+          f"{p_err:.3e} against phase 32's one-process sharded run; IR "
+          f"against phase 32's (its own ray draws) max |Δ| / peak "
+          f"{ir_err:.3e}; rank 0 {esecs:.2f} s, launches {ecounts}, "
+          f"{emoved['bytes_sent'] + emoved['bytes_received']} bytes "
+          f"exchanged [{card}]")
+    ok &= ir_ranks_equal and p_err == 0.0 and bool(st0) \
+        and ecounts["mesh_weighted_step_haloed"] \
+        == DIST_SHARDS * COLUMNS_STEPS
+    result["engine"] = {"ir_ranks_equal": ir_ranks_equal,
+                        "band_max_abs_err": p_err, "ir_rel_err": ir_err,
+                        "seconds": esecs, "launches": ecounts,
+                        "bytes": emoved["bytes_sent"]
+                        + emoved["bytes_received"]}
+    result["distributed_launches"] = {
+        k: [sum(run[2][k] for run in res["runs"].values())
+            + res["engine"][2][k] for res in ranks]
+        for k in ("box_fused_step", "box_fused_step_bwd",
+                  "mesh_weighted_step_haloed",
+                  "mesh_weighted_step_haloed_bwd")}
+    print(json.dumps({"phase": "41 distributed", **result}))
+    if not ok:
+        _fail("the distributed waveguide failed its checks")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# the validation tools on the card
+
+TOOL_ARGS = {"rt60": [], "mic_test": [], "siltanen2013": [],
+             "level_match": [], "waveguide_distance_test": [],
+             "solution_growth": [], "sheaffer2014": None,
+             "boundary_test": []}
+CANONICAL_TOOLS = ("rt60", "mic_test", "siltanen2013", "level_match")
+
+
+def _tool_flags(name, report):
+    """The pass flags a tool reports: ``stable`` wherever it prints one,
+    and ``all_decaying``."""
+    if name == "rt60":
+        return {f"{room}.stable": r["stable"] for room, r in report.items()}
+    if name == "solution_growth":
+        flags = {f"{r['signal']}.{r['source']}.stable": r["stable"]
+                 for r in report["runs"]}
+        return {**flags, "all_decaying": report["all_decaying"]}
+    return {"stable": report["stable"]} if "stable" in report else {}
+
+
+def phase_tools(torch, card):
+    """Phase 42: the eight waveguide validation tools at the reference's
+    defaults, on the card through ``main()``: each one's report, its own
+    pass flags, its B1 and B2 launches and seconds."""
+    import contextlib
+    import importlib
+    import io
+    from wayverb_tpu_torch.waveguide.box_fused import fused_step
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    result, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in TOOL_ARGS.items():
+            if argv is None:
+                argv = ["--out-prefix", os.path.join(tmp, name)]
+            module = importlib.import_module(
+                f"wayverb_tpu_torch.tools.{name}")
+            mega_chunk.launches = fused_step.launches = 0
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                report = module.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            flags = _tool_flags(name, report)
+            launches = {"box_mega_chunk": mega_chunk.launches,
+                        "box_fused_step": fused_step.launches}
+            good = all(flags.values()) and (
+                launches["box_mega_chunk"] > 0
+                or name not in CANONICAL_TOOLS)
+            ok &= good
+            shown = {k: v for k, v in report.items()
+                     if k not in ("freq_hz", "measured", "predicted",
+                                  "valid")}
+            if name == "boundary_test":
+                valid = [i for i, v in enumerate(report["valid"]) if v]
+                shown = {"valid_bins": len(valid), "max_abs_error": max(
+                    abs(report["measured"][i] - report["predicted"][i])
+                    for i in valid)}
+            print(f"[42 tools] {name}: {secs:.2f} s, launches {launches}, "
+                  f"flags {flags}, {len(printed.getvalue().splitlines())} "
+                  f"lines printed; report {json.dumps(shown)} [{card}]",
+                  flush=True)
+            result[name] = {"seconds": secs, "launches": launches,
+                            "flags": flags, "report": shown}
+    print(json.dumps({"phase": "42 tools", **result}))
+    if not ok:
+        _fail("a validation tool failed its own checks on the card")
+    return result
+
+
 def main():
+    if "--rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        _rank_main(int(args["--rank"]), int(args["--world"]),
+                   int(args["--port"]), args["--out"])
+        return
     import torch
     card = phase_device(torch)
     ptxas = phase_build(card)
@@ -4405,8 +4915,13 @@ def main():
     shard_grad_counts, sharded_grad = phase_general_sharded_gradient(
         torch, shard_mesh, card)
     torch.cuda.empty_cache()
-    shard_launches, sharded_engine_run = phase_sharded_engine(
+    shard_launches, sharded_engine_run, engine_ref = phase_sharded_engine(
         torch, sharded_engine, sharded_setup, card)
+    t0 = time.perf_counter()
+    distributed = phase_distributed(torch, sharded_engine, engine_ref, card)
+    print(f"[41 distributed] phase wall {time.perf_counter() - t0:.2f} s "
+          f"[{card}]")
+    del engine_ref
     shard_dims = [shard_mesh.descriptor.dimensions[0] // SHARDS,
                   *shard_mesh.descriptor.dimensions[1:]]
     del sharded_engine, shard_mesh
@@ -4424,6 +4939,10 @@ def main():
     project = phase_project(torch, card)
     print(f"[40 project] phase wall {time.perf_counter() - t0:.2f} s "
           f"[{card}]")
+    t0 = time.perf_counter()
+    tools = phase_tools(torch, card)
+    print(f"[42 tools] phase wall {time.perf_counter() - t0:.2f} s [{card}]")
+    dist_launches = distributed["distributed_launches"]
     counted = {"box_fused_step": b1_launches,
                "box_mega_chunk": launches["box_mega_chunk"],
                "box_fused_step_bwd": route_counts["box_fused_step_bwd"],
@@ -4471,6 +4990,7 @@ def main():
         **{k: b1_rows["hall"]["occupancy"][k]
            for k in ("registers", "local_bytes", "ctas_per_sm")},
         "resumable_launches": resumable["hall"]["b1_launches"],
+        "distributed_launches": dist_launches["box_fused_step"],
         "hall_run": {"wall_ms_per_step": 1e3 * step_s,
                      "busy_ms_per_step": (hall_window[0] / 1e3
                                           if hall_window else None),
@@ -4512,6 +5032,7 @@ def main():
         **{k: b5_time["occupancy"][k]
            for k in ("registers", "local_bytes", "ctas_per_sm")},
         "warp_shares": b5_time["warp_shares"],
+        "distributed_launches": dist_launches["box_fused_step_bwd"],
         "shard": {k: box_sharded["b5_shard"][k]
                   for k in ("shape", "ms", "host_ms", "bound_ms")},
     }, {
@@ -4623,6 +5144,7 @@ def main():
         "library_ms": None,
         "ms_is_per": "launch (one shard's step)",
         "launches_on": on,
+        "distributed_launches": dist_launches[name],
         **extra,
     } for name, key, line, err, on, extra in (
         ("mesh_weighted_step_haloed", "b10", 366, shard_errs[0],
@@ -4667,6 +5189,7 @@ def main():
         "general_gradient": general_grad,
         "sharded_general": sharded_general, "sharded_gradient": sharded_grad,
         "sharded_engine": sharded_engine_run, "box_sharded": box_sharded,
+        "distributed": distributed, "tools": tools,
         "gradient_path": {
         "shape": list(hall_dims), "steps": GRAD_STEPS, "chunk": CHUNK,
         "forward_s": grad_fwd_s, "backward_s": grad_bwd_s,

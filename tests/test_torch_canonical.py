@@ -238,7 +238,11 @@ def test_port_never_imports_jax():
                  "waveguide.stencil_kernels", "waveguide.checkpoint",
                  "utils.events", "combined.model", "combined.validate",
                  "combined.complete", "utils.audio", "waveguide.excitation",
-                 "waveguide.naive", "core.kernels", "core.reverb"):
+                 "waveguide.naive", "core.kernels", "core.reverb",
+                 "parallel.distributed", "tools.rt60", "tools.mic_test",
+                 "tools.siltanen2013", "tools.level_match",
+                 "tools.waveguide_distance_test", "tools.solution_growth",
+                 "tools.sheaffer2014", "tools.boundary_test"):
         assert f"wayverb_tpu_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)

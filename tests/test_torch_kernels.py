@@ -1843,3 +1843,95 @@ def test_trace_on_the_card_equals_cpu(cuda_device):
     total = float(cpu.histogram.sum())
     assert float((card.histogram.cpu() - cpu.histogram).abs().sum()) <= \
         1e-6 * total
+
+
+@pytest.mark.cuda
+def test_image_sources_on_the_card_equal_cpu(cuda_device):
+    """The image sources of phase 37's box (test_combined's, 8192 rays to
+    order 4, one CPU trace's triangle history): the tree, its validation,
+    the direct impulse and four capsules' ``attenuate`` give the same bits
+    on the card as on the CPU (``core.geometry``'s three-vector ops).  The
+    head IR is within 1e-6 of its peak, not equal, and the test shows why:
+    on the same bit-equal inputs the sinc deposit (its elementwise ``cos``
+    and ``sinc``, which the two devices round differently) and the
+    multiband mixdown (cuFFT against the CPU's FFT) each part by a few
+    1e-7 of peak, the deposit also with its sum made on the host, so the
+    gap is not the card's atomic adds."""
+    from wayverb_tpu_torch.core.attenuator import Hrtf, Microphone, Null
+    from wayverb_tpu_torch.core.geometry import box_scene
+    from wayverb_tpu_torch.core.orientation import (Orientation,
+                                                    random_unit_vectors)
+    from wayverb_tpu_torch.core.surfaces import Surface
+    from wayverb_tpu_torch.imagesource import exact, tree
+    from wayverb_tpu_torch.imagesource import postprocess as ipp
+    from wayverb_tpu_torch.raytracer import histogram, tracer
+    from wayverb_tpu_torch.signal.multiband import \
+        multiband_filter_and_mixdown
+    soup = box_scene(Box((0.0, 0.0, 0.0), (5.56, 3.97, 2.81)))
+    surfaces = Surface(
+        absorption=torch.tensor([[0.4, 0.2, 0.1] + [0.05] * 5]),
+        scattering=torch.full((1, 8), 0.1))
+    src, rcv = (2.09, 2.12, 2.12), (2.09, 3.08, 0.96)
+    gen = torch.Generator().manual_seed(37)
+    # image sources of order 4 come from the histories' first four
+    # bounces: eight bounces find the paths the engine's 272 find
+    rays, depth = 8192, 8
+    directions = (random_unit_vectors(rays, gen),
+                  torch.stack([random_unit_vectors(rays, gen)
+                               for _ in range(depth)]))
+    history = tracer.trace(soup, surfaces, src, rcv, None, num_rays=rays,
+                           depth=depth, max_time=1.5,
+                           max_image_source_order=4,
+                           directions=directions).triangle_history
+    methods = (Null(), Microphone(Orientation((0.3, 0.2, 0.9)), 0.5),
+               Hrtf(channel=0), Hrtf(channel=1))
+
+    def impulses(device):
+        return tree.find_image_source_impulses(
+            history, soup.to(device), surfaces.to(device), src, rcv,
+            max_order=4).concatenate(exact.get_direct(src, rcv,
+                                                      soup.to(device)))
+
+    def bits(t):
+        return t.cpu().view(torch.int32)
+
+    def rel(got, want):
+        return float((got.cpu() - want).abs().max()) \
+            / float(want.abs().max())
+
+    card, cpu = impulses(cuda_device), impulses("cpu")
+    assert cpu.volume.shape[0] > 1
+    for name in ("volume", "position", "distance"):
+        assert torch.equal(bits(getattr(card, name)),
+                           bits(getattr(cpu, name))), name
+    for method in methods:
+        for got, want in zip(ipp.attenuate(method, rcv, card),
+                             ipp.attenuate(method, rcv, cpu)):
+            assert torch.equal(bits(got), bits(want)), method
+        want = ipp.postprocess(cpu, method, rcv, 340.0, 16000.0)
+        head = ipp.postprocess(card, method, rcv, 340.0, 16000.0)
+        assert head.shape == want.shape
+        assert rel(head, want) <= 1e-6, method
+
+    volumes, distances = ipp.attenuate(Null(), rcv, cpu)
+    times = distances / torch.full_like(distances, 340.0)
+    bins = int(float(times.max()) * 16000.0) + 1
+    hist = histogram.sinc_histogram(times, volumes, 16000.0, bins)
+    deposit = rel(histogram.sinc_histogram(
+        times.to(cuda_device), volumes.to(cuda_device), 16000.0, bins),
+        hist)
+    scattered = histogram.scatter_add_drop
+    histogram.scatter_add_drop = lambda n, idx, values: scattered(
+        n, idx.cpu(), values.cpu()).to(values.device)
+    try:
+        host_sum = rel(histogram.sinc_histogram(
+            times.to(cuda_device), volumes.to(cuda_device), 16000.0, bins),
+            hist)
+    finally:
+        histogram.scatter_add_drop = scattered
+    mixdown = rel(multiband_filter_and_mixdown(hist.T.to(cuda_device),
+                                               16000.0),
+                  multiband_filter_and_mixdown(hist.T, 16000.0))
+    # the deposit parts with its sum made on the host too: its weights do
+    assert deposit <= 1e-6 and 0.0 < host_sum <= 1e-6
+    assert 0.0 < mixdown <= 1e-6

@@ -19,6 +19,7 @@ from typing import Any
 
 import torch
 
+from wayverb_tpu_torch.core.geometry import dot3, norm3
 from wayverb_tpu_torch.core.hrtf import default_hrtf_table, table_from_energies
 from wayverb_tpu_torch.core.orientation import Orientation, angle_lut_indices
 
@@ -41,10 +42,10 @@ class Microphone:
 
     def attenuation(self, incident):
         """Gain for incident direction vectors (..., 3) (toward the event)."""
-        length = torch.linalg.vector_norm(incident, dim=-1)
+        length = norm3(incident)
         unit = incident / torch.clamp(length[..., None], min=1e-20)
         pointing = self.orientation.matrix(incident.device)[2]
-        cos = torch.sum(unit * pointing, dim=-1)
+        cos = dot3(unit, pointing)
         gain = (1.0 - self.shape) + self.shape * cos
         return torch.where(length > 0, gain, torch.zeros_like(gain))
 

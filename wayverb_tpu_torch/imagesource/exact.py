@@ -16,7 +16,8 @@ import math
 
 import torch
 
-from wayverb_tpu_torch.core.geometry import Box, TriangleSoup, line_of_sight
+from wayverb_tpu_torch.core.geometry import (Box, TriangleSoup, line_of_sight,
+                                             norm3)
 from wayverb_tpu_torch.core.impulse import Impulses
 from wayverb_tpu_torch.core.surfaces import (
     absorption_to_pressure_reflectance, pressure_reflectance_at_angle)
@@ -57,7 +58,7 @@ def find_impulses(box: Box, source, receiver, surface_absorption,
 
     positions = image_source_positions(orders, src, dim)          # (L, 3)
     diff = positions - rcv
-    distance = torch.linalg.vector_norm(diff, dim=-1)
+    distance = norm3(diff)
     cos_theta = torch.abs(diff) / torch.clamp(distance[:, None], min=1e-8)
 
     r0 = absorption_to_pressure_reflectance(f32(surface_absorption))
@@ -79,7 +80,7 @@ def get_direct(source, receiver, soup: TriangleSoup, bands: int = 8
     source = torch.as_tensor(source, dtype=torch.float32, device=device)
     receiver = torch.as_tensor(receiver, dtype=torch.float32, device=device)
     visible = line_of_sight(source[None, :], receiver[None, :], soup)[0]
-    dist = torch.linalg.vector_norm(receiver - source)
+    dist = norm3(receiver - source)
     on = (visible & (dist > 0)).to(torch.float32)
     volume = on * torch.ones((1, bands), device=device)
     return Impulses(volume=volume, position=source[None, :],

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from wayverb_tpu_torch.core.attenuator import Hrtf, Microphone, Null
+from wayverb_tpu_torch.core.geometry import norm3
 from wayverb_tpu_torch.core.impulse import Impulses
 from wayverb_tpu_torch.raytracer.histogram import sinc_histogram
 from wayverb_tpu_torch.signal.multiband import multiband_filter_and_mixdown
@@ -39,7 +40,7 @@ def attenuate(method, receiver_position, impulses: Impulses):
             receiver_position)
         att = method.attenuation(direction)               # (N, bands)
         return (impulses.volume * att,
-                torch.linalg.vector_norm(direction, dim=-1))
+                norm3(direction))
     raise TypeError(f"unknown capsule method {type(method)}")
 
 
@@ -49,7 +50,10 @@ def postprocess(impulses: Impulses, method, receiver_position,
     """Early-reflection pressure IR of length ``num_bins`` samples (by
     default up to the last impulse: one read back to the host)."""
     volumes, distances = attenuate(method, receiver_position, impulses)
-    times = distances / speed_of_sound
+    # a tensor divisor: the card divides by a host scalar as a multiply by
+    # its reciprocal, which the CPU does not, and a time one ulp off moves
+    # the sinc deposit
+    times = distances / torch.full_like(distances, speed_of_sound)
     if num_bins is None:
         num_bins = int(math.floor(float(torch.max(times)) * sample_rate)) + 1
     hist = sinc_histogram(times, volumes, sample_rate, num_bins)  # (T, b)

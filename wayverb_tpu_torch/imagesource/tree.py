@@ -22,8 +22,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from wayverb_tpu_torch.core.geometry import (TriangleSoup, mirror_point,
-                                             scene_intersection,
+from wayverb_tpu_torch.core.geometry import (TriangleSoup, dot3, mirror_point,
+                                             norm3, scene_intersection,
                                              triangle_normals)
 from wayverb_tpu_torch.core.impulse import Impulses
 from wayverb_tpu_torch.core.surfaces import (Surface,
@@ -91,7 +91,7 @@ def validate_paths(paths: np.ndarray, soup: TriangleSoup, source,
     cos_angles, surfaces = [], []
     for j in range(k - 1, -1, -1):
         direction = images[j] - prev_pt
-        norm = torch.linalg.vector_norm(direction, dim=-1, keepdim=True)
+        norm = norm3(direction)[:, None]
         direction = direction / torch.clamp(norm, min=1e-12)
         t, tri, hit = scene_intersection(prev_pt, direction, soup,
                                          exclude_triangle=prev_tri)
@@ -99,14 +99,14 @@ def validate_paths(paths: np.ndarray, soup: TriangleSoup, source,
         hit_pt = prev_pt + direction * t[:, None]
         n = normals[paths[:, j]]
         cos_angles.append(torch.clamp(
-            torch.abs(torch.sum(direction * n, dim=-1)), 0.0, 1.0))
+            torch.abs(dot3(direction, n)), 0.0, 1.0))
         surfaces.append(soup.surfaces[paths[:, j]])
         prev_pt = hit_pt
         prev_tri = paths[:, j]
 
     # line of sight from the source to the first intersection point
     direction = prev_pt - source[None, :]
-    dist = torch.linalg.vector_norm(direction, dim=-1)
+    dist = norm3(direction)
     direction = direction / torch.clamp(dist[:, None], min=1e-12)
     _, tri, hit = scene_intersection(source[None, :].expand(P, 3), direction,
                                      soup)
@@ -140,7 +140,7 @@ def compute_path_pressure(validated: ValidatedPaths, surfaces: Surface,
     volume = volume * torch.as_tensor(validated.valid,
                                       device=device)[:, None]
     position = torch.as_tensor(validated.image_position, device=device)
-    distance = torch.linalg.vector_norm(position - receiver, dim=-1)
+    distance = norm3(position - receiver)
     return Impulses(volume=volume, position=position, distance=distance)
 
 

@@ -25,7 +25,10 @@ and ``band_stacks``.  ``overlap_supported`` is.
 Sources inject locally (a shard drops the nodes it does not own); receivers
 read through ``_ShardView``, so ``NodeReceiver``, ``MultiNodeReceiver``,
 ``DirectionalReceiver`` and ``InterpolatedReceiver`` work unchanged.
-Everything differentiates.
+Everything differentiates.  On a mesh whose shards span processes
+(``distributed.py``) each process steps its own shards, and the exchange,
+the taps, the replicated inputs' cotangents and ``stable`` go through
+``sharding.shard_comm``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from wayverb_tpu_torch.core.environment import Environment
-from wayverb_tpu_torch.parallel.sharding import DeviceMesh
+from wayverb_tpu_torch.parallel.sharding import (DeviceMesh, replicate_fields,
+                                                shard_comm)
 from wayverb_tpu_torch.waveguide import sources as src_mod
 from wayverb_tpu_torch.waveguide.box_fused import (PLANES, _other_axes,
                                                    face_coefficients,
@@ -60,38 +64,50 @@ class _ShardView:
     """The receiver's reads resolved over the shards' local blocks.
 
     The tap nodes (GLOBAL flat indices, ``receiver.tap_nodes()``) are split
-    by owning shard once; each step gathers every shard's values, moves
-    them to the receiver's device and puts them back in tap order, which a
+    by owning shard once; each step gathers this process's shards' values,
+    moves them to the receiver's device and puts them in tap order, which a
     ``_SeqTapView`` hands to ``receiver.tap`` (the reference's psum of
-    masked per-shard reads).
+    masked per-shard reads).  With shards on other processes the reads are
+    summed across processes (``comm.taps``), so every process gets every
+    tap.
     """
 
-    def __init__(self, receiver, xl: int, dims, devices):
+    def __init__(self, receiver, xl: int, dims, devices, comm):
         if not hasattr(receiver, "tap_nodes"):
             raise TypeError("the sharded paths need receiver.tap_nodes()")
         nodes = receiver.tap_nodes()
         self.device = nodes.device
+        self._comm = comm
         idx = nodes.detach().cpu().numpy().reshape(-1)
         block = xl * dims[1] * dims[2]
         shard = idx // block
         if np.any((idx < 0) | (shard >= len(devices))):
             raise ValueError("a tap node lies outside the grid")
         self._local, order = [], []
-        for s, device in enumerate(devices):
+        for s in comm.local:
             sel = np.nonzero(shard == s)[0]
             self._local.append(torch.as_tensor(idx[sel] - s * block,
-                                               device=device)
+                                               device=devices[s])
                                if len(sel) else None)
             order.append(sel)
         perm = np.concatenate(order)
+        if comm.distributed:
+            self._n = len(idx)
+            self._positions = torch.as_tensor(perm, device=self.device)
+            return
         inv = np.empty_like(perm)
         inv[perm] = np.arange(len(perm))
         self._inv = torch.as_tensor(inv, device=self.device)
 
-    def __call__(self, fields) -> _SeqTapView:
+    def __call__(self, fields, t: int = 0) -> _SeqTapView:
         parts = [f.reshape(-1)[i].to(self.device)
                  for f, i in zip(fields, self._local) if i is not None]
-        return _SeqTapView(torch.cat(parts)[self._inv])
+        if not self._comm.distributed:
+            return _SeqTapView(torch.cat(parts)[self._inv])
+        values = torch.cat(parts) if parts else torch.zeros(
+            0, dtype=fields[0].dtype, device=self.device)
+        return _SeqTapView(self._comm.taps(t, values, self._positions,
+                                           self._n, self.device))
 
 
 def _local_source(source, off: int, xl: int, dims, device):
@@ -166,20 +182,6 @@ def _patch_inner_yz(local, in_yz, spec, dims, t: int):
             (torch.full_like(x, q), x, z if a == 1 else y),
             torch.where(on, val, torch.zeros_like(val)), accumulate=True)
     return in_yz
-
-
-def _exchange_halos(blocks, i: int, dim: int = 0):
-    """(lo, hi): the neighbours' edge slices of ``blocks[i]`` along
-    ``dim`` (its rows beyond the shard; zeros at the grid ends), on
-    ``blocks[i]``'s device."""
-    own = blocks[i]
-    zero = torch.zeros_like(own.narrow(dim, 0, 1))
-    n = blocks[i - 1].shape[dim] if i > 0 else 0
-    lo = blocks[i - 1].narrow(dim, n - 1, 1).to(own.device) if i > 0 \
-        else zero
-    hi = blocks[i + 1].narrow(dim, 0, 1).to(own.device) \
-        if i < len(blocks) - 1 else zero
-    return lo, hi
 
 
 def _shift_u(rows, halo_lo, halo_hi, delta: int):
@@ -436,7 +438,8 @@ def run_waveguide_box_sharded(device_mesh: DeviceMesh, structure, spec,
 
     ``device_mesh``: a ``DeviceMesh``; the grid's x axis divides over it
     (``spec.dims[0] % n == 0``: build the mesh with ``compute_mesh(…,
-    align=(n, 1, 1))``).
+    align=(n, 1, 1))``).  On a mesh whose shards span processes, each
+    process runs its own shards and gets the whole result.
 
     Returns {"outputs": stacked receiver outputs on the receiver's device,
     "stable": () bool tensor}.
@@ -451,13 +454,17 @@ def run_waveguide_box_sharded(device_mesh: DeviceMesh, structure, spec,
     xl = X // n
     order = structure.filter_order
     Vmax = max(Y, Z)
+    grad = requires_grad(structure, source, receiver)
+    comm = shard_comm(device_mesh, grad)
+    structure = replicate_fields(comm, structure, ("coef_b", "coef_a"))
+    source = replicate_fields(comm, source)
     face_b, face_a = face_coefficients(structure, spec)
-    grad = requires_grad(face_b, face_a, source, receiver)
-    view = _ShardView(receiver, xl, dims, devices)
+    view = _ShardView(receiver, xl, dims, devices, comm)
     shards = [_BoxShard(off=s * xl, geom=spec.geom_array(x_offset=s * xl),
-                        source=_local_source(source, s * xl, xl, dims, dev),
-                        fb=face_b.to(dev), fa=face_a.to(dev))
-              for s, dev in enumerate(devices)]
+                        source=_local_source(source, s * xl, xl, dims,
+                                             devices[s]),
+                        fb=face_b.to(devices[s]), fa=face_a.to(devices[s]))
+              for s in comm.local]
 
     def plane_updates(sh, cur, bstate, halos, ph_lo, ph_hi, t):
         pl_x, pl_yz, in_yz, prev_x, prev_yz, st_x, st_yz = bstate
@@ -486,12 +493,13 @@ def run_waveguide_box_sharded(device_mesh: DeviceMesh, structure, spec,
         cur, prev, bstates, rstate, ok = carry
         cur = [_inject_local(sh.source, c, t, grad)
                for sh, c in zip(shards, cur)]
-        rstate, outputs = receiver.tap(view(cur), rstate)
-        pl_yz_all = [b[1] for b in bstates]
+        rstate, outputs = receiver.tap(view(cur, t), rstate)
+        field_halos, plane_halos = comm.halos(
+            t, [(cur, 0), ([b[1] for b in bstates], 1)])
         nxt_all, b_all, ok_all = [], [], []
         for s, sh in enumerate(shards):
-            halos = _exchange_halos(cur, s)
-            ph_lo, ph_hi = _exchange_halos(pl_yz_all, s, dim=1)
+            halos = field_halos[s]
+            ph_lo, ph_hi = plane_halos[s]
             px_new, stx_new, pyz_new, styz_new = plane_updates(
                 sh, cur[s], bstates[s], halos, ph_lo, ph_hi, t)
             local_planes = (px_new[0], px_new[1],
@@ -515,14 +523,16 @@ def run_waveguide_box_sharded(device_mesh: DeviceMesh, structure, spec,
     def zeros(dev, *shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    init = ([zeros(d, xl, Y, Z) for d in devices],
-            [zeros(d, xl, Y, Z) for d in devices],
+    local_devices = [devices[s] for s in comm.local]
+    init = ([zeros(d, xl, Y, Z) for d in local_devices],
+            [zeros(d, xl, Y, Z) for d in local_devices],
             [(zeros(d, 2, Y, Z), zeros(d, 4, xl, Vmax), zeros(d, 4, xl, Vmax),
               zeros(d, 2, Y, Z), zeros(d, 4, xl, Vmax),
               zeros(d, order, 2, Y, Z), zeros(d, order, 4, xl, Vmax))
-             for d in devices],
+             for d in local_devices],
             receiver.init_state(dtype, view.device),
-            [torch.ones((), dtype=torch.bool, device=d) for d in devices])
+            [torch.ones((), dtype=torch.bool, device=d)
+             for d in local_devices])
     carry, per_step = _run_loop(body, init, num_steps, 0, grad)
     # the per-step check covers the boundary planes only; one final
     # full-field reduction per shard catches a NaN born in the interior
@@ -530,7 +540,8 @@ def run_waveguide_box_sharded(device_mesh: DeviceMesh, structure, spec,
     for field, ok in zip(carry[0], carry[4]):
         stable = stable & (ok & torch.all(torch.isfinite(field))).to(
             view.device)
-    return {"outputs": _stack_outputs(per_step), "stable": stable}
+    return {"outputs": _stack_outputs(per_step),
+            "stable": comm.all_true(stable)}
 
 
 def canonical_sharded(mesh, source_position, receiver_position,

@@ -14,7 +14,12 @@ general step as ``run.run_waveguide``:
    filter state, coefficients and previous pressure are partitioned to the
    owning shard at setup (``shard_general``);
  * receivers read the owning shards' taps (``box_sharded._ShardView``);
-   sources inject locally.
+   sources inject locally;
+ * on a mesh whose shards span processes (``distributed.py``) the halo
+   rows, the taps, the replicated inputs' cotangents and ``stable`` cross
+   between processes through ``sharding.shard_comm``; under
+   ``checkpoint_every`` the recomputed segments replay the forward's
+   messages from the transport's cache.
 
 The halo rows enter B10's running sum where B8 would read the neighbour, so
 the sharded run equals the single-device run to the bit.
@@ -29,11 +34,11 @@ import numpy as np
 import torch
 
 from wayverb_tpu_torch.core.environment import Environment
-from wayverb_tpu_torch.parallel.box_sharded import (_exchange_halos,
-                                                    _inject_local,
+from wayverb_tpu_torch.parallel.box_sharded import (_inject_local,
                                                     _local_source,
                                                     _ShardView, _to_device)
-from wayverb_tpu_torch.parallel.sharding import DeviceMesh, _host
+from wayverb_tpu_torch.parallel.sharding import (DeviceMesh, _host,
+                                                 replicate_fields, shard_comm)
 from wayverb_tpu_torch.waveguide.box_fused import requires_grad
 from wayverb_tpu_torch.waveguide.box_mega import _stack_outputs
 from wayverb_tpu_torch.waveguide.setup import MeshStructure
@@ -128,7 +133,9 @@ def run_waveguide_general_sharded(device_mesh: DeviceMesh, structure, dims,
 
     ``dims[0]`` must divide over ``device_mesh``.  ``receiver`` must expose
     ``tap_nodes()``.  Without a gradient each shard rotates two field
-    buffers; ``checkpoint_every`` as for ``run_waveguide``.
+    buffers; ``checkpoint_every`` as for ``run_waveguide``.  On a mesh whose
+    shards span processes, each process runs its own shards and gets the
+    whole result.
 
     Returns {"outputs": stacked receiver outputs on the receiver's device,
     "stable": () bool tensor}.
@@ -143,22 +150,27 @@ def run_waveguide_general_sharded(device_mesh: DeviceMesh, structure, dims,
     sg = shard_general(structure, dims, n)
     xl = X // n
     grad = requires_grad(structure, source, receiver)
-    view = _ShardView(receiver, xl, dims, devices)
-    shards = [_shard_structure(sg, s, dev) for s, dev in enumerate(devices)]
+    comm = shard_comm(device_mesh, grad, recompute=bool(
+        grad and checkpoint_every and num_steps > checkpoint_every))
+    sg = replicate_fields(comm, sg, ("coef_b", "coef_a"))
+    source = replicate_fields(comm, source)
+    view = _ShardView(receiver, xl, dims, devices, comm)
+    shards = [_shard_structure(sg, s, devices[s]) for s in comm.local]
     expanded = [expand_boundary_coefficients(st) for st, _ in shards]
     tables = [prepare_boundary_tables(st, ex)
               for (st, _), ex in zip(shards, expanded)]
-    local = [_local_source(source, s * xl, xl, dims, dev)
-             for s, dev in enumerate(devices)]
+    local = [_local_source(source, s * xl, xl, dims, devices[s])
+             for s in comm.local]
     # carried boundary previous-pressures (one sparse gather per step saved,
     # as in run_waveguide); ``patch_tap`` reads GLOBAL indices
-    patched = [_to_device(source, dev) for dev in devices] \
+    patched = [_to_device(source, devices[s]) for s in comm.local] \
         if hasattr(source, "patch_tap") else None
 
     def body(carry, t: int):
         cur, prev, fstate, rstate, pb, bp_last, ok = carry
         cur = [_inject_local(src, c, t, grad) for src, c in zip(local, cur)]
-        rstate, outputs = receiver.tap(view(cur), rstate)
+        rstate, outputs = receiver.tap(view(cur, t), rstate)
+        halos = comm.halos(t, [(cur, 0)])[0]
         steps = []
         for s, (st, b_global) in enumerate(shards):
             if patched is not None:
@@ -168,27 +180,28 @@ def run_waveguide_general_sharded(device_mesh: DeviceMesh, structure, dims,
                 pb_next, prev_b = pb[s], None
             nxt, fs, bp = waveguide_step_carried(
                 cur[s], prev[s], prev_b, fstate[s], st, expanded[s],
-                tables[s], out=None if grad else prev[s],
-                halos=_exchange_halos(cur, s))
+                tables[s], out=None if grad else prev[s], halos=halos[s])
             steps.append((nxt, fs, pb_next, bp,
                           ok[s] & torch.all(torch.isfinite(nxt))))
         nxt, fs, pb_next, bp, ok = (list(v) for v in zip(*steps))
         return (nxt, cur, fs, rstate, pb_next, bp, ok), outputs
 
     fields = lambda: [torch.zeros((xl, Y, Z), dtype=dtype,  # noqa: E731
-                                  device=dev) for dev in devices]
+                                  device=devices[s]) for s in comm.local]
     cur, prev = fields(), fields()
     init = (cur, prev, [st.initial_filter_state(dtype) for st, _ in shards],
             receiver.init_state(dtype, view.device),
             [boundary_pressures(p, st) for p, (st, _) in zip(prev, shards)],
             [boundary_pressures(c, st) for c, (st, _) in zip(cur, shards)],
-            [torch.ones((), dtype=torch.bool, device=d) for d in devices])
+            [torch.ones((), dtype=torch.bool, device=devices[s])
+             for s in comm.local])
     carry, per_step = _run_loop(body, init, num_steps, checkpoint_every,
                                 grad)
     stable = torch.ones((), dtype=torch.bool, device=view.device)
     for ok in carry[6]:
         stable = stable & ok.to(view.device)
-    return {"outputs": _stack_outputs(per_step), "stable": stable}
+    return {"outputs": _stack_outputs(per_step),
+            "stable": comm.all_true(stable)}
 
 
 def canonical_general_sharded(mesh, source_position, receiver_position,
