@@ -15,7 +15,7 @@ Drives the port through its public entry points on the card and fails
    edge of the CTAs and warps, in a shard's first and last rows, shards of
    two rows and of the sharded hall's shape with halos, 1e38 inputs;
 4. T30 oracle through the fused path: a 2.0×2.5×3.0 m box against Sabine,
-   against the port's plain CPU run of the same case, then ``postprocess``;
+   against the port's plain CPU run of its first 0.5 s, then ``postprocess``;
 5. a concert-hall shoebox of 12.8 M nodes for 1024 fused steps
    (``run_waveguide_box``), with the launch count, step time, node-update
    rate and peak memory; B1 alone at the hall and at the sharded hall's
@@ -115,8 +115,9 @@ Drives the port through its public entry points on the card and fails
     again with ``cull=False``;
 27. the voxel DDA on the card on the model hall, 40 bounces, and one bounce's
     closest hits against B3's;
-28. a small hall above 100 triangles through ``Engine.run`` + ``render``: the
-    MT kernel on the card against the DDA on the CPU, same draws;
+28. a small hall above 100 triangles through ``Engine.run`` + ``render``
+    (2,048 rays, absorption 0.2): the MT kernel on the card against the
+    DDA on the CPU, same draws;
 29. the sharded waveguide on one card, four x-shards of ``cuda:0``:
     ``Engine(device_mesh=…)`` builds the columns hall with x aligned to the
     shard count, (344, 139, 259); B10 and B11 (the weighted step of one
@@ -129,14 +130,15 @@ Drives the port through its public entry points on the card and fails
 30. that hall through ``run_waveguide_general_sharded``, 1000 steps (4000
     B10 launches), against the single-device B8 run on the same mesh, with
     the wall ms/step of both, the peak memory and a profiled window;
-31. the sharded general gradient, 64 steps, B11 in the backward, against
+31. the sharded general gradient, 32 steps, B11 in the backward, against
     the single-device gradient; the device time of the forward, the
     backward and B11 in one more gradient under the profiler, beside the
     walls;
-32. ``Engine(device_mesh=…).run`` + ``render`` against a single-device
-    engine on the same mesh, same draws, with the seconds of each phase;
+32. ``Engine(device_mesh=…).run`` + ``render`` (500 waveguide steps)
+    against a single-device engine on the same mesh, same draws, with the
+    seconds of each phase;
 33. the shoebox hall (224, 224, 256) through ``run_waveguide_box_sharded``
-    on four shards (B1 with real halos), 256 steps against the single-device
+    on four shards (B1 with real halos), 128 steps against the single-device
     fused run, then a 16-step gradient (B5 with halo cotangents, its
     launches counted), and B5 alone at the shard shape (56, 224, 256) with
     its bound;
@@ -165,7 +167,9 @@ Drives the port through its public entry points on the card and fails
     CPU on 2^20 random vectors (the library's reductions and
     ``core.geometry``'s ``dot3``, ``norm3``, ``sqrt32``, which must agree
     to the bit); at the low absorption the two traces behind
-    the stochastic tail split by ray (histograms bin by bin, the share of
+    the stochastic tail, over half the engine's bounces, split by ray
+    (histograms bin by bin, the card's
+    also against a second card trace of the same rays, the share of
     rays whose triangle history agrees, those rays' histograms, tails and
     reflection points alone, where the others first part);
     ``Hrtf.attenuation`` on 65,536 directions, card against CPU to the
@@ -180,19 +184,19 @@ Drives the port through its public entry points on the card and fails
     chunk, the seconds and bytes of the save and the load, and against
     ``execute`` (B2);
 39. the columns hall (B8, 100 steps as 4 x 25, run while phases 17-22's
-    mesh is built) and phase 20's thin box (B12, 300 steps as 3 x 100)
+    mesh is built) and phase 20's thin box (B12, 150 steps as 3 x 50)
     chunked against one run, to the bit;
-40. phase 9's hall as a project file: two sources x two receivers x omni,
+40. phase 9's hall as a project file: one source x two receivers x omni,
     cardioid and both ears of ``Hrtf``, saved, loaded and rendered by
-    ``run_project`` into 16 WAV files, each read back; the first pair again
+    ``run_project`` into 8 WAV files, each read back; the first pair again
     through ``Engine.run`` + ``render`` with the same generator seed, its
     renders under ``profiler_trace``, equal to the bit;
 41. several processes, run right after phase 32: two ranks spawned as
     ``python chip_smoke.py --rank R --world 2 --port P --out DIR``, gloo,
     both on cuda:0 (NCCL refuses two ranks on one card), two shards each
     through ``distributed.global_device_mesh``: the shoebox hall 64 steps
-    and phase 33's 16-step gradient (B1, B5), the columns hall 200 steps
-    and phase 31's 64-step gradient checkpointed every 16 (B10, B11), and
+    and phase 33's 16-step gradient (B1, B5), the columns hall 100 steps
+    and phase 31's 32-step gradient checkpointed every 16 (B10, B11), and
     phase 29's engine, loaded with the global mesh, run + render at phase
     32's settings under the deterministic algorithms; each forward equal
     at 0.0 and each gradient within 1e-5 of the largest component of the
@@ -207,9 +211,23 @@ Drives the port through its public entry points on the card and fails
     the reference's defaults through ``main()`` on the card: each one's
     report, its own flags (``stable``, ``all_decaying``) gated, and B2
     launched by the four that run ``canonical``;
-43. one JSON line of per-kernel results (B1, B5, B10 and B11 with
-    ``distributed_launches``, each rank's), then the last line,
+43. the last eight tools of ``wayverb_tpu_torch/tools`` on the card
+    through ``main()``: ``box``, ``diffuse_decay`` and
+    ``boundary_fit_sweep`` at the reference's defaults, ``longrun --mode
+    hw`` at 12,000 steps of the hall (exactly 12,000 B1 launches, stable,
+    the tail below the peak), ``longrun --mode f64 --steps 2000``,
+    ``crackly_tunnel`` (B2), ``bake_hrtf`` on a synthesised set,
+    ``visualize`` (B1; every PNG decoded to its size) and the GUI served on
+    port 0, one render through HTTP (status ``done``, B2, B1 for the
+    wavefront, the WAV read back) and a cancel; ``box`` again with
+    ``--cpu`` from the same directions, its impulses bit-equal and its IR
+    within 1e-6 of peak; each tool's seconds, launches, flags and report;
+44. one JSON line of per-kernel results (B1, B5, B10 and B11 with
+    ``distributed_launches``, each rank's; B1 and B2 with the last tools'
+    ``tool_launches``), then the last line,
     ``{"ok": true, "device": {...}}``.
+
+Every phase prints its wall as ``[N name] phase wall … s``.
 
 A kernel's ``bound_ms`` is the least time the card could take for the same
 function: the larger of its inputs and outputs moved once at 3.35 TB/s and
@@ -228,6 +246,7 @@ the time those pairs need at about 70 instructions each (with
 reciprocal's sequence count too), and the all-pairs figure.
 """
 
+import contextlib
 import functools
 import json
 import math
@@ -265,6 +284,7 @@ COLUMNS_CUTOFF = 1500.0
 COLUMNS_FS = COLUMNS_CUTOFF / (0.25 * 0.6)
 COLUMNS_SRC, COLUMNS_RCV = (6.0, 4.0, 5.0), (7.5, 3.0, 6.5)
 COLUMNS_STEPS = 1000
+SHARDED_ENGINE_STEPS = 500  # the sharded engine's waveguide (phases 32, 41)
 SMALL_COLUMNS_CUTOFF = 400.0
 # the ray leg: B3 and B4 equal their plain versions to the bit
 RAYS = 1 << 16
@@ -450,6 +470,12 @@ def _t30_of(out, sabine, tag, steps_s, card):
         _fail(f"{tag}: T30 {t30} is {100 * rel:.2f}% from Sabine {sabine}")
 
 
+# s of the T30 box's runs (phases 4, 8, 20): its T60 is 0.65 s, and the
+# -5..-35 dB fit of its first 1.0 s equals that of 2.0 s to 1e-7 s
+T30_TIME = 1.0
+T30_CPU_TIME = 0.5         # s of phase 4's run repeated on the CPU
+
+
 def phase_t30(torch, card):
     from wayverb_tpu_torch.core.attenuator import Null
     from wayverb_tpu_torch.core.environment import Environment
@@ -467,19 +493,21 @@ def phase_t30(torch, card):
     print(f"[4 t30] {mesh.descriptor.dimensions} grid, fused path (first "
           "run on the card)")
     t0 = time.perf_counter()
-    out = _fused_canonical(mesh, src, rcv, 2.0, env)
+    out = _fused_canonical(mesh, src, rcv, T30_TIME, env)
     torch.cuda.synchronize()
     _t30_of(out, sabine, "4 t30", time.perf_counter() - t0, card)
     steps = out.pressure.shape[0]
 
+    # the CPU's run of the first T30_CPU_TIME s: a prefix of the card's
     mesh_cpu = wgrun.shoebox_mesh(box, absorption, dx, FS, device="cpu")
     t0 = time.perf_counter()
-    out_cpu = wgrun.canonical(mesh_cpu, src, rcv, 2.0, env)
+    out_cpu = wgrun.canonical(mesh_cpu, src, rcv, T30_CPU_TIME, env)
     t_cpu = time.perf_counter() - t0
-    p_gpu = out.pressure.cpu()
+    p_gpu = out.pressure.cpu()[:out_cpu.pressure.shape[0]]
     peak = float(out_cpu.pressure.abs().max())
     err = float((p_gpu - out_cpu.pressure).abs().max())
-    print(f"[4 t30] card vs plain CPU run: max |Δp| = {err:.3e}, bound "
+    print(f"[4 t30] card vs plain CPU run, the first "
+          f"{out_cpu.pressure.shape[0]} steps: max |Δp| = {err:.3e}, bound "
           f"1e-4 × peak {peak:.4f} = {1e-4 * peak:.3e} (CPU run "
           f"{t_cpu:.2f} s)")
     if not (err <= 1e-4 * peak and bool(out_cpu.stable)):
@@ -859,7 +887,7 @@ def phase_t30_mega(torch, mesh, fused_out, sabine, src, rcv, card):
     from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
     mega_chunk.launches = 0
     t0 = time.perf_counter()
-    out = wgrun.canonical(mesh, src, rcv, 2.0, Environment())
+    out = wgrun.canonical(mesh, src, rcv, T30_TIME, Environment())
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if mega_chunk.launches == 0:
@@ -1260,6 +1288,7 @@ def _multiband_card_vs_cpu(torch, absorption, card):
 TAIL_AGREE = 0.999         # rays whose triangle history agrees, card vs CPU
 TAIL_KEPT_L1 = 1e-5        # agreeing rays: histogram L1 card vs CPU, of total
 TAIL_KEPT_REL = 1e-4       # agreeing rays: their tail card vs CPU, of peak
+TAIL_DEPTH_CUT = 2         # the split traces half the engine's bounces
 
 
 def _ray_ops_card_vs_cpu(torch, card):
@@ -1323,7 +1352,7 @@ def _tail_split(torch, card):
     params = eng.RaytracerParameters(rays=1 << 13, max_time=1.5)
     surfaces = Surface(absorption=torch.tensor([MULTIBAND_ABSORPTION]),
                        scattering=torch.full((1, 8), 0.1))
-    depth = eng.optimum_depth(surfaces)
+    depth = eng.optimum_depth(surfaces) // TAIL_DEPTH_CUT
     rays = params.rays
     gen = torch.Generator().manual_seed(SEED)
     init = random_unit_vectors(rays, gen)
@@ -1354,6 +1383,10 @@ def _tail_split(torch, card):
     card_h, cpu_h = card_t.histogram.cpu(), cpu_t.histogram
     total = float(cpu_h.sum())
     full_l1 = float((card_h - cpu_h).abs().sum()) / total
+    # the same trace again on the card: what its atomic index_add_ order
+    # alone moves
+    again_l1 = float((traced("cuda").histogram.cpu() - card_h).abs().sum()) \
+        / total
     hc, hp = card_t.triangle_history.cpu(), cpu_t.triangle_history
     same = torch.all(hc == hp, dim=0)
     keep = torch.nonzero(same).flatten()
@@ -1385,7 +1418,8 @@ def _tail_split(torch, card):
     by_decile = [int(counts[i * depth // 10:(i + 1) * depth // 10].sum())
                  for i in range(10)]
     out = {"rays": rays, "depth": depth, "agree_share": share,
-           "full_hist_l1": full_l1, "full_tail_rel": full_tail,
+           "full_hist_l1": full_l1, "card_again_hist_l1": again_l1,
+           "full_tail_rel": full_tail,
            "kept_hist_l1": kept_l1, "kept_energy_share": kept_share,
            "kept_tail_rel": kept_tail,
            "first_parting_bounce": {
@@ -1397,7 +1431,8 @@ def _tail_split(torch, card):
            "kept_position_drift_m": {b: float(drift[b]) for b in at}}
     print(f"[37 tail split] absorption {MULTIBAND_ABSORPTION}, {rays} rays "
           f"x {depth} bounces, card vs CPU, same directions: full "
-          f"histograms L1 {full_l1:.3e} of their energy, tail max |d| "
+          f"histograms L1 {full_l1:.3e} of their energy (the card against "
+          f"itself, a second trace: {again_l1:.3e}), tail max |d| "
           f"{full_tail:.3e} of peak; triangle histories agree on "
           f"{share:.4f} of the rays (bound {TAIL_AGREE:g}); those rays "
           f"alone: histogram L1 "
@@ -2423,12 +2458,12 @@ def phase_general_physics(torch, t30_mesh, t30_src, t30_rcv, sabine, card):
               f"{mesh.descriptor} vs {t30_mesh.descriptor}")
     _reset_mesh_counts()
     t0 = time.perf_counter()
-    out = wgrun.canonical(mesh, t30_src, t30_rcv, 2.0, env)
+    out = wgrun.canonical(mesh, t30_src, t30_rcv, T30_TIME, env)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = _mesh_counts()
     _t30_of(out, sabine, "20 t30 general", dt, card)
-    ref = wgrun.canonical(t30_mesh, t30_src, t30_rcv, 2.0, env)
+    ref = wgrun.canonical(t30_mesh, t30_src, t30_rcv, T30_TIME, env)
     peak = float(ref.pressure.abs().max())
     err = float((out.pressure - ref.pressure).abs().max())
     print(f"[20 t30 general] {counts['mesh_weighted_step']} B8 launches; "
@@ -2568,10 +2603,11 @@ def phase_hybrid_columns(torch, checked_code, card):
 
 def phase_hybrid_columns_card_vs_cpu(torch, card):
     """The small columns hall (400 Hz cutoff) on the card and on the CPU,
-    same draws: the waveguide band and the rendered IR."""
+    same draws, 2,048 rays and 0.1 s of waveguide: the waveguide band and
+    the rendered IR."""
     from wayverb_tpu_torch.combined import engine as eng
     from wayverb_tpu_torch.core.attenuator import Null
-    params = eng.RaytracerParameters(rays=1 << 13, max_time=1.5)
+    params = eng.RaytracerParameters(rays=1 << 11, max_time=1.5)
     outs, secs = [], []
     for device in ("cuda", "cpu"):
         _reset_mesh_counts()
@@ -2579,7 +2615,7 @@ def phase_hybrid_columns_card_vs_cpu(torch, card):
         e = _columns_engine(torch, SMALL_COLUMNS_CUTOFF, device)
         results = e.run(COLUMNS_SRC, COLUMNS_RCV,
                         torch.Generator().manual_seed(SEED), params,
-                        waveguide_time=0.25)
+                        waveguide_time=0.1)
         ir = eng.render(results, Null(), 16000.0,
                         torch.Generator().manual_seed(SEED + 1))
         outs.append((results.waveguide_bands[0].pressure.cpu(), ir.cpu()))
@@ -3257,18 +3293,22 @@ def phase_dda_on_card(torch, model_soup, model_tris, card):
 def phase_hall_card_vs_cpu(torch, card):
     """A hall of 132 triangles (above the dense limit) through Engine.run +
     render: the MT kernel on the card against the DDA on the CPU, same
-    draws."""
+    draws (2,048 rays, absorption 0.2 for 64 bounces, not 136: the DDA on
+    the CPU takes most of the phase)."""
     from wayverb_tpu_torch.combined import engine as eng
     from wayverb_tpu_torch.core.attenuator import Null
+    from wayverb_tpu_torch.core.surfaces import Surface
     from wayverb_tpu_torch.raytracer.scenes import procedural_hall
-    params = eng.RaytracerParameters(rays=1 << 13, max_time=1.5)
+    params = eng.RaytracerParameters(rays=1 << 11, max_time=1.5)
+    surfaces = Surface(absorption=torch.full((1, 8), 0.2),
+                       scattering=torch.full((1, 8), 0.1))
     soup, n_tri = procedural_hall(3, 2, 1)
     outs, secs, backends = [], [], []
     for device in ("cuda", "cpu"):
         _reset_mesh_counts()
         _reset_ray_counts()
         t0 = time.perf_counter()
-        e = eng.Engine(soup, _ray_surfaces(torch, "cpu"),
+        e = eng.Engine(soup, surfaces,
                        eng.WaveguideParameters(cutoff=SMALL_COLUMNS_CUTOFF,
                                                usable_portion=0.6),
                        device=device)
@@ -3311,7 +3351,7 @@ SHARD_DEVICES = ["cuda:0"] * SHARDS
 SHARDED_GENERAL_REL = 5e-5  # tests/test_general_sharded.py:62-63, of peak
 ENGINE_SHARDED_REL = 1e-5   # sharded vs single-device engine IR, of peak
 BOX_SHARDED_REL = 1e-5      # sharded vs single fused shoebox, of peak
-BOX_SHARDED_STEPS = 256
+BOX_SHARDED_STEPS = 128
 
 
 def _shard_counts():
@@ -3594,12 +3634,12 @@ def _profiled_gradient(torch, run, mesh):
 
 
 def phase_general_sharded_gradient(torch, mesh, card):
-    """d(Σ taps²)/d coef_b through 4 shards, 64 steps, the source 3 nodes
+    """d(Σ taps²)/d coef_b through 4 shards, 32 steps, the source 3 nodes
     from a column, against the single-device gradient on the same mesh."""
     import dataclasses
     from wayverb_tpu_torch.parallel import general_sharded as gs
     from wayverb_tpu_torch.waveguide import run as wgrun
-    steps = 64
+    steps = 32
     dims = mesh.descriptor.dimensions
     source, receiver, n, _ = wgrun.canonical_problem(
         mesh, _beside_column(mesh, 3), _beside_column(mesh, 5),
@@ -3682,7 +3722,7 @@ def phase_sharded_engine(torch, e, setup_s, card):
     single = copy.copy(e)
     single.device_mesh = None
     params = eng.RaytracerParameters()
-    steps = COLUMNS_STEPS
+    steps = SHARDED_ENGINE_STEPS
     results, secs, launches, irs = [], [], [], []
     for engine in (e, single):
         marks = []
@@ -3740,7 +3780,7 @@ def phase_sharded_engine(torch, e, setup_s, card):
 
 
 def phase_box_sharded(torch, card):
-    """The shoebox hall (224, 224, 256) on 4 shards of one card: 256 steps
+    """The shoebox hall (224, 224, 256) on 4 shards of one card: 128 steps
     against the single-device fused run (both inject before the step),
     then a 16-step coef_b gradient beside a wall and a shard boundary."""
     import dataclasses
@@ -4223,8 +4263,8 @@ def phase_resumable_general(torch, col_mesh, card):
 
 
 def phase_resumable_thin(torch, card):
-    """Phase 20's thin box (B12) through ``run_chunk``, 300 steps as
-    3 x 100, against one ``run_waveguide_regions``."""
+    """Phase 20's thin box (B12) through ``run_chunk``, 150 steps as
+    3 x 50, against one ``run_waveguide_regions``."""
     from wayverb_tpu_torch.core.geometry import Box
     from wayverb_tpu_torch.waveguide import run as wgrun
     from wayverb_tpu_torch.waveguide import stencil_kernels as sk
@@ -4236,18 +4276,19 @@ def phase_resumable_thin(torch, card):
                               device="cuda")
     if mesh.box_spec is not None or mesh.regions is None:
         _fail("the thin box did not route to the region path")
+    steps = 150
     source, receiver, _, _ = wgrun.canonical_problem(
-        mesh, (0.5, 0.6, 0.2), (0.9, 1.1, 0.3), 300 / FS)
+        mesh, (0.5, 0.6, 0.2), (0.9, 1.1, 0.3), steps / FS)
     return _resume_case(
-        torch, "39 resumable thin", mesh, source, receiver, 300, (100,) * 3,
-        sk.interior_step,
+        torch, "39 resumable thin", mesh, source, receiver, steps,
+        (steps // 3,) * 3, sk.interior_step,
         lambda: wgrun.run_waveguide_regions(
             mesh.structure, mesh.descriptor.dimensions, source, receiver,
-            300, mesh.regions), card)
+            steps, mesh.regions), card)
 
 
 def _hall_project(out_dir):
-    """Phase 9's hall as a project: two sources, two receivers, each with
+    """Phase 9's hall as a project: one source, two receivers, each with
     an omni, a cardioid and both ears of ``Hrtf``; 16-bit WAV."""
     from wayverb_tpu_torch.combined import model as pm
     from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
@@ -4262,8 +4303,7 @@ def _hall_project(out_dir):
                 pm.CapsuleModel("left", "hrtf", channel=0),
                 pm.CapsuleModel("right", "hrtf", channel=1)]
     project = pm.Project(
-        sources=[pm.SourceModel("a", point(src)),
-                 pm.SourceModel("b", point(src + off))],
+        sources=[pm.SourceModel("a", point(src))],
         receivers=[pm.ReceiverModel("x", point(rcv), capsules=capsules),
                    pm.ReceiverModel("y", point(rcv - off),
                                     capsules=capsules)],
@@ -4276,7 +4316,7 @@ def _hall_project(out_dir):
 
 def phase_project(torch, card):
     """A project file rendered on the card: ``Project.save``/``load``, then
-    ``run_project`` (16 WAV files), every file read back; the first pair
+    ``run_project`` (8 WAV files), every file read back; the first pair
     again through ``Engine.run`` + ``render`` (under ``profiler_trace``)
     with the same generator seed.  Both runs use the deterministic algorithms
     (``index_add_`` among them), so that pair can equal to the bit."""
@@ -4356,7 +4396,9 @@ def phase_project(torch, card):
     pair_equal = all(np.array_equal(c.signal, ir * c.scale)
                      for c, ir in zip(channels, irs))
     steps = results.waveguide_bands[0].pressure.shape[0]
-    print(f"[40 project] phase 9's hall as a project, 2 sources x 2 "
+    pairs = len(project.sources) * len(project.receivers)
+    print(f"[40 project] phase 9's hall as a project, "
+          f"{len(project.sources)} source x {len(project.receivers)} "
           f"receivers x 4 capsules, {project.raytracer.rays} rays: "
           f"setup {setup_s:.3f} s, pairs {[round(s, 3) for s in pair_s]} s, "
           f"run_project {total_s:.3f} s; B2 launches {b2} ({steps} steps a "
@@ -4368,10 +4410,10 @@ def phase_project(torch, card):
           f"equal to the bit {pair_equal} (max |d| {pair_diff:.3e}); its "
           f"four renders under profiler_trace {profiled_s:.3f} s, trace.json "
           f"{trace_bytes} bytes, most frequent ops {top_ops} [{card}]")
-    if not (len(channels) == len(wavs) == 16 and abs(peak - 1.0) <= 2 ** -24
-            and read_ok
+    if not (len(channels) == len(wavs) == 4 * pairs
+            and abs(peak - 1.0) <= 2 ** -24 and read_ok
             and read_err <= 1.0 / 32767 and pair_equal and trace_bytes > 0
-            and b2 == 4 * math.ceil(steps / CHUNK)):
+            and b2 == pairs * math.ceil(steps / CHUNK)):
         _fail("the project on the card failed its checks")
     return {"channels": len(channels), "files": len(wavs),
             "setup_s": setup_s, "pair_s": pair_s, "run_project_s": total_s,
@@ -4389,7 +4431,7 @@ DIST_SHARDS = SHARDS // DIST_RANKS   # shards a rank: 4 in all
 DIST_TIMEOUT = 120         # s: the process group's collectives
 DIST_LIMIT = 420           # s: the whole phase's children
 DIST_BOX_STEPS, DIST_BOX_GRAD_STEPS = 64, 16
-DIST_COL_STEPS, DIST_COL_GRAD_STEPS, DIST_CKPT = 200, 64, 16
+DIST_COL_STEPS, DIST_COL_GRAD_STEPS, DIST_CKPT = 100, 32, 16
 DIST_GRAD_REL = 1e-5       # of the largest one-process component
 
 
@@ -4543,7 +4585,7 @@ def _rank_main(rank, world, port, out_dir):
             COLUMNS_SRC, COLUMNS_RCV,
             torch.Generator().manual_seed(SEED + 31),
             eng.RaytracerParameters(),
-            waveguide_time=COLUMNS_STEPS / COLUMNS_FS))
+            waveguide_time=SHARDED_ENGINE_STEPS / COLUMNS_FS))
         ir = eng.render(run[0], Null(), 44100.0,
                         torch.Generator().manual_seed(SEED + 32))
     band = run[0].waveguide_bands[0]
@@ -4568,7 +4610,7 @@ def _free_port():
 def phase_distributed(torch, engine, engine_ref, card):
     """Phase 41: two gloo ranks on cuda:0, two shards each, against the
     one-process ``["cuda:0"] * 4`` mesh: the shoebox hall (64 steps
-    forward, a 16-step gradient), the columns hall (200 steps, a 64-step
+    forward, a 16-step gradient), the columns hall (100 steps, a 32-step
     gradient checkpointed every 16) and the sharded engine (phase 32's
     run, 0.1 s of waveguide).  Forwards equal at 0.0, gradients within
     1e-5 of the largest component, both ranks' IRs equal to the bit, and
@@ -4677,7 +4719,8 @@ def phase_distributed(torch, engine, engine_ref, card):
         / float(ir_ref.abs().max()) if ir0.shape == ir_ref.shape \
         else float("inf")
     print(f"[41 distributed] the sharded engine with device_mesh="
-          f"global_device_mesh(): the columns hall, {COLUMNS_STEPS} waveguide steps: both ranks' "
+          f"global_device_mesh(): the columns hall, {SHARDED_ENGINE_STEPS} "
+          f"waveguide steps: both ranks' "
           f"IRs equal to the bit {ir_ranks_equal}; waveguide band max |Δp| "
           f"{p_err:.3e} against phase 32's one-process sharded run; IR "
           f"against phase 32's (its own ray draws) max |Δ| / peak "
@@ -4686,7 +4729,7 @@ def phase_distributed(torch, engine, engine_ref, card):
           f"exchanged [{card}]")
     ok &= ir_ranks_equal and p_err == 0.0 and bool(st0) \
         and ecounts["mesh_weighted_step_haloed"] \
-        == DIST_SHARDS * COLUMNS_STEPS
+        == DIST_SHARDS * SHARDED_ENGINE_STEPS
     result["engine"] = {"ir_ranks_equal": ir_ranks_equal,
                         "band_max_abs_err": p_err, "ir_rel_err": ir_err,
                         "seconds": esecs, "launches": ecounts,
@@ -4776,6 +4819,306 @@ def phase_tools(torch, card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# the last eight tools on the card
+
+LONGRUN_STEPS = 12000      # longrun --mode hw: its default, one B1 a step
+LONGRUN_F64_STEPS = 2000
+BOX_IR_REL = 1e-6          # box's IR, card vs CPU from one history, of peak
+GUI_RENDER = {"source": [1.0, 1.2, 0.9], "receiver": [2.2, 1.4, 1.9],
+              "rays": 512, "cutoff": 250, "absorption": 0.2}
+
+
+def _png_size(path):
+    """(width, height) of an 8-bit RGB PNG whose rows decode to that size
+    (every chunk's CRC checked), or None."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        return None
+    pos, idat, header = 8, b"", None
+    while pos + 12 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if crc != zlib.crc32(kind + body) & 0xFFFFFFFF:
+            return None
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    if header is None or header[2:4] != (8, 2):
+        return None
+    width, height = header[:2]
+    if len(zlib.decompress(idat)) != height * (1 + 3 * width):
+        return None
+    return width, height
+
+
+def _wav_ok(path):
+    """The WAV read back: finite and not all zero."""
+    from wayverb_tpu_torch.utils.audio import read_wav
+    data, _ = read_wav(path)
+    return bool(data.size and np.all(np.isfinite(data))
+                and np.abs(data).max() > 0)
+
+
+def _synth_hrirs(directory):
+    """Stereo HRIRs over 12 azimuths x 3 elevations with an interaural level
+    difference (right ear louder for a source on the right), as the port's
+    bake test synthesises them."""
+    from wayverb_tpu_torch.utils.audio import write_wav
+    for az in range(0, 360, 30):
+        for el in (-40, 0, 40):
+            lateral = np.sin(np.radians(az)) * np.cos(np.radians(el))
+            ir = np.zeros((2, 512))
+            for ch, side in ((0, -1.0), (1, 1.0)):
+                k = int(round(0.0009 * (1 - lateral * side) / 2 * 44100)) + 8
+                ir[ch, k] = 1.0 + 0.6 * lateral * side
+                ir[ch, k + 1] = 0.3 * ir[ch, k]
+            write_wav(os.path.join(directory, f"azel_az_{az}_el_{el}.wav"),
+                      ir, 44100.0)
+
+
+def _gui_loop(torch, gui, tmp, launches):
+    """One render through the GUI's HTTP API on the card, as
+    ``tests/test_gui.py::test_full_loop`` drives it, then a cancel;
+    ``launches()`` is read when the render is done, before the cancel."""
+    import threading
+    import urllib.request
+
+    def post(path, obj):
+        req = urllib.request.Request(base + path, method="POST",
+                                     data=json.dumps(obj).encode())
+        return json.loads(urllib.request.urlopen(req).read())
+
+    def get(path):
+        return urllib.request.urlopen(base + path).read()
+
+    def wait():
+        deadline = time.time() + 300
+        while True:
+            p = json.loads(get("/api/progress"))
+            if not p["running"] or time.time() > deadline:
+                return p
+            time.sleep(0.1)
+
+    httpd = gui.serve(port=0, device="cuda")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        page = get("/").decode()
+        scene = post("/api/load", {"dims": [3.2, 2.5, 2.8]})
+        started = post("/api/render", GUI_RENDER)["started"]
+        done = wait()
+        counted = launches()
+        res = json.loads(get("/api/result")) if done["has_result"] else {}
+        ir = np.asarray(res.get("ir", []), dtype=np.float64)
+        wav = os.path.join(tmp, "gui.wav")
+        with open(wav, "wb") as f:
+            f.write(get("/api/result.wav") if done["has_result"] else b"")
+        post("/api/load", {"dims": [4.0, 3.0, 3.5]})
+        cancel_started = post("/api/render", {
+            "source": [1.0, 1.2, 0.9], "receiver": [2.8, 1.4, 2.4],
+            "rays": 512, "cutoff": 200, "absorption": 0.3})["started"]
+        post("/api/cancel", {})
+        cancelled = wait()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    report = {"status": done["status"], "error": done["error"],
+              "render_launches": counted,
+              "ir_points": int(ir.size),
+              "ir_peak": float(np.abs(ir).max()) if ir.size else 0.0,
+              "rays": len(res.get("rays") or []),
+              "frames": len(res.get("frames") or []),
+              "cancel_status": cancelled["status"]}
+    flags = {"page": "wayverb_tpu_torch" in page,
+             "box_loaded": scene["num_triangles"] == 12 and scene["is_box"],
+             "started": started and cancel_started,
+             "done": done["status"] == "done" and done["error"] is None,
+             "ir": bool(ir.size > 100 and np.all(np.isfinite(ir))
+                        and np.abs(ir).max() > 0),
+             "wav": done["has_result"] and _wav_ok(wav),
+             "rays_and_frames": report["rays"] == 48
+             and report["frames"] == 20,
+             "cancelled": cancelled["status"] in ("cancelled", "done")
+             and not cancelled["running"],
+             "b2": counted["box_mega_chunk"] > 0,
+             "b1_wavefront": counted["box_fused_step"] == 160}
+    return report, flags
+
+
+def phase_last_tools(torch, card):
+    """Phase 43: the last eight tools of ``wayverb_tpu_torch/tools`` on the
+    card through ``main()``: ``box``, ``diffuse_decay`` and
+    ``boundary_fit_sweep`` at the reference's defaults; ``longrun --mode
+    hw`` at its 12,000 steps (the fused route: one B1 launch a step, counted
+    exactly); ``longrun --mode f64 --steps 2000``; ``crackly_tunnel`` at its
+    defaults and ``visualize`` into a temporary directory; ``bake_hrtf`` on
+    a set synthesised there; the GUI served on port 0, one render through
+    HTTP and a cancel.  Each tool's seconds, B1 and B2 launches, pass flags
+    and a short report; ``box`` again with ``--cpu`` from the same
+    directions, its impulses bit-equal to the card's and its IR within
+    ``BOX_IR_REL`` of peak."""
+    import contextlib
+    import importlib
+    import io
+    from wayverb_tpu_torch.core.orientation import random_unit_vectors
+    from wayverb_tpu_torch.tools import box as box_tool
+    from wayverb_tpu_torch.utils.audio import read_wav
+    from wayverb_tpu_torch.waveguide.box_fused import fused_step
+    from wayverb_tpu_torch.waveguide.box_mega import mega_chunk
+    result, ok = {}, True
+
+    def run(name, argv, **kwargs):
+        module = importlib.import_module(f"wayverb_tpu_torch.tools.{name}")
+        mega_chunk.launches = fused_step.launches = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            report = module.main(argv, **kwargs)
+        torch.cuda.synchronize()
+        return (report, time.perf_counter() - t0,
+                {"box_fused_step": fused_step.launches,
+                 "box_mega_chunk": mega_chunk.launches},
+                printed.getvalue().splitlines())
+
+    def record(name, secs, launches, flags, shown):
+        nonlocal ok
+        ok &= all(flags.values())
+        print(f"[43 last tools] {name}: {secs:.2f} s, launches {launches}, "
+              f"flags {flags}; report {json.dumps(shown)} [{card}]",
+              flush=True)
+        result[name] = {"seconds": secs, "launches": launches,
+                        "flags": flags, "report": shown}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # box: the card, then the CPU from the same directions
+        gen = torch.Generator().manual_seed(SEED + 43)
+        rays = 1 << 15
+        dirs = (random_unit_vectors(rays, gen),
+                torch.stack([random_unit_vectors(rays, gen)
+                             for _ in range(4)]))
+        wavs = {d: os.path.join(tmp, f"box_{d}.wav") for d in ("cuda", "cpu")}
+        rep, secs, launches, _ = run("box", ["--out", wavs["cuda"]],
+                                     directions=dirs)
+        cpu_rep, cpu_secs, _, _ = run("box", ["--cpu", "--out", wavs["cpu"]],
+                                      directions=dirs)
+        found = {d: box_tool.image_sources(rays, 3, 0.1, torch.device(d),
+                                           dirs)[0] for d in ("cuda", "cpu")}
+        same = all(torch.equal(getattr(found["cuda"], k).cpu(),
+                               getattr(found["cpu"], k))
+                   for k in ("volume", "position", "distance"))
+        ir_card, ir_cpu = read_wav(wavs["cuda"])[0], read_wav(wavs["cpu"])[0]
+        ir_rel = (float(np.abs(ir_card - ir_cpu).max() / np.abs(ir_cpu).max())
+                  if ir_card.shape == ir_cpu.shape else float("inf"))
+        record("box", secs, launches, {
+            "all_on_the_lattice": rep["matched"] == rep["traced_paths"] > 0,
+            "wav": _wav_ok(wavs["cuda"]),
+            "impulses_card_eq_cpu": same,
+            "ir_card_vs_cpu": ir_rel <= BOX_IR_REL}, {
+            **{k: rep[k] for k in ("traced_paths", "matched", "ir_samples",
+                                   "peak")},
+            "impulses": found["cpu"].count, "cpu_seconds": cpu_secs,
+            "ir_card_vs_cpu_of_peak": ir_rel})
+
+        rep, secs, launches, _ = run("diffuse_decay", [])
+        record("diffuse_decay", secs, launches, {
+            "t30_finite": all(0 < b["t30_s"] < float("inf")
+                              for b in rep["bands"])}, {
+            **rep["setup"],
+            "t30_vs_sabine_percent": [round(b["t30_vs_sabine_percent"], 3)
+                                      for b in rep["bands"]],
+            "decay_rms_deviation_db": [round(b["decay_rms_deviation_db"], 4)
+                                       for b in rep["bands"]]})
+
+        rep, secs, launches, _ = run("boundary_fit_sweep", [])
+        record("boundary_fit_sweep", secs, launches, {
+            "passive": rep["worst_reflectance"] <= 1.0 + 1e-6,
+            "fit_within_bound":
+                rep["worst_inband_r_error"] <= rep["error_bound"]}, {
+            k: rep[k] for k in ("materials", "worst_inband_r_error",
+                                "worst_reflectance")} | {
+            "fits": len(rep["rows"])})
+
+        rep, secs, launches, printed = run("longrun", [])
+        record("longrun hw", secs, launches, {
+            "LONGRUN_HW_PASS": printed[-1:] == ["LONGRUN_HW_PASS"],
+            "b1_once_a_step": launches["box_fused_step"] == LONGRUN_STEPS,
+            "steps": rep["steps"] == LONGRUN_STEPS}, {
+            **rep, "ms_per_step": 1e3 * rep["wall_s"] / rep["steps"]})
+
+        rep, secs, launches, printed = run(
+            "longrun", ["--mode", "f64", "--steps", str(LONGRUN_F64_STEPS)])
+        record("longrun f64", secs, launches, {
+            "LONGRUN_F64_PASS": printed[-1:] == ["LONGRUN_F64_PASS"],
+            "stable": rep["stable32"] and rep["stable64"]}, rep)
+
+        wav = os.path.join(tmp, "crackly_tunnel.wav")
+        rep, secs, launches, _ = run("crackly_tunnel", ["--out", wav])
+        record("crackly_tunnel", secs, launches, {
+            "wav": _wav_ok(wav), "b2": launches["box_mega_chunk"] > 0,
+            "finite": all(math.isfinite(rep[k]) for k in (
+                "max_jump_over_envelope", "p999_jump_over_envelope"))},
+            {k: v for k, v in rep.items() if k != "wrote"})
+
+        hrirs = os.path.join(tmp, "hrirs")
+        os.makedirs(hrirs)
+        _synth_hrirs(hrirs)
+        table_path = os.path.join(tmp, "table.npz")
+        rep, secs, launches, _ = run("bake_hrtf", [hrirs, table_path])
+        table = np.load(table_path)["table"]
+        mid = table.shape[1] // 2
+        record("bake_hrtf", secs, launches, {
+            "coverage": rep["baked_bins"] == 36 and table.shape == (24, 9, 2,
+                                                                    8),
+            "ild": bool(np.all(table[6, mid, 1] > table[6, mid, 0])
+                        and np.all(table[18, mid, 0] > table[18, mid, 1]))},
+            {k: rep[k] for k in ("baked_bins", "bins")})
+
+        viz = os.path.join(tmp, "viz")
+        rep, secs, launches, _ = run("visualize", ["--out-dir", viz])
+        sizes = [_png_size(f["path"]) for f in rep["wavefronts"]]
+        ray_size = _png_size(rep["rays"]["path"])
+        record("visualize", secs, launches, {
+            "pngs": all(s is not None and s[0] >= 400 for s in sizes)
+            and ray_size == (660, 495),
+            "frames": len(sizes) == 8,
+            "b1": launches["box_fused_step"] == 48}, {
+            "wavefront_png": sizes[0], "ray_png": ray_size,
+            "slice_peak": float(np.abs(rep["wavefronts"][-1]["slice"]).max()),
+            "polylines": list(rep["rays"]["polylines"].shape)})
+
+        from wayverb_tpu_torch.tools import gui
+        mega_chunk.launches = fused_step.launches = 0
+        t0 = time.perf_counter()
+        rep, flags = _gui_loop(torch, gui, tmp, lambda: {
+            "box_fused_step": fused_step.launches,
+            "box_mega_chunk": mega_chunk.launches})
+        torch.cuda.synchronize()
+        record("gui", time.perf_counter() - t0, rep["render_launches"], flags,
+               rep)
+    print(json.dumps({"phase": "43 last tools", **result}))
+    if not ok:
+        _fail("one of the last eight tools failed its checks on the card")
+    return result
+
+
+@contextlib.contextmanager
+def _phase_wall(label):
+    """Prints ``[label] phase wall … s`` when the block ends."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[{label}] phase wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+
 def main():
     if "--rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
@@ -4783,42 +5126,49 @@ def main():
                    int(args["--port"]), args["--out"])
         return
     import torch
-    card = phase_device(torch)
-    ptxas = phase_build(card)
-    box, dx, mesh, setup_s = _hall_mesh(torch)
-    b1_err = phase_kernel_vs_plain(torch, mesh.box_spec, card)
-    t30_mesh, t30_fused, sabine, t30_src, t30_rcv = phase_t30(torch, card)
-    fused_out, b1_launches, step_s = phase_hall(torch, box, dx, mesh,
-                                                setup_s, card)
-    b1_rows = phase_kernel_time(torch, mesh.box_spec, card)
-    hall_window = phase_profile(torch, mesh, box, dx, step_s, card)
-    b2_err, hall_case = phase_mega_vs_plain(torch, mesh, box, dx, card)
-    t0 = time.perf_counter()
-    b2_us, b2_plain_us, b2_occ = phase_mega_time(torch, hall_case, ptxas,
-                                                 card)
-    phase_mega_hall(torch, box, dx, mesh, fused_out, step_s, card)
-    print(f"[7 mega] phase wall {time.perf_counter() - t0:.2f} s [{card}]")
+    with _phase_wall("1 device"):
+        card = phase_device(torch)
+    with _phase_wall("2 build"):
+        ptxas = phase_build(card)
+    with _phase_wall("5 hall mesh"):
+        box, dx, mesh, setup_s = _hall_mesh(torch)
+    with _phase_wall("3 B1"):
+        b1_err = phase_kernel_vs_plain(torch, mesh.box_spec, card)
+    with _phase_wall("4 t30"):
+        t30_mesh, t30_fused, sabine, t30_src, t30_rcv = phase_t30(torch,
+                                                                  card)
+    with _phase_wall("5 hall"):
+        fused_out, b1_launches, step_s = phase_hall(torch, box, dx, mesh,
+                                                    setup_s, card)
+        b1_rows = phase_kernel_time(torch, mesh.box_spec, card)
+        hall_window = phase_profile(torch, mesh, box, dx, step_s, card)
+    with _phase_wall("6 B2"):
+        b2_err, hall_case = phase_mega_vs_plain(torch, mesh, box, dx, card)
+    with _phase_wall("7 mega"):
+        b2_us, b2_plain_us, b2_occ = phase_mega_time(torch, hall_case, ptxas,
+                                                     card)
+        phase_mega_hall(torch, box, dx, mesh, fused_out, step_s, card)
     del fused_out
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    resumable = {"hall": phase_resumable_hall(torch, box, dx, mesh, card)}
+    with _phase_wall("38 resumable hall"):
+        resumable = {"hall": phase_resumable_hall(torch, box, dx, mesh,
+                                                  card)}
     torch.cuda.empty_cache()
-    print(f"[38 resumable hall] phase wall {time.perf_counter() - t0:.2f} s "
-          f"[{card}]")
 
-    b5_err = phase_b5_vs_plain(torch, mesh.box_spec, card)
-    b5_time = phase_b5_time(torch, mesh.box_spec, card)
-    b6_err, b7_err, grad_case = phase_grad_chunks_vs_plain(torch, mesh, box,
-                                                           dx, card)
-    b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us, b7_occ = \
-        phase_grad_chunk_time(torch, grad_case, card)
+    with _phase_wall("11 B5"):
+        b5_err = phase_b5_vs_plain(torch, mesh.box_spec, card)
+        b5_time = phase_b5_time(torch, mesh.box_spec, card)
+    with _phase_wall("12 grad"):
+        b6_err, b7_err, grad_case = phase_grad_chunks_vs_plain(
+            torch, mesh, box, dx, card)
+        b6_us, b6_plain_us, b7_us, b7_plain_us, theta_us, b7_occ = \
+            phase_grad_chunk_time(torch, grad_case, card)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    grad_counts, grad_fwd_s, grad_bwd_s, grad_peak, grad_more = \
-        phase_grad_hall(torch, box, dx, mesh, card)
-    print(f"[13 grad hall] phase wall {time.perf_counter() - t0:.2f} s "
-          f"[{card}]")
-    route_counts, _ = phase_grad_routes(torch, mesh, card)
+    with _phase_wall("13 grad hall"):
+        grad_counts, grad_fwd_s, grad_bwd_s, grad_peak, grad_more = \
+            phase_grad_hall(torch, box, dx, mesh, card)
+    with _phase_wall("14 routes"):
+        route_counts, _ = phase_grad_routes(torch, mesh, card)
     hall_spec, hall_dims = mesh.box_spec, mesh.box_spec.dims
     bounds = kernel_bounds(hall_spec, hall_case[1].shape[1] - 1,
                            hall_case[4].numel())
@@ -4835,113 +5185,134 @@ def main():
     del mesh, hall_case, grad_case
     torch.cuda.empty_cache()
 
-    phase_t30_mega(torch, t30_mesh, t30_fused, sabine, t30_src, t30_rcv, card)
-    t0 = time.perf_counter()
-    launches, engine_dims, b2_engine_err = phase_hybrid_hall(torch, hall_spec,
-                                                             card)
-    print(f"[9 hybrid] phase wall {time.perf_counter() - t0:.2f} s [{card}]")
-    phase_hybrid_card_vs_cpu(torch, card)
+    with _phase_wall("8 t30 mega"):
+        phase_t30_mega(torch, t30_mesh, t30_fused, sabine, t30_src, t30_rcv,
+                       card)
+    with _phase_wall("9 hybrid"):
+        launches, engine_dims, b2_engine_err = phase_hybrid_hall(
+            torch, hall_spec, card)
+    with _phase_wall("10 hybrid"):
+        phase_hybrid_card_vs_cpu(torch, card)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    multiband = phase_multiband_hall(torch, card)
-    print(f"[36 multiband hall] phase wall {time.perf_counter() - t0:.2f} s "
-          f"[{card}]")
-    t0 = time.perf_counter()
-    multiband["card_vs_cpu"] = phase_multiband_card_vs_cpu(torch, card)
-    print(f"[37 multiband card vs cpu] phase wall "
-          f"{time.perf_counter() - t0:.2f} s [{card}]")
-    phase_grad_card_vs_cpu(torch, card)
-    phase_descent(torch, card)
+    with _phase_wall("36 multiband hall"):
+        multiband = phase_multiband_hall(torch, card)
+    with _phase_wall("37 multiband card vs cpu"):
+        multiband["card_vs_cpu"] = phase_multiband_card_vs_cpu(torch, card)
+    with _phase_wall("15 card vs cpu"):
+        phase_grad_card_vs_cpu(torch, card)
+    with _phase_wall("16 descent"):
+        phase_descent(torch, card)
     torch.cuda.empty_cache()
 
     col_timings = {}
-    t0 = time.perf_counter()
-    col_mesh = _columns_mesh(torch, COLUMNS_CUTOFF, "cuda", col_timings)
-    col_setup_s = time.perf_counter() - t0
+    with _phase_wall("19 columns mesh"):
+        t0 = time.perf_counter()
+        col_mesh = _columns_mesh(torch, COLUMNS_CUTOFF, "cuda", col_timings)
+        col_setup_s = time.perf_counter() - t0
     col_dims = list(col_mesh.descriptor.dimensions)
-    b8_err, b9_err, b12_err = phase_mesh_kernels_vs_plain(
-        torch, col_mesh.structure, card)
-    mesh_times, mesh_bounds, b9_occ = phase_mesh_kernel_times(
-        torch, col_mesh.structure, card)
+    with _phase_wall("17 mesh"):
+        b8_err, b9_err, b12_err = phase_mesh_kernels_vs_plain(
+            torch, col_mesh.structure, card)
+    with _phase_wall("18 mesh"):
+        mesh_times, mesh_bounds, b9_occ = phase_mesh_kernel_times(
+            torch, col_mesh.structure, card)
     torch.cuda.empty_cache()
-    columns = phase_columns_hall(torch, col_mesh, col_timings, col_setup_s,
-                                 card)
-    thin_launches, thin_err = phase_general_physics(
-        torch, t30_mesh, t30_src, t30_rcv, sabine, card)
+    with _phase_wall("19 columns"):
+        columns = phase_columns_hall(torch, col_mesh, col_timings,
+                                     col_setup_s, card)
+    with _phase_wall("20 t30 general"):
+        thin_launches, thin_err = phase_general_physics(
+            torch, t30_mesh, t30_src, t30_rcv, sabine, card)
     b12_err = max(b12_err, thin_err)
-    col_launches, hybrid_columns = phase_hybrid_columns(
-        torch, col_mesh.structure.weight_code, card)
-    phase_hybrid_columns_card_vs_cpu(torch, card)
+    with _phase_wall("21 hybrid columns"):
+        col_launches, hybrid_columns = phase_hybrid_columns(
+            torch, col_mesh.structure.weight_code, card)
+        phase_hybrid_columns_card_vs_cpu(torch, card)
     torch.cuda.empty_cache()
-    general_grad_counts, general_grad = phase_general_gradient(
-        torch, col_mesh, card)
-    phase_general_grad_card_vs_cpu(torch, card)
-    resumable["general"] = phase_resumable_general(torch, col_mesh, card)
+    with _phase_wall("22 general grad"):
+        general_grad_counts, general_grad = phase_general_gradient(
+            torch, col_mesh, card)
+        phase_general_grad_card_vs_cpu(torch, card)
+    with _phase_wall("39 resumable columns"):
+        resumable["general"] = phase_resumable_general(torch, col_mesh, card)
     del col_mesh
     torch.cuda.empty_cache()
 
     from wayverb_tpu_torch.raytracer import mt_kernels as mk
     from wayverb_tpu_torch.raytracer.scenes import (procedural_hall,
                                                     procedural_hall_large)
-    (model_cpu, n_model), (large_cpu, n_large) = procedural_hall(), \
-        procedural_hall_large()
-    if (n_model, n_large) != (5448, 97068):
-        _fail(f"the halls have {n_model} and {n_large} triangles, expected "
-              "5448 and 97068")
-    model_soup, large_soup = model_cpu.to("cuda"), large_cpu.to("cuda")
-    model_tris = mk.build_mt_triangles(model_cpu).to("cuda")
-    large_tris = mk.build_mt_triangles(large_cpu).to("cuda")
-    large_plain_tris = mk.build_mt_triangles(large_cpu, cull=False).to("cuda")
-    if model_tris.culled or not large_tris.culled:
-        _fail("build_mt_triangles culls the model hall or not the large one")
-    b3_err, b4_err = phase_mt_vs_plain(torch, model_tris, large_tris, card)
-    mt_times = phase_mt_times(torch, model_soup, model_tris, large_soup,
-                              large_tris, large_plain_tris, card)
-    model_launches, model_hall = phase_model_hall(torch, model_cpu, card)
+    with _phase_wall("23 mt"):
+        (model_cpu, n_model), (large_cpu, n_large) = procedural_hall(), \
+            procedural_hall_large()
+        if (n_model, n_large) != (5448, 97068):
+            _fail(f"the halls have {n_model} and {n_large} triangles, "
+                  "expected 5448 and 97068")
+        model_soup, large_soup = model_cpu.to("cuda"), large_cpu.to("cuda")
+        model_tris = mk.build_mt_triangles(model_cpu).to("cuda")
+        large_tris = mk.build_mt_triangles(large_cpu).to("cuda")
+        large_plain_tris = mk.build_mt_triangles(large_cpu,
+                                                 cull=False).to("cuda")
+        if model_tris.culled or not large_tris.culled:
+            _fail("build_mt_triangles culls the model hall or not the large "
+                  "one")
+        b3_err, b4_err = phase_mt_vs_plain(torch, model_tris, large_tris,
+                                           card)
+    with _phase_wall("24 mt"):
+        mt_times = phase_mt_times(torch, model_soup, model_tris, large_soup,
+                                  large_tris, large_plain_tris, card)
+    with _phase_wall("25 model hall"):
+        model_launches, model_hall = phase_model_hall(torch, model_cpu, card)
     torch.cuda.empty_cache()
-    large_launches, large_hall = phase_large_hall(
-        torch, large_soup, large_tris, large_plain_tris, card)
-    dda = phase_dda_on_card(torch, model_soup, model_tris, card)
+    with _phase_wall("26 large hall"):
+        large_launches, large_hall = phase_large_hall(
+            torch, large_soup, large_tris, large_plain_tris, card)
+    with _phase_wall("27 dda"):
+        dda = phase_dda_on_card(torch, model_soup, model_tris, card)
     torch.cuda.empty_cache()
-    phase_hall_card_vs_cpu(torch, card)
+    with _phase_wall("28 card vs cpu"):
+        phase_hall_card_vs_cpu(torch, card)
     del model_soup, large_soup, model_tris, large_tris, large_plain_tris
     torch.cuda.empty_cache()
 
-    sharded_engine, sharded_setup = _sharded_columns_engine(torch, card)
-    shard_mesh = sharded_engine.mesh
-    shard_errs, shard_times, shard_bounds, b11_occ = phase_shard_kernels(
-        torch, shard_mesh.structure, card)
-    sharded_general = phase_general_sharded(torch, shard_mesh, card)
-    shard_grad_counts, sharded_grad = phase_general_sharded_gradient(
-        torch, shard_mesh, card)
+    with _phase_wall("29 sharded"):
+        sharded_engine, sharded_setup = _sharded_columns_engine(torch, card)
+        shard_mesh = sharded_engine.mesh
+        shard_errs, shard_times, shard_bounds, b11_occ = phase_shard_kernels(
+            torch, shard_mesh.structure, card)
+    with _phase_wall("30 sharded general"):
+        sharded_general = phase_general_sharded(torch, shard_mesh, card)
+    with _phase_wall("31 sharded grad"):
+        shard_grad_counts, sharded_grad = phase_general_sharded_gradient(
+            torch, shard_mesh, card)
     torch.cuda.empty_cache()
-    shard_launches, sharded_engine_run, engine_ref = phase_sharded_engine(
-        torch, sharded_engine, sharded_setup, card)
-    t0 = time.perf_counter()
-    distributed = phase_distributed(torch, sharded_engine, engine_ref, card)
-    print(f"[41 distributed] phase wall {time.perf_counter() - t0:.2f} s "
-          f"[{card}]")
+    with _phase_wall("32 sharded engine"):
+        shard_launches, sharded_engine_run, engine_ref = phase_sharded_engine(
+            torch, sharded_engine, sharded_setup, card)
+    with _phase_wall("41 distributed"):
+        distributed = phase_distributed(torch, sharded_engine, engine_ref,
+                                        card)
     del engine_ref
     shard_dims = [shard_mesh.descriptor.dimensions[0] // SHARDS,
                   *shard_mesh.descriptor.dimensions[1:]]
     del sharded_engine, shard_mesh
     torch.cuda.empty_cache()
-    box_sharded = phase_box_sharded(torch, card)
-    phase_sharded_trace(torch, card)
+    with _phase_wall("33 box sharded"):
+        box_sharded = phase_box_sharded(torch, card)
+    with _phase_wall("34 sharded trace"):
+        phase_sharded_trace(torch, card)
     torch.cuda.empty_cache()
-    probe = phase_probe(torch, card)
+    with _phase_wall("35 probe"):
+        probe = phase_probe(torch, card)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    resumable["thin"] = phase_resumable_thin(torch, card)
-    print(f"[39 resumable thin] phase wall {time.perf_counter() - t0:.2f} s "
-          f"[{card}]")
-    t0 = time.perf_counter()
-    project = phase_project(torch, card)
-    print(f"[40 project] phase wall {time.perf_counter() - t0:.2f} s "
-          f"[{card}]")
-    t0 = time.perf_counter()
-    tools = phase_tools(torch, card)
-    print(f"[42 tools] phase wall {time.perf_counter() - t0:.2f} s [{card}]")
+    with _phase_wall("39 resumable thin"):
+        resumable["thin"] = phase_resumable_thin(torch, card)
+    with _phase_wall("40 project"):
+        project = phase_project(torch, card)
+    with _phase_wall("42 tools"):
+        tools = phase_tools(torch, card)
+    torch.cuda.empty_cache()
+    with _phase_wall("43 last tools"):
+        last_tools = phase_last_tools(torch, card)
     dist_launches = distributed["distributed_launches"]
     counted = {"box_fused_step": b1_launches,
                "box_mega_chunk": launches["box_mega_chunk"],
@@ -4991,6 +5362,9 @@ def main():
            for k in ("registers", "local_bytes", "ctas_per_sm")},
         "resumable_launches": resumable["hall"]["b1_launches"],
         "distributed_launches": dist_launches["box_fused_step"],
+        "tool_launches": {
+            name: last_tools[name]["launches"]["box_fused_step"]
+            for name in ("longrun hw", "longrun f64", "visualize", "gui")},
         "hall_run": {"wall_ms_per_step": 1e3 * step_s,
                      "busy_ms_per_step": (hall_window[0] / 1e3
                                           if hall_window else None),
@@ -5009,6 +5383,9 @@ def main():
         "launches": counted["box_mega_chunk"],
         "multiband_launches": multiband["launches"]["box_mega_chunk"],
         "project_launches": project["b2_launches"],
+        "tool_launches": {
+            name: last_tools[name]["launches"]["box_mega_chunk"]
+            for name in ("crackly_tunnel", "gui")},
         "max_abs_err": max(b2_err, b2_engine_err),
         **per_substep("b2", b2_us, b2_plain_us),
         **{k: b2_occ[k] for k in ("registers", "local_bytes", "ctas_per_sm")},
@@ -5151,7 +5528,7 @@ def main():
          f"Engine(device_mesh={SHARDS} x cuda:0).run on the columns hall",
          {}),
         ("mesh_weighted_step_haloed_bwd", "b11", 396, shard_errs[1],
-         "the columns hall's 64-step gradient on 4 shards",
+         "the columns hall's 32-step gradient on 4 shards",
          {**{k: b11_occ[k] for k in ("registers", "local_bytes",
                                      "ctas_per_sm", "bare_warp_share")},
           "backward_device_ms": (sharded_grad["b11_device_us"] / 1e3
@@ -5190,6 +5567,7 @@ def main():
         "sharded_general": sharded_general, "sharded_gradient": sharded_grad,
         "sharded_engine": sharded_engine_run, "box_sharded": box_sharded,
         "distributed": distributed, "tools": tools,
+        "last_tools": last_tools,
         "gradient_path": {
         "shape": list(hall_dims), "steps": GRAD_STEPS, "chunk": CHUNK,
         "forward_s": grad_fwd_s, "backward_s": grad_bwd_s,

@@ -212,9 +212,9 @@ def test_execute_raises_on_non_box_mesh(port_mesh, jax_mesh):
 
 
 def test_port_never_imports_jax():
-    """No module of the port names jax or the reference package, and
-    importing every module of the port leaves both out of
-    ``sys.modules``."""
+    """No module of the port names jax, the reference package or the
+    reference's ``tools`` scripts, and importing every module of the port
+    leaves them out of ``sys.modules``."""
     pkg = REPO / "wayverb_tpu_torch"
     for path in pkg.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -224,7 +224,8 @@ def test_port_never_imports_jax():
                 else []
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "wayverb_tpu"), \
+                assert root not in ("jax", "jaxlib", "wayverb_tpu",
+                                    "tools"), \
                     f"{path.name} imports {name}"
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
@@ -242,12 +243,15 @@ def test_port_never_imports_jax():
                  "parallel.distributed", "tools.rt60", "tools.mic_test",
                  "tools.siltanen2013", "tools.level_match",
                  "tools.waveguide_distance_test", "tools.solution_growth",
-                 "tools.sheaffer2014", "tools.boundary_test"):
+                 "tools.sheaffer2014", "tools.boundary_test", "tools.box",
+                 "tools.diffuse_decay", "tools.crackly_tunnel",
+                 "tools.longrun", "tools.boundary_fit_sweep",
+                 "tools.bake_hrtf", "tools.visualize", "tools.gui"):
         assert f"wayverb_tpu_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'wayverb_tpu')]\n"
+            "('jax', 'jaxlib', 'wayverb_tpu', 'tools')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -40,11 +40,13 @@ def _reference(name, argv, monkeypatch, capsys):
     return capsys.readouterr().out.splitlines()
 
 
-def _port(name, argv, capsys):
-    """(the port's printed lines, ``main``'s report) for ``argv``."""
+def _port(name, argv, capsys, **draws):
+    """(the port's printed lines, ``main``'s report) for ``argv``; a ray
+    tool also takes the reference's ``draws`` (``directions=``,
+    ``draws=``)."""
     module = importlib.import_module(f"wayverb_tpu_torch.tools.{name}")
     capsys.readouterr()
-    report = module.main(argv)
+    report = module.main(argv, **draws)
     return capsys.readouterr().out.splitlines(), report
 
 
@@ -178,7 +180,8 @@ def test_boundary_test(monkeypatch, capsys):
 
 TOOLS = ("rt60", "mic_test", "siltanen2013", "level_match",
          "waveguide_distance_test", "solution_growth", "sheaffer2014",
-         "boundary_test")
+         "boundary_test", "box", "diffuse_decay", "crackly_tunnel",
+         "longrun", "visualize")
 
 
 @pytest.mark.parametrize("name", TOOLS)

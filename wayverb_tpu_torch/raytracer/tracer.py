@@ -182,7 +182,9 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver,
 
     def deposit(positions, distances, volumes, mask):
         """Masked scatter-add of impulses into the directional histogram."""
-        times = distances / speed
+        # a tensor divisor: the card divides by a host scalar as a multiply
+        # by its reciprocal, which the CPU does not
+        times = distances / torch.full_like(distances, speed)
         if time_cutoff is not None:
             mask = mask & (times <= time_cutoff)
         bin_idx = torch.floor(times * histogram_sample_rate).to(torch.int64)

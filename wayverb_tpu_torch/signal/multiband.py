@@ -152,3 +152,27 @@ def multiband_filter_and_mixdown(signals, sample_rate,
     Parity: ``core/mixdown.h:11-24``.
     """
     return torch.sum(multiband_filter(signals, sample_rate, bands), dim=-2)
+
+
+def per_band_energy(signal, sample_rate, bands: int = DEFAULT_BANDS):
+    """RMS energy of ``signal`` (..., n) measured in each band.
+
+    Parity: ``frequency_domain::per_band_energy`` (normalized rms: the
+    filtered energy divided by the integrated envelope area).
+    """
+    edges, wf = multiband_params(sample_rate, bands)
+    n = signal.shape[-1]
+    bins = best_fft_length(n)
+    freqs = _fft_freqs(bins, torch.float32, signal.device)
+    e = torch.as_tensor(edges, dtype=torch.float32, device=signal.device)
+    mags = compute_bandpass_magnitude(
+        freqs[None, :], e[:-1, None], e[1:, None], wf)          # (bands, F)
+    spectrum = torch.fft.rfft(signal, n=bins, dim=-1)           # (..., F)
+    weighted = spectrum[..., None, :] * mags                    # (..., b, F)
+    # rfft bins stand for both halves of the spectrum but DC and Nyquist;
+    # the energy ratio below has that factor in numerator and denominator
+    summed_squared = torch.sum(torch.abs(weighted) ** 2, dim=-1)
+    integrated_envelope = torch.sum(mags, dim=-1)
+    return torch.where(integrated_envelope > 0,
+                       torch.sqrt(summed_squared / integrated_envelope),
+                       torch.zeros_like(summed_squared))
