@@ -123,10 +123,11 @@ Drives the port through its public entry points on the card and fails
     shard count, (344, 139, 259); B10 and B11 (the weighted step of one
     x-shard with its halo rows, and its adjoint with the halo cotangents)
     against their plain versions at the shard shape (86, 139, 259), at one
-    and two rows and at odd (Y, Z), with non-zero halos, B11 to the bit
-    (also at 1e38 with ±inf and NaN, all −0, Y·Z < 32, one and two rows, on
-    the hall's own shard code), and their times; B11's registers, local
-    bytes, CTAs an SM and the share of its warps on the bare path;
+    and two rows and at odd (Y, Z), with non-zero halos, both to the bit,
+    B10 also into ``out=prev`` (and at 1e38 with ±inf and NaN, all −0,
+    Y·Z < 32, one and two rows, on the hall's own shard code), and their
+    times against their bounds; the registers, local bytes, CTAs an SM and
+    the share of warps on the bare path of each;
 30. that hall through ``run_waveguide_general_sharded``, 1000 steps (4000
     B10 launches), against the single-device B8 run on the same mesh, with
     the wall ms/step of both, the peak memory and a profiled window;
@@ -139,7 +140,9 @@ Drives the port through its public entry points on the card and fails
     seconds of each phase;
 33. the shoebox hall (224, 224, 256) through ``run_waveguide_box_sharded``
     on four shards (B1 with real halos), 128 steps against the single-device
-    fused run, then a 16-step gradient (B5 with halo cotangents, its
+    fused run, then 32 steps from near a wall with
+    ``state_dtype=torch.float64`` against the single-device fused run with
+    the same state dtype, a 16-step gradient (B5 with halo cotangents, its
     launches counted), and B5 alone at the shard shape (56, 224, 256) with
     its bound;
 34. ``sharded_trace`` on four shards: the direct energy against 8/(4πr²);
@@ -3352,6 +3355,7 @@ SHARDED_GENERAL_REL = 5e-5  # tests/test_general_sharded.py:62-63, of peak
 ENGINE_SHARDED_REL = 1e-5   # sharded vs single-device engine IR, of peak
 BOX_SHARDED_REL = 1e-5      # sharded vs single fused shoebox, of peak
 BOX_SHARDED_STEPS = 128
+F64_STATE_STEPS = 32        # the float64-state sharded shoebox (phase 33)
 
 
 def _shard_counts():
@@ -3420,13 +3424,16 @@ def shard_kernel_bounds(xl, Y, Z):
 def phase_shard_kernels(torch, structure, card):
     """B10 and B11 against their plain versions on the card, random inputs
     with non-zero halos: the columns hall's shard shape, one and two rows,
-    odd (Y, Z), and a shard of the hall's own weight code; B11 to the bit
-    (``mesh_timing.bits_equal``), and on the hall's shard code also at 1e38
-    with ±inf and NaN, all −0, and its slices of Y·Z < 32 and of one and
-    two rows; then their times at the shard shape and B11's registers,
-    local bytes and CTAs an SM."""
-    from wayverb_tpu_torch.tools.mesh_timing import (bare_warps, bits_equal,
-                                                     case_g)
+    odd (Y, Z), and a shard of the hall's own weight code; both to the bit
+    (``mesh_timing.bits_equal``), B10 into a fresh output and into
+    ``out=prev``, and on the hall's shard code also at 1e38 with ±inf and
+    NaN, all −0, and its slices of Y·Z < 32 and of one and two rows; then
+    their times at the shard shape, and the registers, local bytes, CTAs
+    an SM and share of warps on the bare path of each."""
+    from wayverb_tpu_torch.tools.mesh_timing import (b10_equal, b10_inputs,
+                                                     bare_warps, bits_equal,
+                                                     case_g,
+                                                     forward_bare_warps)
     from wayverb_tpu_torch.waveguide import stencil_kernels as sk
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     X, Y, Z = structure.weight_code.shape
@@ -3448,29 +3455,29 @@ def phase_shard_kernels(torch, structure, card):
                                  device="cuda", dtype=torch.int32)
         cur, prev, g = rnd(*dims), rnd(*dims), rnd(*dims)
         halos = (rnd(1, *dims[1:]), rnd(1, *dims[1:]))
-        fwd = (sk.weighted_step_sharded(cur, prev, code, halos),
-               sk._weighted_step_sharded_plain(cur, prev, code, halos))
+        alias = prev.clone()
+        fwd = sk.weighted_step_sharded(cur, prev, code, halos)
+        sk.weighted_step_sharded(cur, alias, code, halos, out=alias)
+        want = sk._weighted_step_sharded_plain(cur, prev, code, halos)
         gk, (hk0, hk1) = sk.weighted_step_sharded_bwd(g, code)
         gp, (hp0, hp1) = sk._weighted_step_sharded_bwd_plain(g, code)
         torch.cuda.synchronize()
-        pairs = (("B10", [fwd]), ("B11", [(gk, gp), (hk0, hp0),
-                                          (hk1, hp1)]))
+        pairs = (("B10", [(fwd, want), (alias, want)]),
+                 ("B11", [(gk, gp), (hk0, hp0), (hk1, hp1)]))
         for i, (name, outs) in enumerate(pairs):
             err = max(float((a - b).abs().max()) for a, b in outs)
             peak = max(float(b.abs().max()) for _, b in outs)
             worst[i] = max(worst[i], err)
             equal = all(bits_equal(a, b) for a, b in outs)
             print(f"[29 sharded] {name} {dims} ({what}): max |kernel - "
-                  f"plain| = {err:.3e}, peak {peak:.3e} (bound {MESH_REL:g} "
-                  f"x peak{'; B11 to the bit' if i else ''}): "
-                  f"bit-equal {equal}")
-            if not (err <= MESH_REL * peak and peak > 0) \
-                    or (i == 1 and not equal):
-                _fail(f"{name} disagrees with its plain version: {what}")
+                  f"plain| = {err:.3e}, peak {peak:.3e}: bit-equal {equal}"
+                  f"{' (fresh and out=prev)' if i == 0 else ''}")
+            if not (equal and peak > 0):
+                _fail(f"{name} differs from its plain version: {what}")
 
     more = [(hall, "1e38 inf nan",
-             "the hall's shard code, g at 1e38 with inf and NaN"),
-            (hall, "all -0", "the hall's shard code, g all -0"),
+             "the hall's shard code, inputs at 1e38 with inf and NaN"),
+            (hall, "all -0", "the hall's shard code, inputs all -0"),
             (hall[:4, 60:63, 100:105].contiguous(), "random",
              "a slice of it with Y*Z < 32"),
             (hall[40:41].contiguous(), "random", "one row of it"),
@@ -3486,6 +3493,12 @@ def phase_shard_kernels(torch, structure, card):
         print(f"[29 sharded] B11 {dims} ({what}): bit-equal {equal}")
         if not equal:
             _fail(f"B11 differs from its plain version: {what}")
+        cur, prev, halos = b10_inputs(kind, dims, gen)
+        check = b10_equal(cur, prev, code, halos)
+        print(f"[29 sharded] B10 {dims} ({what}): bit-equal "
+              f"{check['equal']}, into out=prev {check['equal_out_prev']}")
+        if not (check["equal"] and check["equal_out_prev"]):
+            _fail(f"B10 differs from its plain version: {what}")
 
     dims = (xl, Y, Z)
     code = hall
@@ -3508,20 +3521,33 @@ def phase_shard_kernels(torch, structure, card):
               f"device ({k_host:.2f} us a call on the host), plain version "
               f"{p_us:.2f} us, bound {1e3 * bounds[name][0]:.2f} us by "
               f"{bounds[name][1]} [{card}]")
-    occ = sk.shard_bwd_occupancy(dims=dims)
-    share = float(bare_warps(code).float().mean())
-    print(f"[29 sharded] B11: {share:.4f} of its warps on the hall's shard "
-          f"code take the bare path; {occ['registers']} registers, "
-          f"{occ['local_bytes']} B local, {occ['ctas_per_sm']} CTAs of "
-          f"{occ['threads']} an SM, {occ['grid']} CTAs a launch [{card}]")
+    occ = {"b10": sk.shard_fwd_occupancy(dims=dims),
+           "b11": sk.shard_bwd_occupancy(dims=dims)}
+    share = {"b10": float(forward_bare_warps(
+                 code, occ["b10"]["threads"]).float().mean()),
+             "b11": float(bare_warps(code).float().mean())}
+    for name in ("b10", "b11"):
+        o = occ[name]
+        print(f"[29 sharded] {name.upper()}: {share[name]:.4f} of its warps "
+              f"on the hall's shard code take the bare path; "
+              f"{o['registers']} registers, {o['local_bytes']} B local, "
+              f"{o['ctas_per_sm']} CTAs of {o['threads']} an SM, "
+              f"{o['grid']} CTAs a launch; {times[name][0]:.2f} us = "
+              f"{times[name][0] / (1e3 * bounds[name][0]):.3f} x its bound "
+              f"[{card}]")
+        if o["local_bytes"]:
+            _fail(f"{name.upper()} spills to local memory")
     print(json.dumps({"phase": "29 sharded kernels", "shape": list(dims),
                       "max_abs_err": {"b10": worst[0], "b11": worst[1]},
                       "ms": {k: v[0] / 1e3 for k, v in times.items()},
                       "plain_ms": {k: v[1] / 1e3 for k, v in times.items()},
                       "bound_ms": {k: v[0] for k, v in bounds.items()},
-                      "b11_bare_warp_share": share,
-                      "b11_occupancy": occ}))
-    return worst, times, bounds, {**occ, "bare_warp_share": share}
+                      "time_over_bound": {
+                          k: times[k][0] / (1e3 * bounds[k][0])
+                          for k in times},
+                      "bare_warp_share": share, "occupancy": occ}))
+    return worst, times, bounds, {k: {**occ[k], "bare_warp_share": share[k]}
+                                  for k in occ}
 
 
 def phase_general_sharded(torch, mesh, card):
@@ -3837,6 +3863,8 @@ def phase_box_sharded(torch, card):
     mid_z = (spec.ilo[2] + spec.ihi[2]) // 2
     g_src = tuple(desc.position(np.array([xb - 1, spec.ilo[1] + 3, mid_z])))
     g_rcv = tuple(desc.position(np.array([xb, spec.ilo[1] + 5, mid_z])))
+    f64_state = _box_sharded_f64_state(torch, devmesh, mesh, g_src, g_rcv,
+                                       card)
     source, receiver, n, _ = wgrun.canonical_problem(
         mesh, g_src, g_rcv, _hall_sim_time(mesh, 16))
     receiver = _tap_receiver(receiver)
@@ -3875,9 +3903,52 @@ def phase_box_sharded(torch, card):
               "rel_err_vs_single": err / peak, "grad_rel_err": rel,
               "peak_memory_bytes": peak_mem,
               "launches": counts, "grad_launches": grad_counts,
-              "b5_shard": b5_shard}
+              "f64_state": f64_state, "b5_shard": b5_shard}
     print(json.dumps({"phase": "33 box sharded", **result}))
     return result
+
+
+def _box_sharded_f64_state(torch, devmesh, mesh, src, rcv, card):
+    """``run_waveguide_box_sharded(…, state_dtype=torch.float64)``: the
+    boundary filters' state in float64 on 4 shards, 32 steps from a source
+    3 nodes from a wall, against the single-device fused run with the same
+    state dtype, at the sharded shoebox's bound."""
+    from wayverb_tpu_torch.parallel import box_sharded as bsh
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    spec = mesh.box_spec
+    source, receiver, n, _ = wgrun.canonical_problem(
+        mesh, src, rcv, _hall_sim_time(mesh, F64_STATE_STEPS))
+    _reset_grad_counts()
+    t0 = time.perf_counter()
+    out = bsh.run_waveguide_box_sharded(devmesh, mesh.structure, spec,
+                                        source, receiver, n,
+                                        state_dtype=torch.float64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _grad_counts()
+    ref = wgrun.run_waveguide_box(mesh.structure, spec, source, receiver, n,
+                                  kernel_inject=False,
+                                  state_dtype=torch.float64)
+    (ia, pa), (ib, pb) = out["outputs"], ref["outputs"]
+    peak = float(pb.abs().max())
+    err = float((pa - pb).abs().max())
+    ierr, ipeak = float((ia - ib).abs().max()), float(ib.abs().max())
+    print(f"[33 box sharded] state_dtype=float64, {n} steps from 3 nodes off "
+          f"the low y wall: stable {bool(out['stable'])}, fields "
+          f"{pa.dtype}, launches {counts}; against the single-device fused "
+          f"run with float64 state: max |Δp| {err:.3e} = "
+          f"{err / peak:.3e} of peak, intensity {ierr / ipeak:.3e} of peak "
+          f"(bound {BOX_SHARDED_REL:g}); {1e3 * wall / n:.3f} ms/step "
+          f"[{card}]")
+    if not (bool(out["stable"]) and bool(ref["stable"]) and peak > 0
+            and ipeak > 0 and pa.dtype == torch.float32
+            and err <= BOX_SHARDED_REL * peak
+            and ierr <= BOX_SHARDED_REL * ipeak
+            and counts["box_fused_step"] == SHARDS * n):
+        _fail("the sharded shoebox with float64 state failed its checks")
+    return {"steps": n, "rel_err_vs_single": err / peak,
+            "intensity_rel_err": ierr / ipeak,
+            "wall_ms_per_step": 1e3 * wall / n, "launches": counts}
 
 
 def _b5_shard_time(torch, spec, card):
@@ -5277,7 +5348,7 @@ def main():
     with _phase_wall("29 sharded"):
         sharded_engine, sharded_setup = _sharded_columns_engine(torch, card)
         shard_mesh = sharded_engine.mesh
-        shard_errs, shard_times, shard_bounds, b11_occ = phase_shard_kernels(
+        shard_errs, shard_times, shard_bounds, shard_occ = phase_shard_kernels(
             torch, shard_mesh.structure, card)
     with _phase_wall("30 sharded general"):
         sharded_general = phase_general_sharded(torch, shard_mesh, card)
@@ -5526,11 +5597,23 @@ def main():
     } for name, key, line, err, on, extra in (
         ("mesh_weighted_step_haloed", "b10", 366, shard_errs[0],
          f"Engine(device_mesh={SHARDS} x cuda:0).run on the columns hall",
-         {}),
+         {**{k: shard_occ["b10"][k] for k in ("registers", "local_bytes",
+                                              "ctas_per_sm",
+                                              "bare_warp_share")},
+          "us": shard_times["b10"][0],
+          "bound_us": 1e3 * shard_bounds["b10"][0],
+          "time_over_bound": shard_times["b10"][0]
+          / (1e3 * shard_bounds["b10"][0]),
+          "profiled_us_per_launch": (
+              sharded_general["profile"]["b10_us_per_step"] / SHARDS
+              if sharded_general["profile"]
+              and sharded_general["profile"]["b10_us_per_step"] is not None
+              else None)}),
         ("mesh_weighted_step_haloed_bwd", "b11", 396, shard_errs[1],
          "the columns hall's 32-step gradient on 4 shards",
-         {**{k: b11_occ[k] for k in ("registers", "local_bytes",
-                                     "ctas_per_sm", "bare_warp_share")},
+         {**{k: shard_occ["b11"][k] for k in ("registers", "local_bytes",
+                                              "ctas_per_sm",
+                                              "bare_warp_share")},
           "backward_device_ms": (sharded_grad["b11_device_us"] / 1e3
                                  if sharded_grad["b11_device_us"]
                                  is not None else None)}))), {

@@ -136,10 +136,10 @@ def _kernel_case(dims, seed):
 def test_launch_geometries_refuse_what_their_kernels_cannot_cover():
     """Each family of mesh kernels refuses, before it builds or launches
     anything, the grids its own launch cannot cover: ``mesh_stencil.cuh``'s
-    (⌈Z/128⌉, ⌈Y/2⌉, X) (B8, B10, B12) and ``mesh_adjoint.cuh``'s
-    (⌈Y·Z/CTA⌉, ⌈X/walk⌉) with 32-bit node indices (B9, B11)."""
+    (⌈Z/128⌉, ⌈Y/2⌉, X) (B8, B12) and the x-walk's (⌈Y·Z/CTA⌉, ⌈X/walk⌉)
+    with 32-bit node indices (B9, B11, and B10 since it walks x)."""
     assert tsk._stencil_geometry(343, 139, 259) is None
-    for walk in (tsk.BWD_WALK, tsk.SHARD_BWD_WALK):
+    for walk in (tsk.BWD_WALK, tsk.SHARD_BWD_WALK, tsk.SHARD_FWD_WALK):
         adjoint = tsk._adjoint_geometry(walk)
         assert adjoint(343, 139, 259) is None
         # x rows: one CTA row each, or one a walk
@@ -161,6 +161,24 @@ def test_launch_geometries_refuse_what_their_kernels_cannot_cover():
         tsk._launch("weighted_step_bwd", "mesh_weighted_step_bwd",
                     "wv_mesh_weighted_step_bwd_f32",
                     (g[:0], code[:0], g[:0]), adjoint)
+    # B10: a walk of SHARD_FWD_WALK rows takes X = 65,536 with a small (Y, Z)
+    # and refuses 2^31 nodes and ⌈X/walk⌉ > 65,535
+    shard = tsk._adjoint_geometry(tsk.SHARD_FWD_WALK)
+    assert tsk.SHARD_FWD_WALK >= 2
+    assert shard(65536, 3, 5) is None
+    assert shard(86, 139, 259) is None
+    assert shard(65535 * tsk.SHARD_FWD_WALK + 1, 3, 5) is not None
+    assert "32-bit" in shard(*big)
+    halo = torch.empty((1, *big[1:]), device="meta")
+    for dims, match in ((big, "32-bit"), ((65535 * tsk.SHARD_FWD_WALK + 1,
+                                           1, 1), "launch geometry")):
+        f = torch.empty(dims, device="meta")
+        c = torch.empty(dims, dtype=torch.int32, device="meta")
+        h = halo[:, :dims[1], :dims[2]]
+        with pytest.raises(ValueError, match=match):
+            tsk._launch("weighted_step_sharded", "mesh_weighted_step_haloed",
+                        "wv_mesh_weighted_step_haloed_f32",
+                        (f, f, c, h, h, f), shard)
 
 
 @pytest.mark.parametrize("dims,against", [

@@ -1124,13 +1124,12 @@ def _shard_case(dims, device, seed):
     return cur, prev, code, halos
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dims", SHARD_DIMS)
-def test_weighted_step_sharded_kernel_matches_plain(cuda_device, dims):
-    """B10 with random non-zero halos, one and two rows among the shapes;
-    to the bit, as the plain version sums in the kernel's order."""
+def _b10_bit_equal(cur, prev, code, halos):
+    """B10 against its plain version, to the bit (``bits_equal``: NaN for
+    NaN, −0 apart from +0), into a fresh output and into ``out=prev`` (a
+    copy of prev, as the sharded time loop passes it), one launch each."""
+    from wayverb_tpu_torch.tools.mesh_timing import bits_equal
     from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
-    cur, prev, code, halos = _shard_case(dims, cuda_device, 4)
     before = tsk.weighted_step_sharded.launches
     got = tsk.weighted_step_sharded(cur, prev, code, halos)
     assert tsk.weighted_step_sharded.launches == before + 1
@@ -1138,8 +1137,18 @@ def test_weighted_step_sharded_kernel_matches_plain(cuda_device, dims):
     buf = prev.clone()
     assert tsk.weighted_step_sharded(cur, buf, code, halos, out=buf) is buf
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= ATOL
-    assert float((buf - want).abs().max()) <= ATOL
+    assert bits_equal(got, want)
+    assert bits_equal(buf, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", SHARD_DIMS)
+def test_weighted_step_sharded_kernel_matches_plain(cuda_device, dims):
+    """B10 with random non-zero halos, one and two rows among the shapes;
+    to the bit, as the plain version sums in the kernel's order, into a
+    fresh output and into ``out=prev``."""
+    cur, prev, code, halos = _shard_case(dims, cuda_device, 4)
+    _b10_bit_equal(cur, prev, code, halos)
 
 
 def _b11_bit_equal(g, code):
@@ -1251,6 +1260,74 @@ def test_weighted_step_sharded_bwd_follows_a_changed_code(
     after = bare_warps(code)
     assert not after[x1, s1] and not after[x2, s2]
     _b11_bit_equal(g, code)
+
+
+B10_CASES = [("columns shard", None), ("1e38 inf nan", None),
+             ("all -0", None), ("Y*Z < 32", (slice(0, 4), slice(10, 13),
+                                             slice(30, 35))),
+             ("one row", (slice(5, 6),)), ("two rows", (slice(5, 7),)),
+             ("weights 2 and 0 in bare warps", None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,cut", B10_CASES, ids=[c for c, _ in B10_CASES])
+def test_weighted_step_sharded_kernel_cases(cuda_device, columns_shard_code,
+                                            case, cut):
+    """B10 to the bit on a shard of a real mesh's weight code, where bare
+    warps meet walls and columns: random inputs, cur, prev and halos at
+    1e38 with ±inf and NaN, all −0, and slices of the shard (Y·Z < 32, one
+    and two rows); and the shard's code with one node of a bare warp given
+    a weight of 2 and one of another bare warp a weight of 0 towards a
+    cur of inf, so both warps decode and the second gives the plain
+    version's 0 · inf = NaN."""
+    from wayverb_tpu_torch.tools.mesh_timing import b10_inputs
+    from wayverb_tpu_torch.tools.mesh_timing import \
+        forward_bare_warps as bare
+    code = columns_shard_code.clone()
+    if cut is not None:
+        code = code[cut].contiguous()
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    kind = case if case in ("1e38 inf nan", "all -0") else "random"
+    cur, prev, halos = b10_inputs(kind, tuple(code.shape), gen)
+    if case == "columns shard":
+        assert 0 < int(bare(code, 32).sum()) < bare(code, 32).numel()
+    if case.startswith("weights"):
+        Y, Z = code.shape[1:]
+        marked = bare(code, 32).nonzero()
+        assert len(marked) > 2
+        (x1, s1), (x2, s2) = (marked[len(marked) // 3],
+                              marked[2 * len(marked) // 3])
+        # node p1 of warp (x1, s1) weighs its +x neighbour 2; node p2 of
+        # warp (x2, s2) weighs its +y neighbour 0, and that neighbour is inf
+        p1, p2 = 32 * int(s1) + 5, 32 * int(s2) + 17
+        code[int(x1), p1 // Z, p1 % Z] |= 1 << 7
+        code[int(x2), p2 // Z, p2 % Z] &= ~((1 << 3) | (1 << 9))
+        cur[int(x2), p2 // Z + 1, p2 % Z] = float("inf")
+        after = bare(code, 32)
+        assert not after[x1, s1] and not after[x2, s2]
+        assert int(after.sum()) == len(marked) - 2
+    _b10_bit_equal(cur, prev, code, halos)
+    if case.startswith("weights"):
+        from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+        out = tsk.weighted_step_sharded(cur, prev, code, halos)
+        assert bool(torch.isnan(out[int(x2), p2 // Z, p2 % Z]))
+
+
+@pytest.mark.cuda
+def test_weighted_step_sharded_occupancy(cuda_device):
+    """What the card makes of B10: no local memory, at most 32 registers
+    (its launch bounds: 2,048 threads an SM; 31 registers and 16 CTAs of
+    128 an SM on an H100), and CTAs of (y, z) nodes each walking
+    ``SHARD_FWD_WALK`` x rows (the wrapper's launch check) cover the
+    columns hall's shard."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as tsk
+    dims = (86, 139, 259)
+    occ = tsk.shard_fwd_occupancy(cuda_device, dims)
+    assert occ["local_bytes"] == 0, occ
+    assert 0 < occ["registers"] <= 32, occ
+    assert occ["ctas_per_sm"] * occ["threads"] >= 2048, occ
+    assert occ["grid"] == -(-139 * 259 // occ["threads"]) \
+        * -(-86 // tsk.SHARD_FWD_WALK), occ
 
 
 @pytest.fixture(scope="module")

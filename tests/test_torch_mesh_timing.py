@@ -71,10 +71,11 @@ def test_arguments_and_the_card():
     assert mt.parse_args([]).kernel == "b11"
     assert mt.parse_args(["--kernel", "b11"]).kernel == "b11"
     assert mt.parse_args(["--kernel", "b9"]).kernel == "b9"
+    assert mt.parse_args(["--kernel", "b10"]).kernel == "b10"
     with pytest.raises(SystemExit):
         mt.parse_args(["--kernel", "b8"])
     with mock.patch.object(torch.cuda, "is_available", return_value=False):
-        for kernel in ("b9", "b11"):
+        for kernel in ("b9", "b10", "b11"):
             with pytest.raises(SystemExit, match="CUDA"):
                 mt.main(["--kernel", kernel])
 
@@ -122,3 +123,47 @@ def test_bare_warps_on_a_block():
     for changed in (0x103F | 1 << 7, 0x103F & ~(1 << 3)):
         big[1, 1, 45] = changed
         assert torch.equal(mt.bare_warps(big), want)
+
+
+def test_b10_equal_on_the_cpu_takes_the_plain_version():
+    """``b10_equal`` compares the wrapper with the plain version, into a
+    fresh output and into ``out=prev``; on CPU tensors both are the plain
+    version.  ``b10_inputs`` makes cur, prev and the two halo rows."""
+    gen = torch.Generator().manual_seed(6)
+    code = torch.full((3, 5, 40), 0x103F, dtype=torch.int32)
+    for what in ("random", "1e38 inf nan", "all -0"):
+        cur, prev, halos = mt.b10_inputs(what, (3, 5, 40), gen)
+        assert cur.shape == prev.shape == (3, 5, 40)
+        assert [h.shape for h in halos] == [(1, 5, 40)] * 2
+        with mock.patch.object(torch.cuda, "synchronize"):
+            out = mt.b10_equal(cur, prev, code, halos)
+        assert out == {"equal": True, "equal_out_prev": True,
+                       "max_abs_err": 0.0}, what
+
+
+def test_forward_bare_warps_on_a_hand_made_code():
+    """B10's warp rule: 32 consecutive nodes of a row of the flattened
+    (y, z) plane, bare where each node's own code is 0x103F (six weights
+    of 1 and bit 12), whatever its neighbours' codes.  In (3, 4, 40) the
+    plane has 160 nodes: warps 0–4 bare in every row; CTAs of 128 launch
+    two CTAs a row, eight warps, of which the last three hold no node and
+    are not bare.  One node of weight 2 or 0, or without bit 12, spoils
+    its own warp only; a plane's last partial warp is not bare."""
+    code = torch.full((3, 4, 40), 0x103F, dtype=torch.int32)
+    want = torch.zeros((3, 8), dtype=torch.bool)
+    want[:, :5] = True
+    assert torch.equal(mt.forward_bare_warps(code, 128), want)
+    assert torch.equal(mt.forward_bare_warps(code, 32), want[:, :5])
+    # node (1, 2, 7) is p = 87, lane 23 of warp 2
+    for changed in (0x103F | 1 << 7, 0x103F & ~(1 << 3), 0x3F):
+        c = code.clone()
+        c[1, 2, 7] = changed
+        w = want.clone()
+        w[1, 2] = False
+        assert torch.equal(mt.forward_bare_warps(c, 128), w), changed
+    # a plane of 5 x 9 = 45 nodes: warp 1 holds 13 and is not bare
+    part = torch.full((2, 5, 9), 0x103F, dtype=torch.int32)
+    assert torch.equal(mt.forward_bare_warps(part, 64),
+                       torch.tensor([[True, False]] * 2))
+    with pytest.raises(ValueError, match="warps"):
+        mt.forward_bare_warps(part, 48)

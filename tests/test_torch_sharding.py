@@ -15,6 +15,11 @@ into FMAs inside a jitted scan, eager torch does not).
 """
 
 import dataclasses
+import functools
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +63,7 @@ BOX = ((0.0, 0.0, 0.0), (2.0, 2.5, 3.0))
 ENV = Environment()
 CALIBRATION = rectilinear_calibration_factor(DX, 400.0)
 CROSS_REL = 2e-5
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _close_to_reference(got, want):
@@ -314,6 +320,105 @@ def test_box_sharded_gradient_matches_single(aligned):
     assert float(np.abs(want).max()) > 0
     np.testing.assert_allclose(g_sh, g_si, rtol=1e-4, atol=1e-9)
     np.testing.assert_allclose(g_sh, want, rtol=1e-4, atol=1e-9)
+
+
+# The reference's sharded run with its boundary-filter state in float64:
+# the reference needs x64, a process-wide switch, so the run is made in a
+# child process (as tests/test_torch_fit_tools.py does).  The child builds
+# the ``aligned`` mesh with x64 off, as the port's is built, then switches
+# it on for the run.
+F64_SHARDED_CHILD = """
+import json, sys
+import jax
+import numpy as np
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+from wayverb_tpu.core import geometry as jgeo
+from wayverb_tpu.parallel import box_sharded as jbs
+from wayverb_tpu.parallel import sharding as jps
+from wayverb_tpu.waveguide import run as j_run
+from wayverb_tpu.waveguide.receivers import NodeReceiver
+from wayverb_tpu.waveguide.sources import HardSource
+a = json.loads(sys.argv[1])
+box = jgeo.Box(*a["box"])
+mesh = j_run.compute_mesh(jgeo.box_scene(box), np.full((1, 8), 0.1),
+                          a["dx"], a["fs"], scene_box=box, align=(8, 1, 1))
+sig = np.zeros(a["steps"], np.float32)
+sig[0] = a["amplitude"]
+source = HardSource(node_idx=jnp.asarray(a["src"]), signal=jnp.asarray(sig))
+receiver = NodeReceiver(node_idx=jnp.asarray(a["rcv"]))
+jax.config.update("jax_enable_x64", True)
+out = jbs.run_waveguide_box_sharded(
+    jps.make_device_mesh(a["shards"]), mesh.structure, mesh.box_spec, source,
+    receiver, a["steps"], state_dtype=jnp.float64)
+print(json.dumps({"dims": list(mesh.box_spec.dims),
+                  "stable": bool(out["stable"]),
+                  "outputs": np.asarray(out["outputs"]).tolist()}))
+"""
+
+
+@pytest.fixture(scope="module")
+def f64_state_runs(aligned, box_node_runs):
+    """The node problem of ``box_node_runs`` with the boundary-filter state
+    in float64: the port's single-device fused run, and its sharded runs by
+    shard count, made once."""
+    _, tm = aligned
+    (source, receiver), _, _ = box_node_runs
+    single = t_run.run_waveguide_box(
+        tm.structure, tm.box_spec, source, receiver, 120, kernel_inject=False,
+        state_dtype=torch.float64)
+
+    @functools.cache
+    def sharded(n):
+        return tbs.run_waveguide_box_sharded(
+            cpu_mesh(n), tm.structure, tm.box_spec, source, receiver, 120,
+            state_dtype=torch.float64)
+
+    return single, sharded
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_box_sharded_state_dtype_matches_single(box_node_runs,
+                                                 f64_state_runs, n):
+    """``state_dtype=torch.float64`` on 2 and 4 shards against the port's
+    single-device fused run with the same state dtype, at the sharded
+    runs' 1e-5 of peak; the fields stay float32, and the float64 state
+    changes the outputs' bits against the float32-state run."""
+    _, _, single_f32 = box_node_runs
+    single, sharded = f64_state_runs
+    out = sharded(n)
+    want = single["outputs"]
+    peak = float(want.abs().max())
+    assert bool(out["stable"]) and bool(single["stable"]) and peak > 0
+    assert out["outputs"].dtype == torch.float32
+    np.testing.assert_allclose(out["outputs"].numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * peak)
+    assert not torch.equal(out["outputs"], single_f32)
+
+
+def test_box_sharded_state_dtype_matches_reference(aligned, f64_state_runs):
+    """The port's 4-shard run with ``state_dtype=torch.float64`` against
+    the reference's with ``state_dtype=jnp.float64`` (x64 on, in a child
+    process), within 2e-5 of peak (``_close_to_reference``)."""
+    jm, _ = aligned
+    desc = jm.descriptor
+    args = {"box": BOX, "dx": float(DX), "fs": FS, "steps": 120,
+            "amplitude": float(CALIBRATION), "shards": 4,
+            "src": int(desc.flat_index(jm.require_inside((1.0, 1.2, 1.5)))),
+            "rcv": int(desc.flat_index(jm.require_inside((0.4, 1.9, 2.3))))}
+    proc = subprocess.run(
+        [sys.executable, "-c", F64_SHARDED_CHILD, json.dumps(args)],
+        cwd=ROOT, env=dict(os.environ, JAX_PLATFORMS="cpu",
+                           XLA_FLAGS="--xla_force_host_platform_device_count"
+                                     "=8 --xla_cpu_max_isa=AVX"),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    want = json.loads(proc.stdout.splitlines()[-1])
+    assert want["dims"] == list(jm.box_spec.dims) and want["stable"]
+    out = f64_state_runs[1](4)
+    assert bool(out["stable"])
+    _close_to_reference(out["outputs"], np.asarray(want["outputs"],
+                                                   np.float32))
 
 
 def test_box_sharded_midrun_nan_flagged(aligned):

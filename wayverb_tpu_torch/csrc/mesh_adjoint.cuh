@@ -1,6 +1,8 @@
 // Device code of the general mesh's adjoint in `cur`, by threads walking x:
 // the shard adjoint mesh_weighted_step_haloed_bwd.cu calls it with halo
-// outputs, the unsharded adjoint mesh_weighted_step_bwd.cu without.
+// outputs, the unsharded adjoint mesh_weighted_step_bwd.cu without.  The
+// shard step's forward walk (mesh_step_walk.cuh) takes FastDiv and the
+// launch (adjoint_grid) from here.
 //
 //   gcur[n] = lambda^2 * sum_dd w_opp(dd)(n + e_dd) * g[n + e_dd]
 //

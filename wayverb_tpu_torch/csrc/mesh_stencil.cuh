@@ -1,6 +1,6 @@
 // Shared device code of the general-mesh stencil kernels
-// (mesh_weighted_step.cu, mesh_weighted_step_haloed.cu,
-// mesh_interior_step.cu; the adjoints take mesh_weight from here).
+// (mesh_weighted_step.cu, mesh_interior_step.cu; the x-walks of
+// mesh_adjoint.cuh and mesh_step_walk.cuh take mesh_weight from here).
 //
 // One thread computes one node of an (X, Y, Z) grid, z fastest: threadIdx.x
 // runs along z, the contiguous axis, so a warp's loads and stores coalesce

@@ -431,10 +431,14 @@ class _BoxShard:
 
 def run_waveguide_box_sharded(device_mesh: DeviceMesh, structure, spec,
                               source, receiver, num_steps: int,
-                              dtype=torch.float32) -> dict:
+                              dtype=torch.float32, state_dtype=None) -> dict:
     """Sharded equivalent of ``run.run_waveguide_box(kernel_inject=False)``
     (same outputs contract): the source is injected into the field before
     each step, so the run differentiates with respect to everything.
+
+    ``state_dtype``: the dtype of the shards' boundary-filter state (the x
+    and y/z plane states), as ``run_waveguide_box``'s; the fields stay in
+    ``dtype``.  None keeps the state in ``dtype``.
 
     ``device_mesh``: a ``DeviceMesh``; the grid's x axis divides over it
     (``spec.dims[0] % n == 0``: build the mesh with ``compute_mesh(…,
@@ -452,6 +456,7 @@ def run_waveguide_box_sharded(device_mesh: DeviceMesh, structure, spec,
     if X % n:
         raise ValueError(f"grid x dim {X} not divisible by {n} shards")
     xl = X // n
+    sdtype = state_dtype if state_dtype is not None else dtype
     order = structure.filter_order
     Vmax = max(Y, Z)
     grad = requires_grad(structure, source, receiver)
@@ -516,19 +521,20 @@ def run_waveguide_box_sharded(device_mesh: DeviceMesh, structure, spec,
                           & torch.isfinite(torch.sum(pyz_new)))
             pl_x, pl_yz = bstates[s][0], bstates[s][1]
             b_all.append((px_new, pyz_new, in_yz_next, pl_x, pl_yz,
-                          stx_new, styz_new))
+                          stx_new.to(sdtype), styz_new.to(sdtype)))
             nxt_all.append(nxt)
         return (nxt_all, cur, b_all, rstate, ok_all), outputs
 
-    def zeros(dev, *shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(dev, *shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
 
     local_devices = [devices[s] for s in comm.local]
     init = ([zeros(d, xl, Y, Z) for d in local_devices],
             [zeros(d, xl, Y, Z) for d in local_devices],
             [(zeros(d, 2, Y, Z), zeros(d, 4, xl, Vmax), zeros(d, 4, xl, Vmax),
               zeros(d, 2, Y, Z), zeros(d, 4, xl, Vmax),
-              zeros(d, order, 2, Y, Z), zeros(d, order, 4, xl, Vmax))
+              zeros(d, order, 2, Y, Z, dt=sdtype),
+              zeros(d, order, 4, xl, Vmax, dt=sdtype))
              for d in local_devices],
             receiver.init_state(dtype, view.device),
             [torch.ones((), dtype=torch.bool, device=d)

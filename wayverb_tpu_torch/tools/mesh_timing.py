@@ -1,9 +1,11 @@
-"""Time the general mesh's adjoint kernels on the columns hall's own weight
-code: with ``--kernel b9`` the adjoint B9 at the whole hall, with
-``--kernel b11`` the shard adjoint B11 at a shard of it.
+"""Time the general mesh's kernels on x-walks on the columns hall's own
+weight code: with ``--kernel b9`` the adjoint B9 at the whole hall, with
+``--kernel b11`` the shard adjoint B11 and with ``--kernel b10`` the shard
+step B10 at a shard of it.
 
     python -m wayverb_tpu_torch.tools.mesh_timing --kernel b9
     python -m wayverb_tpu_torch.tools.mesh_timing --kernel b11
+    python -m wayverb_tpu_torch.tools.mesh_timing --kernel b10
 
 On the card, at the columns hall (``procedural_hall(2, 4, 1)`` meshed at
 the engine's rate for a 1500 Hz cutoff, as ``chip_smoke.py`` phase 19
@@ -39,6 +41,25 @@ aligned to 4, as ``Engine(device_mesh=…)`` meshes it: a shard of (86, 139,
 * times B11 with the stream held (``mega_timing.device_time_us``), beside
   the wrapper's host µs a call, the plain version's µs, B10 (the shard's
   forward) at the same shape, and both bounds (``tools/roofline.py``).
+
+At the same shard, ``--kernel b10``:
+
+* builds ``csrc/mesh_weighted_step_haloed.cu`` and prints ptxas's
+  registers, stack and spills, and ``stencil_kernels.shard_fwd_occupancy``
+  (None on a tree that lacks it);
+* counts the share of the kernel's warps that take its bare path on the
+  shard's code (``forward_bare_warps``: a warp whose 32 nodes have all six
+  weights exactly 1 and the interior bit);
+* holds B10 to the bit against ``_weighted_step_sharded_plain``, into a
+  fresh output and into ``out=prev``, on the shard's code (random inputs,
+  inputs at 1e38 with ±inf and NaN, all −0, a slice of Y·Z < 32, one and
+  two rows) and on a random code;
+* times B10 with the stream held, beside the wrapper's host µs a call, the
+  plain version's µs, the bound and time / bound (``shard_bounds``); and
+  a launch on each of the four shards in turn, each with its own fields
+  and code, as a step of the sharded run launches it (the four shards'
+  fields, ≈ 200 MB, do not stay in the 50 MB L2 from one launch to the
+  next).
 
 One JSON line, after the card's name and power limit.  Without a card it
 fails.
@@ -157,6 +178,46 @@ def bare_warps(code):
     return flat.reshape(X, warps, 32).all(-1)
 
 
+def forward_bare_warps(code, threads: int):
+    """Which warps of B10 take its bare path: (X, warps) bool, warp s of
+    row x holding the nodes p = 32·s … 32·s + 31 of the flattened (y, z)
+    plane, over the ⌈Y·Z/threads⌉ CTAs of ``threads`` a row the kernel
+    launches (``csrc/mesh_step_walk.cuh``); true where all 32 exist and
+    each node's own code has all six weights exactly 1 and bit 12 set.
+    Those warps sum without decoding."""
+    if threads % 32:
+        raise ValueError(f"forward_bare_warps: {threads} threads is not a "
+                         "whole number of warps")
+    X, Y, Z = code.shape
+    node = (code & 0x1FFF) == 0x103F
+    lanes = -(-Y * Z // threads) * threads
+    flat = torch.zeros((X, lanes), dtype=torch.bool, device=code.device)
+    flat[:, :Y * Z] = node.reshape(X, Y * Z)
+    return flat.reshape(X, lanes // 32, 32).all(-1)
+
+
+def b10_inputs(what: str, dims, gen):
+    """(cur, prev, (hlo, hhi)) of a B10 case, each made by ``case_g``."""
+    halo = (1, *dims[1:])
+    return (case_g(what, dims, gen), case_g(what, dims, gen),
+            (case_g(what, halo, gen), case_g(what, halo, gen)))
+
+
+def b10_equal(cur, prev, code, halos) -> dict:
+    """B10 and its plain version on (cur, prev, code, halos), into a fresh
+    output and into ``out=prev`` (a copy): bit-equality of both and the
+    largest |kernel − plain|."""
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    want = sk._weighted_step_sharded_plain(cur, prev, code, halos)
+    got = sk.weighted_step_sharded(cur, prev, code, halos)
+    buf = prev.clone()
+    sk.weighted_step_sharded(cur, buf, code, halos, out=buf)
+    torch.cuda.synchronize()
+    return {"equal": bits_equal(got, want), "equal_out_prev":
+            bits_equal(buf, want),
+            "max_abs_err": float((got - want).abs().nan_to_num().max())}
+
+
 def b9_equal(g, code) -> dict:
     """B9 and its plain version on (g, code): bit-equality and the largest
     |kernel − plain|."""
@@ -229,6 +290,70 @@ def main_b11() -> dict:
     return row
 
 
+def main_b10() -> dict:
+    """The ``--kernel b10`` mode: one JSON line."""
+    from wayverb_tpu_torch.tools.mega_timing import (device_time_us,
+                                                     ptxas_lines)
+    from wayverb_tpu_torch.waveguide import stencil_kernels as sk
+    t0 = time.perf_counter()
+    ptxas = ptxas_lines("mesh_weighted_step_haloed")
+    full = columns_code(align=(SHARDS, 1, 1))
+    xl = full.shape[0] // SHARDS
+    shards = [full[s * xl:(s + 1) * xl].contiguous() for s in range(SHARDS)]
+    code = shards[1]
+    dims = tuple(code.shape)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    random_code = torch.randint(0, 1 << 13, dims, generator=gen,
+                                device="cuda", dtype=torch.int32)
+    cases = {f"hall, {what}": (code, what)
+             for what in ("random", "1e38 inf nan", "all -0")}
+    cases.update({
+        "hall, Y*Z < 32": (code[:4, 60:63, 100:105].contiguous(), "random"),
+        "hall, one row": (code[40:41].contiguous(), "random"),
+        "hall, two rows": (code[40:42].contiguous(), "random"),
+        "random code": (random_code, "random")})
+    checks = {}
+    for name, (c, what) in cases.items():
+        cur, prev, halos = b10_inputs(what, tuple(c.shape), gen)
+        checks[name] = b10_equal(cur, prev, c, halos)
+    cur, prev, halos = b10_inputs("random", dims, gen)
+    out = torch.empty_like(cur)
+    us, host_us = device_time_us(lambda: sk.weighted_step_sharded(
+        cur, prev, code, halos, out=out), REPS)
+    plain_us, _ = device_time_us(
+        lambda: sk._weighted_step_sharded_plain(cur, prev, code, halos), 20)
+    steps = [(*b10_inputs("random", dims, gen), c, torch.empty_like(cur))
+             for c in shards]
+
+    def step():
+        for c_, p_, h_, k_, o_ in steps:
+            sk.weighted_step_sharded(c_, p_, k_, h_, out=o_)
+
+    step_us, _ = device_time_us(step, REPS // SHARDS)
+    bounds = shard_bounds(dims)
+    # trees before the redesign (a parent checked beside it) have no
+    # occupancy query
+    occ = (sk.shard_fwd_occupancy(dims=dims)
+           if hasattr(sk, "shard_fwd_occupancy") else None)
+    threads = occ["threads"] if occ else 256
+    equal = all(c["equal"] and c["equal_out_prev"] for c in checks.values())
+    row = {"kernel": "b10", "shape": list(dims), "ptxas": ptxas,
+           "occupancy": occ,
+           "bare_warp_share": float(
+               forward_bare_warps(code, threads).float().mean()),
+           "equal_plain": equal, "checks": checks, "us_per_launch": us,
+           "us_per_launch_four_shards": step_us / SHARDS,
+           "host_us_per_call": host_us,
+           "plain_us": plain_us, "bound_us": bounds["b10"][0],
+           "bound_by": bounds["b10"][1],
+           "time_over_bound": us / bounds["b10"][0],
+           "wall_s": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    if not equal:
+        raise SystemExit("mesh_timing: B10 differs from its plain version")
+    return row
+
+
 def main_b9() -> dict:
     """The ``--kernel b9`` mode: one JSON line."""
     from wayverb_tpu_torch.tools.mega_timing import (device_time_us,
@@ -277,9 +402,10 @@ def main_b9() -> dict:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m wayverb_tpu_torch.tools.mesh_timing",
-        description="Time a general-mesh adjoint kernel on the columns "
-                    "hall's weight code: B9 at the hall, B11 at a shard.")
-    p.add_argument("--kernel", choices=("b9", "b11"), default="b11")
+        description="Time a general-mesh kernel on x-walks on the columns "
+                    "hall's weight code: B9 at the hall, B10 and B11 at a "
+                    "shard.")
+    p.add_argument("--kernel", choices=("b9", "b10", "b11"), default="b11")
     return p.parse_args(argv)
 
 
@@ -290,7 +416,7 @@ def main(argv=None):
     from wayverb_tpu_torch.tools.probe_resident import \
         card_name_and_power_limit
     print(card_name_and_power_limit(), flush=True)
-    return main_b9() if args.kernel == "b9" else main_b11()
+    return {"b9": main_b9, "b10": main_b10, "b11": main_b11}[args.kernel]()
 
 
 if __name__ == "__main__":

@@ -114,10 +114,12 @@ def _check(what: str, name: str, t, ref, dtype=torch.float32):
             f"(contiguous={t.is_contiguous()})")
 
 
-# x rows a thread walks in the adjoint kernels (kWalk of
-# csrc/mesh_weighted_step_bwd.cu and csrc/mesh_weighted_step_haloed_bwd.cu)
+# x rows a thread walks in the kernels on x-walks (kWalk of
+# csrc/mesh_weighted_step_bwd.cu, csrc/mesh_weighted_step_haloed_bwd.cu and
+# csrc/mesh_weighted_step_haloed.cu)
 BWD_WALK = 8
 SHARD_BWD_WALK = 4
+SHARD_FWD_WALK = 2
 
 
 def _stencil_geometry(X, Y, Z):
@@ -129,9 +131,10 @@ def _stencil_geometry(X, Y, Z):
 
 
 def _adjoint_geometry(walk: int):
-    """``geometry(X, Y, Z)``: why ``mesh_adjoint.cuh``'s launch, CTAs of
-    (y, z) nodes each walking ``walk`` x rows on a grid of (⌈Y·Z/CTA⌉,
-    ⌈X/walk⌉) with 32-bit node indices, cannot cover the grid, or None."""
+    """``geometry(X, Y, Z)``: why the x-walk's launch (``mesh_adjoint.cuh``'s
+    ``adjoint_grid``, B9, B10 and B11), CTAs of (y, z) nodes each walking
+    ``walk`` x rows on a grid of (⌈Y·Z/CTA⌉, ⌈X/walk⌉) with 32-bit node
+    indices, cannot cover the grid, or None."""
     def geometry(X, Y, Z):
         if X * Y * Z >= 2 ** 31:
             return "has 2^31 nodes or more; the kernel's indices are 32-bit"
@@ -358,7 +361,8 @@ def _weighted_step_sharded_forward(current, previous, weight_code, halos,
             raise ValueError(f"{what}: out must not alias a halo row")
         _launch(what, "mesh_weighted_step_haloed",
                 "wv_mesh_weighted_step_haloed_f32",
-                (current, previous, weight_code, *halos, res))
+                (current, previous, weight_code, *halos, res),
+                _adjoint_geometry(SHARD_FWD_WALK))
         weighted_step_sharded.launches += 1
         return res
     if current.device.type != "cpu":
@@ -456,6 +460,12 @@ def bwd_occupancy(device="cuda", dims=(343, 139, 259)) -> dict:
     """``_occupancy`` of the adjoint's kernel (B9) on a grid of ``dims``
     (default: the columns hall's)."""
     return _occupancy("mesh_weighted_step_bwd", device, dims)
+
+
+def shard_fwd_occupancy(device="cuda", dims=(86, 139, 259)) -> dict:
+    """``_occupancy`` of the shard step's kernel (B10) on a shard of
+    ``dims`` (default: the columns hall's shard)."""
+    return _occupancy("mesh_weighted_step_haloed", device, dims)
 
 
 def shard_bwd_occupancy(device="cuda", dims=(86, 139, 259)) -> dict:
