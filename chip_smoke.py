@@ -147,10 +147,12 @@ Drives the port through its public entry points on the card and fails
     its bound;
 34. ``sharded_trace`` on four shards: the direct energy against 8/(4πr²);
 35. the residency probe: P1 (``tools.probe_resident``, K bare leapfrog
-    sub-steps in one cooperative launch) against its plain version in both
-    modes, fields in shared memory and in device memory, at X % 8 != 0 and
-    odd (Y, Z), at tiles cut in x, y and z, at the T30 box's grid, at
-    (64, 224, 256) in 128 tiles and at (128, 224, 256) in device memory; a
+    sub-steps in one launch) against its plain version to the bit in every
+    form: on one cluster (the T30 box's grid, (12, 9, 7), K = 1 too), on a
+    cooperative grid of clusters (the worked placement (64, 224, 256) in
+    clusters of 2, even and odd K, and tiles cut in x, y and z) and in
+    device memory (above 50 MB too); its registers, local bytes, CTAs an
+    SM, cluster size and clusters resident at once in each form; a
     resident grid too large for shared memory refused before any launch;
     then the sweep of ``python -m wayverb_tpu_torch.tools.probe_resident``
     (µs a sub-step by shape, mode and K) with its launches counted;
@@ -225,7 +227,13 @@ Drives the port through its public entry points on the card and fails
     wavefront, the WAV read back) and a cancel; ``box`` again with
     ``--cpu`` from the same directions, its impulses bit-equal and its IR
     within 1e-6 of peak; each tool's seconds, launches, flags and report;
-44. one JSON line of per-kernel results (B1, B5, B10 and B11 with
+44. the forward half of the reference's ``tools/bench/mega_check.py``: a
+    directional receiver 8 nodes off a centre impulse on the hall (224,
+    224, 256), absorption 0.12, fs 3333.33 Hz, 128 steps through
+    ``run_waveguide_box`` (exactly 128 B1 launches) and
+    ``run_waveguide_box_mega(chunk=64)`` (exactly 2 B2 launches), each
+    output within 5e-4 of its peak, both routes stable;
+45. one JSON line of per-kernel results (B1, B5, B10 and B11 with
     ``distributed_launches``, each rank's; B1 and B2 with the last tools'
     ``tool_launches``), then the last line,
     ``{"ok": true, "device": {...}}``.
@@ -4011,33 +4019,41 @@ def phase_sharded_trace(torch, card):
 # ---------------------------------------------------------------------------
 # the residency probe: P1
 
-PROBE_REL = 1e-5           # P1 vs plain, per unit of peak (expected 0.0)
 PROBE_CASES = (            # (dims, K, resident, tile: None = plan_tiles')
-    ((12, 9, 7), 5, True, None), ((12, 9, 7), 5, False, None),
-    ((12, 9, 7), 6, True, (5, 4, 3)),
-    ((15, 19, 21), 7, True, None), ((15, 19, 21), 7, False, None),
-    ((64, 224, 256), 6, True, None), ((64, 224, 256), 6, False, None),
-    ((128, 224, 256), 3, False, None))
+    ((12, 9, 7), 5, True, None), ((12, 9, 7), 1, True, None),
+    ((12, 9, 7), 5, False, None), ((12, 9, 7), 6, True, (5, 4, 3)),
+    ((24, 10, 40), 3, True, (1, 5, 20)),
+    ((15, 19, 21), 7, True, None), ((15, 19, 21), 1, True, None),
+    ((15, 19, 21), 7, False, None),
+    ((64, 224, 256), 6, True, None), ((64, 224, 256), 5, True, None),
+    ((64, 224, 256), 6, False, None), ((128, 224, 256), 3, False, None))
 PROBE_LINE = ((64, 224, 256), 64)   # the kernels line's shape and K
 PROBE_STREAMED = (128, 224, 256)    # its device-memory figure, above L2
 PROBE_PLAIN_K = 8
 
 
 def phase_probe(torch, card):
-    """P1 (the residency probe's kernel) against its plain version in both
-    modes, to the bit: X % 8 != 0 with odd (Y, Z), tiles cut in x, y and z,
-    the T30 box's grid, the worked placement (64, 224, 256) and a
-    device-memory shape above 50 MB; a resident grid that cannot be placed
-    raises before any launch.  Then the sweep of
-    ``python -m wayverb_tpu_torch.tools.probe_resident`` (the probe's main
-    path, its launches counted), its scalars against each other and against
-    the plain version, and the plain version's time."""
+    """P1 (the residency probe's kernel) against its plain version to the
+    bit (max |Δ| 0.0) in every form: one cluster (the T30 box's grid,
+    (12, 9, 7)), a cooperative grid of clusters (the worked placement
+    (64, 224, 256) at even and odd K, given tiles cut in x, y and z) and
+    device memory (above 50 MB too); its occupancy in each form; a
+    resident grid that cannot be placed raises before any launch.  Then
+    the sweep of ``python -m wayverb_tpu_torch.tools.probe_resident`` (the
+    probe's main path, its launches counted), its scalars against each
+    other and against the plain version, and the plain version's time."""
     from wayverb_tpu_torch.tools import probe_resident as pr
     cap = pr.resident_capacity("cuda")
     print(f"[35 probe] {cap.sms} SMs, {cap.smem_per_cta} B of shared memory "
-          f"a CTA (opt-in), L2 {cap.l2_bytes} B [{card}]", flush=True)
+          f"a CTA (opt-in), L2 {cap.l2_bytes} B, clusters of 2..16 resident "
+          f"at once {dict(cap.clusters)} [{card}]", flush=True)
+    occ = {"resident": pr.occupancy(PROBE_LINE[0], True),
+           "one_cluster": pr.occupancy(pr.T30_DIMS, True),
+           "device_memory": pr.occupancy(PROBE_STREAMED, False)}
+    for form, o in occ.items():
+        print(f"[35 probe] occupancy, {form}: {json.dumps(o)}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
-    err_abs = err_rel = 0.0
+    err_abs = 0.0
     for dims, K, resident, tile in PROBE_CASES:
         cur = torch.randn(dims, generator=gen, device="cuda")
         prev = torch.randn(dims, generator=gen, device="cuda")
@@ -4045,17 +4061,17 @@ def phase_probe(torch, card):
         want = pr.chunk_plain(cur, prev, K)
         torch.cuda.synchronize()
         e_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        e_rel = max(_rel_err(g, w) for g, w in zip(got, want))
+        equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
         place = pr.plan_tiles(dims, cap, tile).describe() if resident \
-            else f"{cap.sms} CTAs"
+            else f"{pr.resident_chunk.last_grid['ctas']} CTAs"
         print(f"[35 probe] P1 vs plain {list(dims)} K={K} "
               f"{'resident' if resident else 'device memory'} ({place}): "
-              f"max |err| {e_abs:.3e}, {e_rel:.3e} of peak "
-              f"(gate {PROBE_REL:g})", flush=True)
-        if not e_rel <= PROBE_REL:
+              f"max |Δ| {e_abs:.3e}, equal {equal} (gate: to the bit)",
+              flush=True)
+        if not (equal and e_abs == 0.0):
             _fail(f"P1 disagrees with its plain version at {dims}, K={K}, "
                   f"resident={resident}")
-        err_abs, err_rel = max(err_abs, e_abs), max(err_rel, e_rel)
+        err_abs = max(err_abs, e_abs)
     big = torch.zeros(PROBE_STREAMED, device="cuda")
     before = pr.resident_chunk.launches
     try:
@@ -4121,9 +4137,92 @@ def phase_probe(torch, card):
           f"{plain_us:.1f}; device memory at {list(PROBE_STREAMED)} "
           f"{streamed['us_per_step']:.3f} us (bound "
           f"{streamed['bound_us']:.3f}) [{card}]", flush=True)
-    return {"launches": launches, "max_abs_err": err_abs,
-            "max_rel_err": err_rel, "row": row, "streamed": streamed,
-            "plain_us": plain_us, "sweep_s": sweep_s}
+    return {"launches": launches, "max_abs_err": err_abs, "row": row,
+            "streamed": streamed, "plain_us": plain_us, "sweep_s": sweep_s,
+            "occupancy": occ}
+
+
+# ---------------------------------------------------------------------------
+# the directional receiver on the mega route: tools/bench/mega_check.py
+
+MEGA_CHECK_REL = 5e-4      # the reference's forward_rel (MEGA_CHECK_r05.json)
+MEGA_CHECK_STEPS = 128
+MEGA_CHECK_CHUNK = 64
+
+
+def phase_mega_check(torch, card):
+    """The forward half of the reference's ``tools/bench/mega_check.py`` on
+    the card: the hall box of DX · (s − 4) for (224, 224, 256), absorption
+    0.12, fs 3333.33 Hz, a hard calibrated impulse at the centre and
+    ``make_directional_receiver`` 8 nodes off it in z, 128 steps through
+    ``run_waveguide_box`` (B1) and ``run_waveguide_box_mega(..., chunk=64)``
+    (B2).  Each output's max |Δ| over its peak ≤ 5e-4, both routes
+    ``stable``, exactly 128 B1 and 2 B2 launches.  The tool's
+    finite-difference half is left out (ROADMAP §C)."""
+    from wayverb_tpu_torch.core.environment import Environment
+    from wayverb_tpu_torch.core.geometry import Box
+    from wayverb_tpu_torch.waveguide import run as wgrun
+    from wayverb_tpu_torch.waveguide.box_fused import fused_step
+    from wayverb_tpu_torch.waveguide.box_mega import (mega_chunk,
+                                                      run_waveguide_box_mega)
+    from wayverb_tpu_torch.waveguide.descriptor import grid_spacing
+    from wayverb_tpu_torch.waveguide.receivers import \
+        make_directional_receiver
+    from wayverb_tpu_torch.waveguide.sources import (
+        HardSource, impulse_signal, rectilinear_calibration_factor)
+    env, fs, steps = Environment(), 3333.33, MEGA_CHECK_STEPS
+    dx = grid_spacing(env.speed_of_sound, 1.0 / fs)
+    box = Box((0, 0, 0), tuple(dx * (s - 4) for s in (224, 224, 256)))
+    t0 = time.perf_counter()
+    mesh = wgrun.shoebox_mesh(box, np.full((1, 8), 0.12), dx, fs,
+                              device="cuda")
+    setup_s = time.perf_counter() - t0
+    desc = mesh.descriptor
+    centre = np.asarray(box.centre())
+    src_loc = mesh.require_inside(tuple(centre))
+    rcv_loc = mesh.require_inside(tuple(centre + np.asarray([0, 0, 8 * dx])))
+    source = HardSource(
+        node_idx=desc.flat_index(src_loc),
+        signal=impulse_signal(steps, rectilinear_calibration_factor(
+            desc.spacing, env.acoustic_impedance), "cuda"))
+    receiver = make_directional_receiver(
+        desc, desc.sample_rate(env.speed_of_sound), env.ambient_density,
+        desc.position(rcv_loc), "cuda")
+    fused_step.launches = mega_chunk.launches = 0
+    t0 = time.perf_counter()
+    ref = wgrun.run_waveguide_box(mesh.structure, mesh.box_spec, source,
+                                  receiver, steps)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    b1 = fused_step.launches
+    t0 = time.perf_counter()
+    mega = run_waveguide_box_mega(mesh.structure, mesh.box_spec, source,
+                                  receiver, steps, chunk=MEGA_CHECK_CHUNK)
+    torch.cuda.synchronize()
+    mega_s = time.perf_counter() - t0
+    b2, b1_after = mega_chunk.launches, fused_step.launches
+    rel = {}
+    for k, name in enumerate(("intensity", "pressure")):
+        a, b = ref["outputs"][k], mega["outputs"][k]
+        rel[name] = float((a - b).abs().max()) \
+            / (float(a.abs().max()) + 1e-30)
+    stable = {"fused": bool(ref["stable"]), "mega": bool(mega["stable"])}
+    print(f"[44 mega check] {list(desc.dimensions)}, absorption 0.12, fs "
+          f"{fs} Hz, mesh {setup_s:.2f} s; directional receiver 8 nodes "
+          f"off the centre impulse in z, {steps} steps: fused (B1) "
+          f"{fused_s:.3f} s, {b1} B1 launches; mega (B2, chunk "
+          f"{MEGA_CHECK_CHUNK}) {mega_s:.3f} s, {b2} B2 launches; max |Δ| "
+          f"over peak: intensity {rel['intensity']:.3e}, pressure "
+          f"{rel['pressure']:.3e} (bound {MEGA_CHECK_REL:g}; the TPU's "
+          f"3.02e-07 / 6.34e-07); stable {stable} [{card}]", flush=True)
+    if not (max(rel.values()) <= MEGA_CHECK_REL and all(stable.values())
+            and b1 == steps and b1_after == steps
+            and b2 == steps // MEGA_CHECK_CHUNK):
+        _fail("the directional receiver's mega check failed")
+    return {"shape": list(desc.dimensions), "steps": steps,
+            "forward_rel": rel, "stable": stable, "b1_launches": b1,
+            "b2_launches": b2, "fused_s": fused_s, "mega_s": mega_s,
+            "setup_s": setup_s}
 
 
 # ---------------------------------------------------------------------------
@@ -5375,6 +5474,9 @@ def main():
     with _phase_wall("35 probe"):
         probe = phase_probe(torch, card)
     torch.cuda.empty_cache()
+    with _phase_wall("44 mega check"):
+        mega_check = phase_mega_check(torch, card)
+    torch.cuda.empty_cache()
     with _phase_wall("39 resumable thin"):
         resumable["thin"] = phase_resumable_thin(torch, card)
     with _phase_wall("40 project"):
@@ -5625,6 +5727,11 @@ def main():
         "mode": "resident",
         "tiles": probe["row"]["tiles"],
         "bytes_per_cta": probe["row"]["bytes_per_cta"],
+        **{k: probe["occupancy"]["resident"][k]
+           for k in ("registers", "local_bytes", "ctas_per_sm", "cluster",
+                     "clusters", "threads", "form")},
+        "one_cluster_occupancy": probe["occupancy"]["one_cluster"],
+        "device_memory_occupancy": probe["occupancy"]["device_memory"],
         "launches": counted["probe_resident"],
         "max_abs_err": probe["max_abs_err"],
         "ms": probe["row"]["us_per_step"] / 1e3,
@@ -5638,10 +5745,12 @@ def main():
         "launches_on": "the sweep of python -m "
                        "wayverb_tpu_torch.tools.probe_resident",
         "device_memory_shape": list(PROBE_STREAMED),
+        "device_memory_ctas": probe["streamed"]["tiles"],
         "device_memory_ms": probe["streamed"]["us_per_step"] / 1e3,
         "device_memory_bound_ms": probe["streamed"]["bound_us"] / 1e3,
         "sweep_s": probe["sweep_s"]}],
         "multiband_hall": multiband, "resumable": resumable,
+        "mega_check": mega_check,
         "project": project,
         "model_hall": model_hall, "large_hall": large_hall,
         "dda_on_card": dda, "columns_hall": columns,

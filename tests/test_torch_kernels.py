@@ -1781,7 +1781,19 @@ PROBE_CASES = [  # (dims, K, resident, tile): tile None is plan_tiles' choice
     ((12, 9, 7), 5, True, None), ((12, 9, 7), 5, False, None),
     ((12, 9, 7), 6, True, (5, 4, 3)), ((9, 10, 8), 1, True, (3, 3, 8)),
     ((15, 19, 21), 7, True, None), ((15, 19, 21), 7, False, None),
-    ((64, 224, 256), 4, True, None), ((64, 224, 256), 3, False, None)]
+    ((64, 224, 256), 4, True, None), ((64, 224, 256), 3, False, None),
+    # a cooperative grid of clusters: the worked placement, even and odd K
+    ((64, 224, 256), 3, True, None), ((64, 224, 256), 1, True, None),
+    ((32, 224, 256), 5, True, None),
+    # one cluster: the T30 box, (12, 9, 7) at K = 1 and 5, one CTA
+    ((15, 19, 21), 1, True, None), ((15, 19, 21), 2, True, (2, 19, 21)),
+    ((12, 9, 7), 1, True, None), ((12, 9, 7), 2, True, (12, 9, 7)),
+    # given tiles cut on each axis, clusters of 12, 8, 4 and 2
+    ((24, 10, 40), 5, True, (2, 5, 20)), ((24, 10, 40), 4, True, (1, 10, 40)),
+    ((24, 10, 40), 3, True, (1, 5, 20)), ((16, 12, 40), 4, True, (4, 6, 20)),
+    ((64, 224, 256), 5, True, (8, 28, 128)),
+    # device memory above the 50 MB L2
+    ((128, 224, 256), 3, False, None)]
 
 
 @pytest.mark.cuda
@@ -1789,8 +1801,9 @@ PROBE_CASES = [  # (dims, K, resident, tile): tile None is plan_tiles' choice
 def test_probe_resident_kernel_matches_plain(cuda_device, dims, K, resident,
                                              tile):
     """P1 in both modes against ``chunk_plain`` on the same tensors, to the
-    bit: X % 8 != 0, odd (Y, Z), odd K, tiles cut in x, y and z, the T30
-    box's grid and the worked placement (64, 224, 256)."""
+    bit: X % 8 != 0, odd (Y, Z), odd K, tiles cut in x, y and z, grids on
+    one cluster (the T30 box's among them) and on a cooperative grid of
+    clusters (the worked placement (64, 224, 256)), device memory."""
     from wayverb_tpu_torch.tools import probe_resident as pr
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     cur = torch.randn(dims, generator=gen, device=cuda_device)
@@ -1818,11 +1831,85 @@ def test_probe_resident_unplaceable_raises_before_launch(cuda_device):
         pr.resident_chunk(cur, cur.clone(), 2)
     with pytest.raises(ValueError):
         pr.resident_chunk(cur[:8], cur[:8].clone(), 2, tile=(8, 224, 256))
+    wide = torch.zeros((64, 238, 256), device=cuda_device)  # 136 tiles
+    with pytest.raises(ValueError):
+        pr.resident_chunk(wide, wide.clone(), 2, tile=(8, 14, 256))
     assert pr.resident_chunk.launches == before
     value = pr.make_run(15, 19, 21, 8, "cuda")(
         *pr.impulse_fields((15, 19, 21), cuda_device), 2)
     assert value.is_cuda and bool(torch.isfinite(value))
     assert pr.resident_chunk.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_probe_resident_occupancy(cuda_device):
+    """P1's launches on the card: the worked placement in clusters of 2,
+    each resident at once, at most 64 registers and no local memory; the
+    T30 box on one cluster; device memory on its persistent grid."""
+    from wayverb_tpu_torch.tools import probe_resident as pr
+    cap = pr.resident_capacity(cuda_device)
+    assert dict(cap.clusters)[2] >= 64 and cap.clusters_at_once(1) == cap.sms
+    occ = pr.occupancy((64, 224, 256), True, cuda_device)
+    assert (occ["form"], occ["cluster"], occ["tiles"]) == ("grid", 2, 128)
+    assert occ["registers"] <= 64 and occ["local_bytes"] == 0, occ
+    assert occ["ctas_per_sm"] >= 1 and occ["clusters"] >= 64, occ
+    occ = pr.occupancy((15, 19, 21), True, cuda_device)
+    assert occ["form"] == "one cluster" and occ["clusters"] >= 1, occ
+    assert occ["local_bytes"] == 0, occ
+    occ = pr.occupancy((128, 224, 256), False, cuda_device)
+    assert occ["form"] == "device memory" and occ["local_bytes"] == 0, occ
+    assert occ["index_bits"] == 32, occ
+    # the launch's persistent grid is resident at once
+    cur = torch.zeros((128, 224, 256), device=cuda_device)
+    pr.resident_chunk(cur, cur, 2, resident=False)
+    grid = pr.resident_chunk.last_grid
+    assert 1 <= grid["ctas"] <= occ["ctas_per_sm"] * cap.sms, grid
+    assert grid["threads"] == pr.STREAM_THREADS, grid
+
+
+@pytest.mark.cuda
+def test_probe_resident_device_memory_past_2_31_nodes(cuda_device):
+    """The device-memory form takes a 64-bit node index from 2^31 nodes on:
+    such a grid (8.6 GB a field) runs, without spills, its last planes to
+    the bit against ``chunk_plain`` of the planes they read."""
+    from wayverb_tpu_torch.tools import probe_resident as pr
+    dims = (2 ** 31 // (224 * 256) + 1, 224, 256)
+    occ = pr.occupancy(dims, False, cuda_device)
+    assert occ["index_bits"] == 64 and occ["local_bytes"] == 0, occ
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    cur = torch.zeros(dims, device=cuda_device)
+    prev = torch.zeros(dims, device=cuda_device)
+    cur[-3:] = torch.randn((3,) + dims[1:], generator=gen, device=cuda_device)
+    prev[-3:] = torch.randn((3,) + dims[1:], generator=gen,
+                            device=cuda_device)
+    assert cur.numel() >= 2 ** 31
+    new, old = pr.resident_chunk(cur, prev, 1, resident=False)
+    assert pr.resident_chunk.last_grid["ctas"] <= \
+        occ["ctas_per_sm"] * pr.resident_capacity(cuda_device).sms
+    want = pr.chunk_plain(cur[-3:], prev[-3:], 1)
+    torch.cuda.synchronize()
+    assert torch.equal(new[-2:], want[0][-2:])
+    assert torch.equal(old[-2:], cur[-2:])
+    del cur, prev, new, old
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_probe_step0_launches_are_accepted(cuda_device):
+    """Step 0 on the card: every barrier launch accepted, the cooperative
+    grids of clusters among them, at the clusters ``resident_capacity``
+    reads (the H100 SXM's are ``H100_CLUSTERS``)."""
+    from wayverb_tpu_torch.tools import probe_resident as pr
+    cap = pr.resident_capacity(cuda_device)
+    out = pr.step0(cuda_device, n=20)
+    assert out["smem_per_cta"] == cap.smem_per_cta
+    assert out["clusters_resident"] == {
+        c: cap.clusters_at_once(c) for c in pr.CLUSTER_SIZES}
+    assert all(isinstance(b["us"], float) for b in out["barriers"]), out
+    assert any(b["cooperative"] and b["cluster"] > 1
+               for b in out["barriers"]), out
+    if (cap.sms, cap.smem_per_cta) == (132, 232448):
+        assert cap.clusters == pr.H100_CLUSTERS
 
 
 @pytest.mark.cuda
