@@ -11,6 +11,8 @@ about 10 s each.  The CUDA kernel is held against the plain version on a
 GPU, in ``tests/test_torch_kernels.py``.
 """
 
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +25,9 @@ from wayverb_tpu.waveguide import receivers as j_rcv
 from wayverb_tpu.waveguide import sources as j_src
 from wayverb_tpu.waveguide.descriptor import grid_spacing
 from wayverb_tpu_torch import convert
+from wayverb_tpu_torch.core.geometry import Box as TBox
+from wayverb_tpu_torch.core.geometry import box_scene as t_box_scene
+from wayverb_tpu_torch.utils import events
 from wayverb_tpu_torch.waveguide import box_fused as tbf
 from wayverb_tpu_torch.waveguide import box_mega as tbm
 from wayverb_tpu_torch.waveguide import run as t_run
@@ -153,6 +158,72 @@ def test_run_waveguide_box_mega_matches_jax(meshes, steps, source_kind,
                                      steps, chunk=4)
     _assert_outputs_close(got["outputs"], want["outputs"])
     assert bool(got["stable"]) and bool(want["stable"])
+
+
+def _spans(fn):
+    """{name: count} of the ``wayverb.*`` spans ``fn()`` records under a CPU
+    profiler, and [(name, start, end)] of them."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    spans = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith(events.SPAN_PREFIX)]
+    return Counter(n for n, _, _ in spans), spans
+
+
+def test_spans_of_the_mega_run_and_its_gradient(meshes):
+    """One forward and one backward span a run, one chunk_bwd and one
+    theta_grads span a chunk inside the backward's; one replay span a
+    render."""
+    jm, tm = meshes
+    steps, chunk = 12, 4
+    _, _, ts, tr = _problem(jm, tm, steps, jm.require_inside(SRC),
+                            jm.require_inside(RCV), "hard", "directional")
+    f = tbm.mega_canonical_loss_fn(tm.structure, tm.box_spec, ts, tr, steps,
+                                   chunk=chunk)
+    fb, fa = (t.detach().requires_grad_(True)
+              for t in tbf.face_coefficients(tm.structure, tm.box_spec))
+    sig = ts.signal.clone().requires_grad_(True)
+
+    def gradient():
+        taps, _ = f(fb, fa, sig)
+        torch.sum(taps ** 2).backward()
+
+    counts, spans = _spans(gradient)
+    nchunks = steps // chunk
+    assert counts == {"wayverb.mega.forward": 1, "wayverb.mega.backward": 1,
+                      "wayverb.mega.chunk_bwd": nchunks,
+                      "wayverb.mega.theta_grads": nchunks}
+    (_, b0, b1), = [s for s in spans if s[0] == "wayverb.mega.backward"]
+    assert all(b0 <= s0 <= s1 <= b1 for n, s0, s1 in spans
+               if n in ("wayverb.mega.chunk_bwd", "wayverb.mega.theta_grads"))
+    assert fb.grad is not None and sig.grad is not None
+
+    counts, _ = _spans(lambda: tbm.run_waveguide_box_mega(
+        tm.structure, tm.box_spec, ts, tr, steps, chunk=chunk))
+    assert counts == {"wayverb.mega.forward": 1,
+                      "wayverb.mega.replay_taps": 1}
+
+
+def test_compute_mesh_timings_and_spans():
+    """``compute_mesh(timings=)`` of a box: the three stages, the
+    classifier and the box's regions, each stage also a span."""
+    events.reset_totals()
+    box = TBox((0, 0, 0), (1.4, 1.6, 1.8))
+    timings = {}
+    mesh = t_run.compute_mesh(t_box_scene(box), np.full((1, 8), 0.12), DX,
+                              FS, scene_box=box, device="cpu",
+                              timings=timings)
+    assert mesh.box_spec is not None
+    assert set(timings) == {"classify_s", "fit_s", "structure_s",
+                            "classifier", "regions_s"}
+    assert timings["classifier"] == "shoebox"
+    totals = events.totals()
+    for stage in ("classify", "fit", "structure", "regions"):
+        seconds, entries = totals[f"setup.{stage}"]
+        assert entries == 1 and seconds == timings[f"{stage}_s"] >= 0.0
+    events.reset_totals()
 
 
 @pytest.mark.parametrize("axis", [0, 1, 2])

@@ -6,7 +6,9 @@ ignores.  A library newer than its source and the shared headers
 (``csrc/*.cuh``) is reused.  ``--fmad=false``: every product and sum rounds
 on its own, as in the kernels' plain torch versions.  Building needs the
 CUDA toolkit, so it happens only when a kernel is launched on a CUDA tensor,
-never at import.
+never at import.  A library's first load is a ``kernels.load:<name>``
+span and a compilation a ``kernels.build:<name>`` span
+(``utils.events.span``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from wayverb_tpu_torch.utils import events
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build"
@@ -57,8 +61,9 @@ def build(name: str, force: bool = False) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}-",
                                suffix=".so")
     os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                          capture_output=True, text=True)
+    with events.span(f"kernels.build:{name}"):
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on {src.name} "
@@ -71,7 +76,8 @@ def build(name: str, force: bool = False) -> tuple[Path, str]:
 def load(name: str) -> ctypes.CDLL:
     """The built library ``name``, compiled first if it is missing or
     older than its source."""
-    return ctypes.CDLL(str(build(name)[0]))
+    with events.span(f"kernels.load:{name}"):
+        return ctypes.CDLL(str(build(name)[0]))
 
 
 @functools.cache

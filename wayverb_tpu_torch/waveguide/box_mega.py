@@ -60,6 +60,7 @@ from wayverb_tpu_torch.waveguide.box_fused import (PLANES, BoxSpec,
                                                    stacked_plane_shape,
                                                    unstack_planes)
 from wayverb_tpu_torch.waveguide.descriptor import COURANT, COURANT_SQ
+from wayverb_tpu_torch.utils import events
 
 DEFAULT_CHUNK = 128      # the reference's default K (swept on TPU only)
 
@@ -712,13 +713,15 @@ class _SeqTapView:
 
 def replay_taps(receiver, taps):
     """Run the receiver's per-step arithmetic over the (T, k) tap series;
-    returns the stacked per-step outputs (as ``run.run_waveguide_box``)."""
-    state = receiver.init_state(taps.dtype, taps.device)
-    per_step = []
-    for t in range(taps.shape[0]):
-        state, out = receiver.tap(_SeqTapView(taps[t]), state)
-        per_step.append(out)
-    return _stack_outputs(per_step)
+    returns the stacked per-step outputs (as ``run.run_waveguide_box``);
+    one ``mega.replay_taps`` span."""
+    with events.span("mega.replay_taps"):
+        state = receiver.init_state(taps.dtype, taps.device)
+        per_step = []
+        for t in range(taps.shape[0]):
+            state, out = receiver.tap(_SeqTapView(taps[t]), state)
+            per_step.append(out)
+        return _stack_outputs(per_step)
 
 
 class _MegaRun(torch.autograd.Function):
@@ -744,14 +747,15 @@ class _MegaRun(torch.autograd.Function):
         st, pln = zeros(order, 6, Umax, Vmax), zeros(3, 6, Umax, Vmax)
         bad = zeros(1)
         blocks, residuals = [], []
-        for c in range(nchunks):
-            out = mega_chunk(spec, sig[c * chunk:(c + 1) * chunk], face_b,
-                             face_a, cur, prev, st, pln, src, tap_idx,
-                             grad=grad)
-            cur, prev, st, pln, taps, b = out[:6]
-            blocks.append(taps)
-            residuals.extend(out[6:])
-            bad = bad + b
+        with events.span("mega.forward"):
+            for c in range(nchunks):
+                out = mega_chunk(spec, sig[c * chunk:(c + 1) * chunk],
+                                 face_b, face_a, cur, prev, st, pln, src,
+                                 tap_idx, grad=grad)
+                cur, prev, st, pln, taps, b = out[:6]
+                blocks.append(taps)
+                residuals.extend(out[6:])
+                bad = bad + b
         stable = (bad[0] == 0) & torch.all(torch.isfinite(cur))
         ctx.save_for_backward(face_b, face_a)
         ctx.residuals = residuals
@@ -761,39 +765,46 @@ class _MegaRun(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gtaps, _gstable):
-        face_b, face_a = ctx.saved_tensors
-        spec, chunk, src, tap_idx = ctx.run
-        residuals = ctx.residuals
-        if residuals is None:
-            raise RuntimeError(
-                "mega run: backward a second time, but the chunk residuals "
-                "were already freed by the first; run the forward again")
-        ctx.residuals = None
-        need_theta = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        dev = gtaps.device
-        order = face_b.shape[1] - 1
-        Umax, Vmax = stacked_plane_shape(spec)
-        zeros = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
-                                       device=dev)
-        gnext, gcur = zeros(*spec.dims), zeros(*spec.dims)
-        gst = zeros(order, 6, Umax, Vmax)
-        gfb = gfa = None
-        if need_theta:
-            gfb, gfa = torch.zeros_like(face_b), torch.zeros_like(face_a)
-        gtaps = gtaps.to(torch.float32)
-        gsig = [None] * len(residuals)
-        for c in range(len(residuals) - 1, -1, -1):
-            gnext, gcur, gst, gsig[c], gp_s, gstin_s = mega_chunk_bwd(
-                spec, face_b, face_a,
-                gtaps[c * chunk:(c + 1) * chunk].contiguous(), gnext, gcur,
-                gst, src, tap_idx)
+        with events.span("mega.backward"):
+            face_b, face_a = ctx.saved_tensors
+            spec, chunk, src, tap_idx = ctx.run
+            residuals = ctx.residuals
+            if residuals is None:
+                raise RuntimeError(
+                    "mega run: backward a second time, but the chunk "
+                    "residuals were already freed by the first; run the "
+                    "forward again")
+            ctx.residuals = None
+            need_theta = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+            dev = gtaps.device
+            order = face_b.shape[1] - 1
+            Umax, Vmax = stacked_plane_shape(spec)
+            zeros = lambda *s: torch.zeros(  # noqa: E731
+                s, dtype=torch.float32, device=dev)
+            gnext, gcur = zeros(*spec.dims), zeros(*spec.dims)
+            gst = zeros(order, 6, Umax, Vmax)
+            gfb = gfa = None
             if need_theta:
-                gfb_c, gfa_c = _chunk_theta_grads(
-                    spec, face_b, face_a, residuals[c], gp_s, gstin_s)
-                gfb += gfb_c
-                gfa += gfa_c
-            residuals[c] = None
-        return gfb, gfa, torch.cat(gsig), None, None, None, None, None
+                gfb = torch.zeros_like(face_b)
+                gfa = torch.zeros_like(face_a)
+            gtaps = gtaps.to(torch.float32)
+            gsig = [None] * len(residuals)
+            for c in range(len(residuals) - 1, -1, -1):
+                with events.span("mega.chunk_bwd"):
+                    gnext, gcur, gst, gsig[c], gp_s, gstin_s = \
+                        mega_chunk_bwd(
+                            spec, face_b, face_a,
+                            gtaps[c * chunk:(c + 1) * chunk].contiguous(),
+                            gnext, gcur, gst, src, tap_idx)
+                if need_theta:
+                    with events.span("mega.theta_grads"):
+                        gfb_c, gfa_c = _chunk_theta_grads(
+                            spec, face_b, face_a, residuals[c], gp_s,
+                            gstin_s)
+                        gfb += gfb_c
+                        gfa += gfa_c
+                residuals[c] = None
+            return gfb, gfa, torch.cat(gsig), None, None, None, None, None
 
 
 def mega_canonical_loss_fn(structure, spec: BoxSpec, source, receiver,

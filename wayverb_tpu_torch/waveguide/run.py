@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Any, Optional
 
 import numpy as np
@@ -68,6 +67,7 @@ from wayverb_tpu_torch.waveguide.stencil import (boundary_pressures,
                                                  prepare_boundary_tables,
                                                  waveguide_step_carried)
 from wayverb_tpu_torch.waveguide.stencil_kernels import interior_step
+from wayverb_tpu_torch.utils import events
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,9 +122,12 @@ def compute_mesh(soup: TriangleSoup, surface_absorption, spacing: float,
     outside the scene (a sharded run pads x to a multiple of its shard
     count).
 
-    ``timings``: optional dictionary that receives the seconds of the three
-    setup stages (``classify_s``, ``fit_s``, ``structure_s``) and, for a
-    general scene, the classifier that ran (``classifier``).
+    ``timings``: optional dictionary that receives the host seconds of the
+    three setup stages (``classify_s``, ``fit_s``, ``structure_s``), the
+    classifier that ran (``classifier``) and, for a box, the seconds of its
+    face surfaces, regions and plane spec (``regions_s``).  Each stage is a
+    span (``utils.events.span``: ``setup.classify``, ``setup.fit``,
+    ``setup.structure``, ``setup.regions``).
     """
     aabb = scene_box if scene_box is not None else scene_aabb(soup)
     if anchor is None:
@@ -134,44 +137,47 @@ def compute_mesh(soup: TriangleSoup, surface_absorption, spacing: float,
         adjusted, spacing,
         align=default_alignment() if align is None else tuple(align))
 
-    t0 = time.perf_counter()
-    if scene_box is not None:
-        inside = classify_inside_shoebox(desc, scene_box)
-        classifier = "shoebox"
-    else:
-        inside = classify_inside_scene(desc, soup, device=device)
-        classifier = classify_inside_scene.last_backend
-    t1 = time.perf_counter()
+    with events.span("setup.classify") as classify:
+        if scene_box is not None:
+            inside = classify_inside_shoebox(desc, scene_box)
+            classifier = "shoebox"
+        else:
+            inside = classify_inside_scene(desc, soup, device=device)
+            classifier = classify_inside_scene.last_backend
 
-    surface_absorption = np.asarray(surface_absorption)
-    coeffs = [bdry.compute_boundary_coefficients(surface_absorption[i],
-                                                 sample_rate)
-              for i in range(surface_absorption.shape[0])]
-    coef_b, coef_a = bdry.coefficient_table(coeffs)
-    t2 = time.perf_counter()
-    structure = build_structure(desc, inside, soup, coef_b, coef_a, device)
+    with events.span("setup.fit") as fit:
+        surface_absorption = np.asarray(surface_absorption)
+        coeffs = [bdry.compute_boundary_coefficients(surface_absorption[i],
+                                                     sample_rate)
+                  for i in range(surface_absorption.shape[0])]
+        coef_b, coef_a = bdry.coefficient_table(coeffs)
+    with events.span("setup.structure") as built:
+        structure = build_structure(desc, inside, soup, coef_b, coef_a,
+                                    device)
     if timings is not None:
-        timings.update(classify_s=t1 - t0, fit_s=t2 - t1,
-                       structure_s=time.perf_counter() - t2,
-                       classifier=classifier)
+        timings.update(classify_s=classify.seconds, fit_s=fit.seconds,
+                       structure_s=built.seconds, classifier=classifier)
 
     regions = None
     box_spec = None
     if scene_box is not None:
-        # surface per face from the closest triangle to each face centre
-        centre = np.asarray(scene_box.centre())
-        dims_m = np.asarray(scene_box.max_corner) - \
-            np.asarray(scene_box.min_corner)
-        face_centres = np.tile(centre, (6, 1))
-        for axis in range(3):
-            face_centres[2 * axis, axis] -= dims_m[axis] / 2
-            face_centres[2 * axis + 1, axis] += dims_m[axis] / 2
-        face_surfaces = _closest_triangle_surface(face_centres, soup)
-        regions = shoebox_regions(inside, face_surfaces)
-        try:
-            box_spec = spec_from_inside(inside, face_surfaces)
-        except ValueError:
-            box_spec = None   # degenerate box: the region path runs it
+        with events.span("setup.regions") as placed:
+            # surface per face from the closest triangle to each face centre
+            centre = np.asarray(scene_box.centre())
+            dims_m = np.asarray(scene_box.max_corner) - \
+                np.asarray(scene_box.min_corner)
+            face_centres = np.tile(centre, (6, 1))
+            for axis in range(3):
+                face_centres[2 * axis, axis] -= dims_m[axis] / 2
+                face_centres[2 * axis + 1, axis] += dims_m[axis] / 2
+            face_surfaces = _closest_triangle_surface(face_centres, soup)
+            regions = shoebox_regions(inside, face_surfaces)
+            try:
+                box_spec = spec_from_inside(inside, face_surfaces)
+            except ValueError:
+                box_spec = None   # degenerate box: the region path runs it
+        if timings is not None:
+            timings["regions_s"] = placed.seconds
 
     return Mesh(descriptor=desc, structure=structure, inside=inside,
                 room_volume=estimate_volume(desc, inside), regions=regions,
@@ -476,11 +482,12 @@ def canonical(mesh: Mesh, source_position, receiver_position,
               simulation_time: float, environment: Environment = Environment(),
               dtype=torch.float32) -> WaveguideOutput:
     """Calibrated impulse → directional receiver output, one band, on the
-    mesh's device (through ``execute``)."""
-    source, receiver, num_steps, fs = canonical_problem(
-        mesh, source_position, receiver_position, simulation_time,
-        environment)
-    result = execute(mesh, source, receiver, num_steps, dtype)
+    mesh's device (through ``execute``); one ``canonical`` span."""
+    with events.span("canonical"):
+        source, receiver, num_steps, fs = canonical_problem(
+            mesh, source_position, receiver_position, simulation_time,
+            environment)
+        result = execute(mesh, source, receiver, num_steps, dtype)
     intensity, pressure = result["outputs"]
     return WaveguideOutput(pressure=pressure, intensity=intensity,
                            sample_rate=fs, stable=result["stable"])
